@@ -1,0 +1,343 @@
+"""Building blocks of FasterViT in PyTorch (port of
+fastervit_tpu/models/layers.py).
+
+Convolutions run on NCHW feature maps; attention runs on token-major
+(B*nW, S, C) windows. Module and parameter names follow the upstream
+FasterViT state_dict, so an upstream checkpoint, or JAX variables through
+`fastervit_tpu_torch.utils.convert.state_dict_from_jax`, load as they are.
+The constant tables (CPB log coordinates, relative-position index, rank-2
+coordinate grid) are non-persistent buffers, made with torch.as_tensor on the
+default device, which `create_model` sets to the device it builds on.
+
+Numerics notes (as in the JAX package):
+* GELU is the exact-erf form (nn.GELU()).
+* BatchNorm eps is 1e-4 in the stem and 1e-5 elsewhere; LayerNorm eps is
+  1e-6 in Downsample (timm LayerNorm2d) and 1e-5 in the HAT blocks.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fastervit_tpu_torch.ops.attention import window_mhsa
+from fastervit_tpu_torch.ops.windows import (ct_dewindow, ct_window,
+                                             nearest_upsample_tokens)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm DropPath, scale_by_keep=True);
+    the identity in eval mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = x.new_empty((x.shape[0],) + (1,) * (x.ndim - 1)).bernoulli_(keep)
+        return x * mask / keep
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU (exact erf) -> fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.act = nn.GELU()
+        self.fc2 = nn.Linear(hidden_features, in_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+def _rank2_coords(seq_length: int) -> np.ndarray:
+    """Normalized square grid for PosEmbMLPSwinv1D rank 2 (the reference's
+    integer-division normalization, g // 2, is kept)."""
+    g = int(seq_length ** 0.5)
+    coords = np.arange(g, dtype=np.float32)
+    table = np.stack(np.meshgrid(coords, coords, indexing="ij"))  # (2, g, g)
+    table -= g // 2
+    table /= g // 2
+    return table.reshape(2, -1).T  # (g*g, 2), raster order
+
+
+class PosEmbMLPSwinv1D(nn.Module):
+    """Absolute position embedding: normalized rank-2 grid -> MLP(2 -> 512 ->
+    dim), added to the tokens."""
+
+    def __init__(self, dim: int, seq_length: int):
+        super().__init__()
+        self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
+                                     nn.Linear(512, dim, bias=False))
+        self.register_buffer("relative_coords_table",
+                             torch.as_tensor(_rank2_coords(seq_length)),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.cpb_mlp(self.relative_coords_table)[None]
+
+
+def _log_cpb_table(window_size: int) -> np.ndarray:
+    """Log-spaced relative-coordinate table (SwinV2 CPB, with the pretrained
+    window equal to the window)."""
+    rel = np.arange(-(window_size - 1), window_size, dtype=np.float32)
+    table = np.stack(np.meshgrid(rel, rel, indexing="ij"), axis=-1)
+    table /= window_size - 1
+    table *= 8.0
+    table = np.sign(table) * np.log2(np.abs(table) + 1.0) / np.log2(8.0)
+    return table.reshape(-1, 2).astype(np.float32)  # ((2w-1)^2, 2)
+
+
+def _relative_position_index(window_size: int) -> np.ndarray:
+    """(S, S) index into the CPB table, S = window_size^2."""
+    w = window_size
+    coords = np.stack(np.meshgrid(np.arange(w), np.arange(w), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = flat[:, :, None] - flat[:, None, :]  # (2, S, S)
+    rel = rel.transpose(1, 2, 0).copy()
+    rel[:, :, 0] += w - 1
+    rel[:, :, 1] += w - 1
+    rel[:, :, 0] *= 2 * w - 1
+    return rel.sum(-1)
+
+
+class PosEmbMLPSwinv2D(nn.Module):
+    """SwinV2-style continuous relative position bias, returned as a dense
+    (num_heads, seq_length, seq_length) tensor for the attention kernel.
+
+    16·sigmoid is applied to the small table before the gather (the two
+    commute). Carrier-token rows and columns, the seq_length - window² first
+    ones, are zero."""
+
+    def __init__(self, window_size: int, num_heads: int, seq_length: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_tokens = window_size * window_size
+        self.seq_length = seq_length
+        self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
+                                     nn.Linear(512, num_heads, bias=False))
+        self.register_buffer("relative_coords_table",
+                             torch.as_tensor(_log_cpb_table(window_size)),
+                             persistent=False)
+        index = _relative_position_index(window_size).reshape(-1)
+        self.register_buffer("relative_position_index",
+                             torch.as_tensor(index), persistent=False)
+
+    def forward(self) -> torch.Tensor:
+        table = 16.0 * torch.sigmoid(self.cpb_mlp(self.relative_coords_table))
+        s = self.window_tokens
+        bias = table[self.relative_position_index].reshape(s, s, self.num_heads)
+        bias = bias.permute(2, 0, 1)
+        n_global = self.seq_length - s
+        if n_global > 0:
+            bias = F.pad(bias, (n_global, 0, n_global, 0))
+        return bias.contiguous()
+
+
+class WindowAttention(nn.Module):
+    """MHSA over a window (plus the carrier tokens in front of it) with the
+    CPB bias: qkv -> bias -> window attention kernel -> proj."""
+
+    def __init__(self, dim: int, num_heads: int, resolution: int,
+                 seq_length: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.pos_emb_funct = PosEmbMLPSwinv2D(resolution, num_heads, seq_length)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ctx = window_mhsa(self.qkv(x), self.pos_emb_funct(), self.num_heads,
+                          self.scale)
+        return self.proj(ctx)
+
+
+class PatchEmbed(nn.Module):
+    """Stride-4 conv stem: (conv3x3 s2 -> BN eps 1e-4 -> ReLU) x 2."""
+
+    def __init__(self, in_chans: int, in_dim: int, dim: int):
+        super().__init__()
+        self.conv_down = nn.Sequential(
+            nn.Conv2d(in_chans, in_dim, 3, 2, 1, bias=False),
+            nn.BatchNorm2d(in_dim, eps=1e-4), nn.ReLU(),
+            nn.Conv2d(in_dim, dim, 3, 2, 1, bias=False),
+            nn.BatchNorm2d(dim, eps=1e-4), nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_down(x)
+
+
+class ConvBlock(nn.Module):
+    """Residual conv block: conv3x3 -> BN -> GELU -> conv3x3 -> BN, optional
+    layer scale, DropPath."""
+
+    def __init__(self, dim: int, drop_path: float = 0.0,
+                 layer_scale: Optional[float] = None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(dim, dim, 3, 1, 1)
+        self.norm1 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.act1 = nn.GELU()
+        self.conv2 = nn.Conv2d(dim, dim, 3, 1, 1)
+        self.norm2 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.gamma = (nn.Parameter(torch.full((dim,), float(layer_scale)))
+                      if layer_scale is not None else None)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm2(self.conv2(self.act1(self.norm1(self.conv1(x)))))
+        if self.gamma is not None:
+            y = y * self.gamma[:, None, None]
+        return x + self.drop_path(y)
+
+
+class LayerNorm2d(nn.LayerNorm):
+    """LayerNorm over the channels of an NCHW map (timm LayerNorm2d)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.layer_norm(x.permute(0, 2, 3, 1), self.normalized_shape,
+                         self.weight, self.bias, self.eps)
+        return x.permute(0, 3, 1, 2)
+
+
+class Downsample(nn.Module):
+    """LayerNorm2d (eps 1e-6) -> conv3x3 stride 2 (dim -> 2*dim, no bias)."""
+
+    def __init__(self, dim: int, keep_dim: bool = False):
+        super().__init__()
+        self.norm = LayerNorm2d(dim, eps=1e-6)
+        out = dim if keep_dim else 2 * dim
+        self.reduction = nn.Sequential(nn.Conv2d(dim, out, 3, 2, 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.reduction(self.norm(x))
+
+
+class TokenInitializer(nn.Module):
+    """Carrier-token initializer: depthwise conv position embedding, then an
+    average pool to a (ct*srH, ct*srW) grid, then a window-grouped flatten.
+
+    The pool's kernel and stride are integer math on the padded resolution
+    (for FasterViT-0 level 2: kernel 5, stride 3 on 14x14). The conv is
+    registered under two names, `pos_embed` and `to_global_feature.pos`, as
+    upstream registers it."""
+
+    def __init__(self, dim: int, input_resolution: Tuple[int, int],
+                 window_size: int, ct_size: int = 1):
+        super().__init__()
+        self.ct_size = ct_size
+        kernel, stride = [], []
+        for r in input_resolution:
+            out = int(ct_size * r / window_size)
+            stride.append(int(r / out))
+            kernel.append(r - (out - 1) * stride[-1])
+        self.pos_embed = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
+        self.to_global_feature = nn.Sequential()
+        self.to_global_feature.add_module("pos", self.pos_embed)
+        self.to_global_feature.add_module(
+            "pool", nn.AvgPool2d(tuple(kernel), tuple(stride)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, H, W) -> (B, hc*wc, C) carrier tokens, window-grouped."""
+        x = self.to_global_feature(x).permute(0, 2, 3, 1)  # (B, hc, wc, C)
+        b, hc, wc, c = x.shape
+        cs = self.ct_size
+        ct = x.reshape(b, hc // cs, cs, wc // cs, cs, c)
+        ct = ct.permute(0, 1, 3, 2, 4, 5)  # (B, nWh, nWw, cs, cs, C)
+        return ct.reshape(b, hc * wc, c)
+
+
+class HAT(nn.Module):
+    """Hierarchical-attention block.
+
+    Carrier tokens run a global MHSA in raster order, are re-grouped per
+    window and concatenated in front of the window tokens for a joint
+    windowed MHSA, then split back; the last block of a level can propagate
+    the carriers into the window tokens."""
+
+    def __init__(self, dim: int, num_heads: int, sr_ratio: Tuple[int, int],
+                 window_size: int, ct_size: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop_path: float = 0.0, layer_scale: Optional[float] = None,
+                 last: bool = False, do_propagation: bool = False):
+        super().__init__()
+        ws, cs = window_size, ct_size
+        self.window_size, self.ct_size = ws, cs
+        self.do_sr_hat = sr_ratio[0] > 1 or sr_ratio[1] > 1
+        self.propagate = last and do_propagation and self.do_sr_hat
+        self.cr_per_window = cs * cs if self.do_sr_hat else 0
+        self.grid = (cs * sr_ratio[0], cs * sr_ratio[1])
+        hidden = int(dim * mlp_ratio)
+
+        def gamma():
+            return (nn.Parameter(torch.full((dim,), float(layer_scale)))
+                    if layer_scale is not None else None)
+
+        self.pos_embed = PosEmbMLPSwinv1D(dim, seq_length=ws * ws)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, num_heads, resolution=ws,
+                                    seq_length=ws * ws + self.cr_per_window,
+                                    qkv_bias=qkv_bias, qk_scale=qk_scale)
+        self.drop_path = DropPath(drop_path)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, hidden)
+        self.gamma3, self.gamma4 = gamma(), gamma()
+        if self.do_sr_hat:
+            cr_total = self.grid[0] * self.grid[1]
+            self.hat_norm1 = nn.LayerNorm(dim, eps=1e-5)
+            self.hat_attn = WindowAttention(
+                dim, num_heads, resolution=int(cr_total ** 0.5),
+                seq_length=cr_total, qkv_bias=qkv_bias, qk_scale=qk_scale)
+            self.hat_drop_path = DropPath(drop_path)
+            self.hat_norm2 = nn.LayerNorm(dim, eps=1e-5)
+            self.hat_mlp = Mlp(dim, hidden)
+            self.hat_pos_embed = (PosEmbMLPSwinv1D(dim, seq_length=cr_total)
+                                  if sr_ratio[0] == sr_ratio[1] else None)
+            self.gamma1, self.gamma2 = gamma(), gamma()
+
+    @staticmethod
+    def _sub_block(x, norm1, attn, norm2, mlp, g_attn, g_mlp, drop_path):
+        """One pre-LN attention + MLP residual pair."""
+        y = attn(norm1(x))
+        x = x + drop_path(y if g_attn is None else g_attn * y)
+        y = mlp(norm2(x))
+        return x + drop_path(y if g_mlp is None else g_mlp * y)
+
+    def forward(self, x: torch.Tensor, ct: Optional[torch.Tensor]):
+        """x: (B*nW, ws*ws, C) window tokens; ct: (B, nW*cs*cs, C) carrier
+        tokens in window-grouped order, or None without carriers."""
+        b, _, c = x.shape
+        x = self.pos_embed(x)
+        if self.do_sr_hat:
+            gh, gw = self.grid
+            ct_shape = ct.shape
+            ct = ct_dewindow(ct, gh, gw, self.ct_size)
+            if self.hat_pos_embed is not None:
+                ct = self.hat_pos_embed(ct)
+            ct = self._sub_block(ct, self.hat_norm1, self.hat_attn,
+                                 self.hat_norm2, self.hat_mlp, self.gamma1,
+                                 self.gamma2, self.hat_drop_path)
+            ct = ct_window(ct, gh, gw, self.ct_size)
+            x = torch.cat([ct.reshape(b, self.cr_per_window, c), x], dim=1)
+
+        x = self._sub_block(x, self.norm1, self.attn, self.norm2, self.mlp,
+                            self.gamma3, self.gamma4, self.drop_path)
+
+        if self.do_sr_hat:
+            ctr, x = x[:, :self.cr_per_window], x[:, self.cr_per_window:]
+            ct = ctr.reshape(ct_shape)
+            if self.propagate:
+                # upsample each window's carrier patch into its tokens, in
+                # f32 as the reference does
+                up = nearest_upsample_tokens(ctr.float(), self.ct_size,
+                                             self.window_size).to(x.dtype)
+                x = x + (up if self.gamma1 is None else self.gamma1 * up)
+        return x, ct

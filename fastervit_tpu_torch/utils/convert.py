@@ -1,0 +1,91 @@
+"""Weights bridge from the JAX package to the port.
+
+`state_dict_from_jax(variables)` takes fastervit_tpu variables as a nested
+mapping of numpy arrays (`jax.device_get(model.init(...))`) and returns a
+state_dict that the port's model loads with `strict=True`. The key mapping
+and the transposes are those of fastervit_tpu/utils/convert.py
+(`torch_key_for_path`, `export_state_dict`); this module is plain Python and
+numpy and imports nothing of the JAX package.
+
+Layout transforms:
+  flax Dense kernel (in, out)        -> torch Linear weight (out, in)
+  flax Conv kernel  (kh, kw, I/g, O) -> torch Conv2d weight (O, I/g, kh, kw)
+  flax scale / mean / var            -> weight / running_mean / running_var
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# flax module names whose fc1/fc2 children are torch cpb_mlp Sequentials
+_CPB_PARENTS = {"pos_embed", "hat_pos_embed", "pos_emb_funct"}
+# patch_embed child -> index in the torch conv_down Sequential
+_PATCH_EMBED_IDX = {"conv1": "0", "norm1": "1", "conv2": "3", "norm2": "4"}
+_LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
+              "mean": "running_mean", "var": "running_var"}
+
+
+def torch_key_for_path(path: Tuple[str, ...]) -> str:
+    """Map a flax variable path (collection stripped) to the upstream
+    state_dict key (same mapping as fastervit_tpu.utils.convert)."""
+    parts = list(path)
+    leaf = parts.pop()
+    out = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if p.startswith("levels_"):
+            out.append("levels." + p[len("levels_"):])
+        elif p.startswith("blocks_"):
+            out.append("blocks." + p[len("blocks_"):])
+        elif p == "patch_embed" and nxt in _PATCH_EMBED_IDX:
+            out.append("patch_embed.conv_down." + _PATCH_EMBED_IDX[nxt])
+            i += 1
+        elif p == "global_tokenizer" and nxt == "pos_embed":
+            out.append("global_tokenizer.to_global_feature.pos")
+            i += 1
+        elif p == "downsample" and nxt == "reduction":
+            out.append("downsample.reduction.0")
+            i += 1
+        elif p in ("fc1", "fc2") and out and out[-1].split(".")[-1] in _CPB_PARENTS:
+            out.append("cpb_mlp." + ("0" if p == "fc1" else "2"))
+        else:
+            out.append(p)
+        i += 1
+    if leaf.startswith("gamma"):
+        return ".".join(out + [leaf])
+    return ".".join(out + [_LEAF_NAME[leaf]])
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} of numpy arrays -> the port's
+    state_dict (f32 tensors, plus an int64 num_batches_tracked of 0 for
+    every BatchNorm, which a strict load requires)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, val in _leaves(variables):
+        key = torch_key_for_path(path[1:])  # drop the collection name
+        arr = np.array(val, dtype=np.float32)  # a writable copy
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        if "global_tokenizer.to_global_feature.pos." in key:
+            # upstream registers the tokenizer conv under two names
+            sd[key.replace("to_global_feature.pos", "pos_embed")] = sd[key]
+        if key.endswith(".running_mean"):
+            sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return sd
