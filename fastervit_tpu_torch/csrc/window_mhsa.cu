@@ -39,25 +39,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using fastervit::from_f32;
+using fastervit::to_f32;
 
 constexpr int kMaxSeq = 128;     // MAX_SEQ in cuda_attention.py
 constexpr int kMaxHeadDim = 64;  // MAX_HEAD_DIM in cuda_attention.py
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared memory, in floats: q (S×hd), k (S×(hd+1), padded so that a warp
 // reading one column of k hits 32 banks), v (S×hd), logits (S×S).

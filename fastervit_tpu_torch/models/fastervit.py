@@ -18,9 +18,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fastervit_tpu_torch.models.config import FasterViTConfig
-from fastervit_tpu_torch.models.layers import (HAT, ConvBlock, Downsample,
-                                               LayerNorm2d, PatchEmbed,
-                                               TokenInitializer)
+from fastervit_tpu_torch.models.layers import (HAT, BatchNorm2d, ConvBlock,
+                                               Downsample, LayerNorm2d,
+                                               PatchEmbed, TokenInitializer)
 from fastervit_tpu_torch.ops.windows import window_partition, window_reverse
 
 
@@ -124,7 +124,7 @@ class FasterViT(nn.Module):
         self.levels = _build_levels(cfg)
         self.norm = (LayerNorm2d(cfg.num_features, eps=1e-6)
                      if cfg.layer_norm_last
-                     else nn.BatchNorm2d(cfg.num_features, eps=1e-5))
+                     else BatchNorm2d(cfg.num_features, eps=1e-5))
         self.head = (nn.Linear(cfg.num_features, cfg.num_classes)
                      if cfg.num_classes > 0 else nn.Identity())
 

@@ -30,18 +30,61 @@ from fastervit_tpu_torch.ops.windows import (ct_dewindow, ct_window,
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm DropPath, scale_by_keep=True);
-    the identity in eval mode."""
+    the identity in eval mode. The mask is per entry of dim 0, which inside
+    a HAT block is per window, as in the JAX package.
+
+    Its bits come from `generator`, a torch.Generator on the input's device
+    that the train step hands to the model for each step
+    (`set_drop_path_generator`); training with rate > 0 and no generator
+    raises."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in training mode needs a generator: "
+                               "call set_drop_path_generator(model, gen)")
         keep = 1.0 - self.rate
-        mask = x.new_empty((x.shape[0],) + (1,) * (x.ndim - 1)).bernoulli_(keep)
+        mask = torch.empty((x.shape[0],) + (1,) * (x.ndim - 1),
+                           dtype=x.dtype, device=x.device)
+        mask.bernoulli_(keep, generator=self.generator)
         return x * mask / keep
+
+
+def set_drop_path_generator(model: nn.Module,
+                            generator: Optional[torch.Generator]) -> None:
+    """Hand `generator` to every DropPath of `model`."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d with flax's running-statistics update: in training mode it
+    normalises with the batch statistics and sets
+    running_mean = 0.9·running_mean + 0.1·mean and
+    running_var = 0.9·running_var + 0.1·var, with the *biased* batch
+    variance, which flax's BatchNorm(momentum=0.9) uses (torch's own layer
+    takes the unbiased one). The statistics are reduced in f32. Evaluation
+    and the state_dict keys are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class Mlp(nn.Module):
@@ -168,9 +211,9 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.conv_down = nn.Sequential(
             nn.Conv2d(in_chans, in_dim, 3, 2, 1, bias=False),
-            nn.BatchNorm2d(in_dim, eps=1e-4), nn.ReLU(),
+            BatchNorm2d(in_dim, eps=1e-4), nn.ReLU(),
             nn.Conv2d(in_dim, dim, 3, 2, 1, bias=False),
-            nn.BatchNorm2d(dim, eps=1e-4), nn.ReLU())
+            BatchNorm2d(dim, eps=1e-4), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_down(x)
@@ -184,10 +227,10 @@ class ConvBlock(nn.Module):
                  layer_scale: Optional[float] = None):
         super().__init__()
         self.conv1 = nn.Conv2d(dim, dim, 3, 1, 1)
-        self.norm1 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.norm1 = BatchNorm2d(dim, eps=1e-5)
         self.act1 = nn.GELU()
         self.conv2 = nn.Conv2d(dim, dim, 3, 1, 1)
-        self.norm2 = nn.BatchNorm2d(dim, eps=1e-5)
+        self.norm2 = BatchNorm2d(dim, eps=1e-5)
         self.gamma = (nn.Parameter(torch.full((dim,), float(layer_scale)))
                       if layer_scale is not None else None)
         self.drop_path = DropPath(drop_path)

@@ -85,13 +85,14 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_model(name: str, dtype: torch.dtype = torch.float32,
-                 device: Any = "cpu",
+                 device: Any = "cuda",
                  generator: Optional[torch.Generator] = None,
                  **overrides) -> FasterViT:
     """Build a FasterViT by name with random weights.
 
-    The model is built on `device` (on "meta", no weights are allocated and
-    none are drawn), its weights drawn from `generator` (a CPU generator;
+    The model is built on `device`, the card unless the caller asks for
+    another ("cpu"; on "meta", no weights are allocated and none are drawn),
+    its weights drawn from `generator` (a CPU generator;
     seed 0 if None), then cast to `dtype`. Overrides are config fields, as in
     `get_config`. Returns the module in training mode, as upstream does;
     call `.eval()` for inference."""

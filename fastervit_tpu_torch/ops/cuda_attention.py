@@ -1,13 +1,14 @@
-"""Build, binding and launch of the hand-written window-attention kernel
-(csrc/window_mhsa.cu), the Hopper counterpart of
-fastervit_tpu/ops/pallas_attention.py::_mhsa_kernel.
+"""Build, binding and launch of the hand-written window-attention kernels,
+the Hopper counterparts of fastervit_tpu/ops/pallas_attention.py's
+`_mhsa_kernel` (K1, csrc/window_mhsa.cu) and `_mhsa_bwd_kernel` (K2,
+csrc/window_mhsa_bwd.cu).
 
-The kernel is compiled by nvcc at first use, from the package's own sources,
-into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources and the
-flags), and loaded with ctypes. A failed build, an unsupported shape or a
-failed launch raises; nothing falls back to the plain PyTorch version.
-Nothing here needs nvcc or a card until a CUDA tensor reaches
-`window_mhsa_cuda`, so the module imports on a machine without either.
+The kernels are compiled by nvcc at first use, from the package's own
+sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
+and the flags), and loaded with ctypes. A failed build, an unsupported shape
+or a failed launch raises; nothing falls back to the plain PyTorch version.
+Nothing here needs nvcc or a card until a CUDA tensor reaches a wrapper, so
+the module imports on a machine without either.
 """
 from __future__ import annotations
 
@@ -16,18 +17,23 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 MAX_SEQ = 128       # kMaxSeq in csrc/window_mhsa.cu
 MAX_HEAD_DIM = 64   # kMaxHeadDim in csrc/window_mhsa.cu
+BWD_MAX_SEQ = 64       # kMaxSeq in csrc/window_mhsa_bwd.cu
+BWD_MAX_HEAD_DIM = 64  # kMaxHeadDim in csrc/window_mhsa_bwd.cu
+# K2 gives each block one head and a run of windows; this many blocks fill
+# an H100's 132 SMs four times over.
+_BWD_TARGET_BLOCKS = 4 * 132
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG_DIR / "csrc"
 _BUILD_DIR = _PKG_DIR / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -43,10 +49,25 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds: Sequence[Sequence[str]]) -> str:
+    """Run the commands at once; raise if any fails. Returns their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into one shared library unless a library built from
-    the same sources and flags exists; returns its path. nvcc's output
-    (ptxas' register and shared-memory report) is kept beside it as .log."""
+    the same sources and flags exists; returns its path. Each source is
+    compiled by its own nvcc, all started together, then linked. nvcc's
+    output (ptxas' register and shared-memory report) is kept beside the
+    library as .log."""
     sources = sorted(_SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in sorted(_SRC_DIR.glob("*.cu*")):
@@ -56,12 +77,14 @@ def build() -> Path:
         return lib
     _BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
+    log = _run_all([[nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objs)])
+    log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
+    lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)
     return lib
 
@@ -74,6 +97,10 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_void_p])
         lib.window_mhsa_forward.restype = ctypes.c_int
+        lib.window_mhsa_backward.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.window_mhsa_backward.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -105,21 +132,55 @@ def check_supported(qkv_shape: Sequence[int], bias_shape: Sequence[int],
         raise ValueError(f"B*H={b * num_heads} exceeds the launch grid")
 
 
-def window_mhsa_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
-                     scale: float) -> torch.Tensor:
-    """softmax(q kᵀ·scale + bias) v per window and head, on the card.
-    qkv: (B, S, 3C) f32 or bf16, channels (3, H, hd); bias: (H, S, S) f32 or
-    bf16. Returns (B, S, C) in qkv's dtype. Counts its launches in
-    `window_mhsa_cuda.launches`."""
-    if qkv.device.type != "cuda" or bias.device != qkv.device:
-        raise ValueError(f"qkv and bias must be on one CUDA device, got "
-                         f"{qkv.device} and {bias.device}")
+def check_supported_backward(qkv_shape: Sequence[int],
+                             bias_shape: Sequence[int],
+                             num_heads: int) -> None:
+    """Raise unless the backward kernel takes these shapes: those of
+    `check_supported`, with S <= BWD_MAX_SEQ (64) and hd <= BWD_MAX_HEAD_DIM
+    (64). Its block keeps q, k, v, g, P, dl and the dbias sum of one window
+    and head in shared memory: 115 KB at S = hd = 64, of the 227 KB a block
+    may have."""
+    check_supported(qkv_shape, bias_shape, num_heads)
+    s, hd = qkv_shape[1], qkv_shape[2] // 3 // num_heads
+    if s > BWD_MAX_SEQ or hd > BWD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the window-attention backward kernel takes S <= {BWD_MAX_SEQ} "
+            f"and head_dim <= {BWD_MAX_HEAD_DIM}, got S={s}, head_dim={hd}")
+
+
+def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
+                  *more: torch.Tensor) -> None:
+    """Device, dtype and contiguity of a wrapper's tensors (shapes are
+    checked by check_supported*)."""
+    tensors = (qkv, bias, *more)
+    if qkv.device.type != "cuda" or any(t.device != qkv.device
+                                        for t in tensors):
+        raise ValueError("inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
     if qkv.dtype not in _DTYPES or bias.dtype not in _DTYPES:
         raise TypeError(f"qkv and bias must be float32 or bfloat16, got "
                         f"{qkv.dtype} and {bias.dtype}")
+    if any(t.dtype != qkv.dtype for t in more):
+        raise TypeError(f"g must have qkv's dtype {qkv.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{_library().cuda_error_string(err).decode()} "
+                           f"({err})")
+
+
+def window_mhsa_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                     scale: float) -> torch.Tensor:
+    """softmax(q kᵀ·scale + bias) v per window and head, on the card (K1).
+    qkv: (B, S, 3C) f32 or bf16, channels (3, H, hd); bias: (H, S, S) f32 or
+    bf16. Returns (B, S, C) in qkv's dtype. Counts its launches in
+    `window_mhsa_cuda.launches`."""
     check_supported(qkv.shape, bias.shape, num_heads)
-    if not (qkv.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("qkv and bias must be contiguous")
+    _check_inputs(qkv, bias)
     b, s, c3 = qkv.shape
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
@@ -131,11 +192,53 @@ def window_mhsa_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
             num_heads, int(qkv.dtype == torch.bfloat16),
             int(bias.dtype == torch.bfloat16), float(scale),
             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("window_mhsa kernel launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    _raise_on(err, "window_mhsa")
     window_mhsa_cuda.launches += 1
     return out
 
 
 window_mhsa_cuda.launches = 0
+
+
+def backward_grid(batch: int, num_heads: int) -> Tuple[int, int]:
+    """(windows per block, groups) of K2's (heads, groups) grid: about
+    _BWD_TARGET_BLOCKS blocks, every group non-empty."""
+    groups = min(batch, max(1, -(-_BWD_TARGET_BLOCKS // num_heads)))
+    per_block = -(-batch // groups)
+    return per_block, -(-batch // per_block)
+
+
+def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                              g: torch.Tensor, num_heads: int, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of window attention on the card (K2): (dqkv, dbias) for
+    the output gradient g (B, S, C), with qkv (B, S, 3C) and bias (H, S, S)
+    as the forward took them. dqkv is in qkv's dtype, dbias in bias's; dbias
+    is summed over the windows in f32, in a fixed order. Counts its launches
+    in `window_mhsa_backward_cuda.launches`."""
+    check_supported_backward(qkv.shape, bias.shape, num_heads)
+    _check_inputs(qkv, bias, g)
+    b, s, c3 = qkv.shape
+    if tuple(g.shape) != (b, s, c3 // 3):
+        raise ValueError(f"g must be {(b, s, c3 // 3)}, got {tuple(g.shape)}")
+    dqkv = torch.empty_like(qkv)
+    if b == 0:
+        return dqkv, torch.zeros_like(bias)
+    dbias = torch.empty_like(bias)
+    per_block, groups = backward_grid(b, num_heads)
+    partial = torch.empty((groups,) + tuple(bias.shape), dtype=torch.float32,
+                          device=qkv.device)
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        err = lib.window_mhsa_backward(
+            qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            dbias.data_ptr(), partial.data_ptr(), b, s, c3 // 3, num_heads,
+            per_block, groups, int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "window_mhsa_backward")
+    window_mhsa_backward_cuda.launches += 1
+    return dqkv, dbias
+
+
+window_mhsa_backward_cuda.launches = 0

@@ -1,0 +1,311 @@
+"""ImageNet training CLI (port of fastervit_tpu/train/train.py; reference
+fastervit/train.py:379-951) on one device: the card unless `--device cpu`.
+
+A config file sets the defaults and the command line overrides them
+(reference train.py:75-77, 363-377). The configs (configs/*.yaml) are flat
+`key: value` lists, read by a small parser of that form, since the machine
+with the card has no YAML package.
+
+    python -m fastervit_tpu_torch.train.train \
+        --config configs/faster_vit_0_224_1k.yaml --synthetic --output out/
+
+What runs: synthetic loaders (`--synthetic`, or no --data-dir), the train
+step of `fastervit_tpu_torch.train.steps` (mixup, bf16 autocast, MESA, clip,
+adamw/lamb, EMA), the mixup-off final epochs, eval of the model and of its
+EMA, the NaN guard, summary.csv and a snapshot of the package's sources in
+<output>/code_copy. Flags whose machinery is not ported raise
+NotImplementedError naming their ROADMAP item: --data-dir without
+--synthetic, --lmdb-dataset, --resume, --loadcheckpoint, --tensorboard,
+--log-wandb and --grad-checkpointing. The port writes no checkpoints yet,
+so --auto-resume has nothing to find and every run starts at step 0.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import math
+import os
+import shutil
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from fastervit_tpu_torch.data.synthetic import SyntheticLoader
+from fastervit_tpu_torch.models.registry import create_model
+from fastervit_tpu_torch.train.mixup import MixupConfig
+from fastervit_tpu_torch.train.schedule import (ScheduleConfig,
+                                                create_scheduler)
+from fastervit_tpu_torch.train.steps import (TrainConfig, create_train_state,
+                                             make_eval_step, make_train_step)
+from fastervit_tpu_torch.utils.metrics import AverageMeter, update_summary
+
+log = logging.getLogger("fastervit_tpu_torch.train")
+
+_NOT_PORTED = {
+    "lmdb_dataset": "--lmdb-dataset (ROADMAP.md queue 1 item 9: the "
+                    "ImageNet/LMDB loaders)",
+    "resume": "--resume (ROADMAP.md queue 1 item 13: checkpoints)",
+    "loadcheckpoint": "--loadcheckpoint (ROADMAP.md queue 1 item 13: "
+                      "checkpoints)",
+    "tensorboard": "--tensorboard (ROADMAP.md queue 1 item 9: logging)",
+    "log_wandb": "--log-wandb (ROADMAP.md queue 1 item 9: logging)",
+    "grad_checkpointing": "--grad-checkpointing (ROADMAP.md queue 1 item 9)",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("-c", "--config", default="",
+                   help="flat `key: value` YAML config with defaults")
+    p.add_argument("--model", default="faster_vit_0_224")
+    p.add_argument("--model-kwargs", default="",
+                   help="JSON kwargs forwarded to create_model "
+                        "(e.g. '{\"resolution\": 288}')")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on ('cuda', 'cuda:1', 'cpu')")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--lmdb-dataset", action="store_true")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--num-classes", type=int, default=1000)
+    p.add_argument("-b", "--batch-size", type=int, default=128)
+    p.add_argument("--epochs", type=int, default=310)
+    p.add_argument("--warmup-epochs", type=int, default=20)
+    p.add_argument("--cooldown-epochs", type=int, default=10)
+    p.add_argument("--sched", default="cosine")
+    p.add_argument("--lr", type=float, default=5e-3)
+    p.add_argument("--min-lr", type=float, default=5e-6)
+    p.add_argument("--warmup-lr", type=float, default=1e-6)
+    p.add_argument("--data-len", type=int, default=1281167)
+    p.add_argument("--opt", default="adamw")
+    p.add_argument("--weight-decay", type=float, default=0.05)
+    p.add_argument("--clip-grad", type=float, default=5.0)
+    p.add_argument("--smoothing", type=float, default=0.1)
+    p.add_argument("--bce-loss", action="store_true")
+    p.add_argument("--mixup", type=float, default=0.8)
+    p.add_argument("--cutmix", type=float, default=1.0)
+    p.add_argument("--mixup-prob", type=float, default=1.0)
+    p.add_argument("--mixup-switch-prob", type=float, default=0.5)
+    p.add_argument("--mixup-off-epoch", type=int, default=0)
+    p.add_argument("--model-ema", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--model-ema-decay", type=float, default=0.9998)
+    p.add_argument("--mesa", type=float, default=0.0)
+    p.add_argument("--mesa-start-ratio", type=float, default=0.25)
+    p.add_argument("--drop-path", type=float, default=None)
+    p.add_argument("--grad-checkpointing", action="store_true")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--resume", default="")
+    p.add_argument("--auto-resume", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="kept for the reference's command lines; the port "
+                        "writes no checkpoints yet, so there is nothing to "
+                        "resume from")
+    p.add_argument("--loadcheckpoint", default="")
+    p.add_argument("--output", default="./output")
+    p.add_argument("--log-interval", type=int, default=50)
+    p.add_argument("--eval-metric", default="top1")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--log-wandb", action="store_true")
+    return p
+
+
+def _scalar(text: str):
+    """A flat-YAML scalar: bool, int, float or string (quotes stripped)."""
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("null", "~", ""):
+        return None
+    for kind in (int, float):
+        try:
+            return kind(text)
+        except ValueError:
+            pass
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    return text
+
+
+def read_flat_yaml(path: str) -> Dict[str, object]:
+    """Read a YAML file of top-level `key: value` lines (comments and blank
+    lines allowed), the form of configs/*.yaml. Raises on anything else."""
+    out: Dict[str, object] = {}
+    with open(path) as f:
+        for n, raw in enumerate(f, 1):
+            line = raw.split(" #", 1)[0].rstrip()
+            if not line.strip() or line.lstrip().startswith("#"):
+                continue
+            key, sep, value = line.partition(":")
+            if not sep or raw[0].isspace() or not key.strip():
+                raise ValueError(f"{path}:{n}: not a flat `key: value` line: "
+                                 f"{raw.rstrip()!r}")
+            out[key.strip()] = _scalar(value.strip())
+    return out
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """Config file sets the defaults, the command line overrides them."""
+    parser = build_argparser()
+    args, _ = parser.parse_known_args(argv)
+    if args.config:
+        cfg = read_flat_yaml(args.config)
+        known = {a.dest for a in parser._actions}
+        parser.set_defaults(**{k: v for k, v in cfg.items() if k in known})
+    return parser.parse_args(argv)
+
+
+def _check_ported(args: argparse.Namespace) -> None:
+    for dest, what in _NOT_PORTED.items():
+        if getattr(args, dest):
+            raise NotImplementedError(f"{what} is not ported yet")
+    if args.data_dir and not args.synthetic:
+        raise NotImplementedError(
+            "only synthetic data is ported; the ImageNet loaders behind "
+            "--data-dir are not (ROADMAP.md queue 1 item 9)")
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is visible; "
+                           "pass --device cpu to train on the CPU")
+    if device.type == "cuda" and (device.index or 0) >= \
+            torch.cuda.device_count():
+        raise RuntimeError(f"--device {name}: only "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
+    return device
+
+
+def _snapshot_code(output_dir: str) -> None:
+    """Copy the package's .py sources into output/code_copy (reference
+    train.py:723-731)."""
+    src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(src, os.path.join(output_dir, "code_copy"),
+                    dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__", "_build"))
+
+
+def train(args: argparse.Namespace) -> dict:
+    _check_ported(args)
+    device = _device(args.device)
+    os.makedirs(args.output, exist_ok=True)
+    _snapshot_code(args.output)
+    dtype = getattr(torch, args.dtype)
+    overrides = {"num_classes": args.num_classes}
+    if args.drop_path is not None:
+        overrides["drop_path_rate"] = args.drop_path
+    if args.model_kwargs:
+        overrides.update(json.loads(args.model_kwargs))
+    model = create_model(args.model, device=device,
+                         generator=torch.Generator().manual_seed(args.seed),
+                         **overrides)
+
+    sched_cfg = ScheduleConfig(
+        sched=args.sched, lr=args.lr, min_lr=args.min_lr,
+        warmup_lr=args.warmup_lr, epochs=args.epochs,
+        warmup_epochs=args.warmup_epochs, cooldown_epochs=args.cooldown_epochs,
+        data_len=args.data_len, batch_size=args.batch_size, world_size=1)
+    schedule_fn, total_iters = create_scheduler(sched_cfg)
+    steps_per_epoch = max(args.data_len // args.batch_size, 1)
+    num_epochs = math.ceil(total_iters / steps_per_epoch)
+
+    mixup = None
+    if args.mixup > 0 or args.cutmix > 0:
+        mixup = MixupConfig(mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+                            prob=args.mixup_prob,
+                            switch_prob=args.mixup_switch_prob,
+                            label_smoothing=args.smoothing,
+                            num_classes=args.num_classes)
+    tcfg = TrainConfig(
+        clip_grad=args.clip_grad, weight_decay=args.weight_decay, opt=args.opt,
+        ema_decay=args.model_ema_decay, use_ema=args.model_ema,
+        smoothing=args.smoothing, bce_loss=args.bce_loss, mixup=mixup,
+        mesa=args.mesa,
+        mesa_start_step=int(args.mesa_start_ratio * args.epochs
+                            * steps_per_epoch))
+    state = create_train_state(model, tcfg)
+    train_step = make_train_step(tcfg, schedule_fn, dtype, args.seed)
+    # mixup off for the final epochs (reference --mixup-off-epoch,
+    # train.py:825-829)
+    train_step_nomix = None
+    if args.mixup_off_epoch and mixup is not None:
+        train_step_nomix = make_train_step(
+            dataclasses.replace(tcfg, mixup=None), schedule_fn, dtype,
+            args.seed)
+    eval_step = make_eval_step(dtype)
+
+    train_loader = SyntheticLoader(model.cfg.data, args.batch_size,
+                                   num_batches=min(steps_per_epoch, 32),
+                                   num_classes=args.num_classes)
+    eval_loader = SyntheticLoader(model.cfg.data, args.batch_size,
+                                  num_batches=4, num_classes=args.num_classes,
+                                  seed=1)
+
+    def run_eval(m: torch.nn.Module) -> dict:
+        totals = {"loss_sum": 0.0, "top1": 0, "top5": 0, "count": 0}
+        for batch in eval_loader:
+            for k, v in eval_step(m, batch).items():
+                totals[k] += v.item()
+        n = max(totals["count"], 1)
+        return {"loss": totals["loss_sum"] / n,
+                "top1": 100.0 * totals["top1"] / n,
+                "top5": 100.0 * totals["top5"] / n}
+
+    best = -float("inf")
+    summary_path = os.path.join(args.output, "summary.csv")
+    for epoch in range(num_epochs):
+        step_fn = train_step
+        if (train_step_nomix is not None
+                and epoch >= num_epochs - args.mixup_off_epoch):
+            step_fn = train_step_nomix
+        loss_m, rate_m = AverageMeter(), AverageMeter()
+        t_last, i_last = time.perf_counter(), -1
+        for i, batch in enumerate(train_loader):
+            batch = {k: v for k, v in batch.items() if k != "valid"}
+            metrics = step_fn(state, batch)
+            if i % args.log_interval == 0 or i == len(train_loader) - 1:
+                loss = metrics["loss"].item()
+                if not np.isfinite(loss):
+                    # NaN guard (reference train.py:794-810)
+                    log.error("non-finite loss at epoch %d it %d", epoch, i)
+                    raise FloatingPointError("training loss is non-finite")
+                now = time.perf_counter()
+                rate = args.batch_size * (i - i_last) / (now - t_last)
+                t_last, i_last = now, i
+                loss_m.update(loss)
+                rate_m.update(rate)
+                log.info("epoch %d it %d/%d loss %.4f lr %.2e %.0f img/s",
+                         epoch, i, len(train_loader), loss, metrics["lr"],
+                         rate)
+
+        eval_m = run_eval(state.model)
+        log.info("epoch %d eval: %s", epoch, eval_m)
+        if state.ema_model is not None:
+            ema_m = run_eval(state.ema_model)
+            log.info("epoch %d EMA eval: %s", epoch, ema_m)
+            if ema_m["top1"] >= eval_m["top1"]:
+                eval_m = {**ema_m, "ema": 1}
+        if not np.isfinite(eval_m["loss"]):
+            log.error("eval loss non-finite; aborting (NaN guard)")
+            raise FloatingPointError("eval loss is non-finite")
+        best = max(best, eval_m[args.eval_metric])
+        update_summary(epoch, {"loss": loss_m.avg, "img_s": rate_m.avg},
+                       eval_m, summary_path, write_header=(epoch == 0))
+    return {"best_" + args.eval_metric: best}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    logging.basicConfig(level=logging.INFO)
+    return train(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

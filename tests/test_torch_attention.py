@@ -66,10 +66,15 @@ def test_cpu_dispatch_takes_the_plain_version():
     assert torch.equal(got, window_mhsa_reference(qkv, bias, 8, 32 ** -0.5))
 
 
-def test_cuda_wrapper_refuses_cpu_tensors():
+@pytest.mark.parametrize("backward", [False, True])
+def test_cuda_wrapper_refuses_cpu_tensors(backward):
     qkv, bias = map(torch.from_numpy, _make(2, 16, 2, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_attention.window_mhsa_cuda(qkv, bias, 2, 0.1)
+        if backward:
+            cuda_attention.window_mhsa_backward_cuda(
+                qkv, bias, torch.zeros(2, 16, 16), 2, 0.1)
+        else:
+            cuda_attention.window_mhsa_cuda(qkv, bias, 2, 0.1)
 
 
 @pytest.mark.parametrize("s", [576, 1024, 2304])

@@ -66,10 +66,11 @@ def test_param_counts_match_reference(name):
 def test_create_model_dtype_and_seed():
     kw = dict(depths=[1, 1, 1, 1], num_heads=[1, 2, 4, 8], dim=16, in_dim=8,
               resolution=64, num_classes=10)
-    a = create_model("faster_vit_0_224", generator=torch.Generator()
-                     .manual_seed(3), **kw)
-    b = create_model("faster_vit_0_224", generator=torch.Generator()
-                     .manual_seed(3), dtype=torch.bfloat16, **kw)
+    a = create_model("faster_vit_0_224", device="cpu",
+                     generator=torch.Generator().manual_seed(3), **kw)
+    b = create_model("faster_vit_0_224", device="cpu",
+                     generator=torch.Generator().manual_seed(3),
+                     dtype=torch.bfloat16, **kw)
     assert b.head.weight.dtype == torch.bfloat16
     assert torch.equal(a.head.weight.bfloat16(), b.head.weight)
     assert a.training  # upstream convention: call .eval() for inference

@@ -31,7 +31,7 @@ def _jax_random_variables(jm, seed):
 
 
 def _port(name, variables, dtype=torch.float32, **kw):
-    tm = create_model(name, **kw)
+    tm = create_model(name, device="cpu", **kw)
     tm.load_state_dict(port_state_dict(variables), strict=True)
     return tm.to(dtype).eval()
 
@@ -50,7 +50,7 @@ def test_jax_init_variables_load_strictly_and_match():
     assert "levels.2.global_tokenizer.pos_embed.weight" in sd
     assert "levels.2.global_tokenizer.to_global_feature.pos.weight" in sd
     assert int(sd["patch_embed.conv_down.1.num_batches_tracked"]) == 0
-    tm = create_model("faster_vit_0_224", **NARROW)
+    tm = create_model("faster_vit_0_224", device="cpu", **NARROW)
     tm.load_state_dict(sd, strict=True)
     x = _input(2, 224, 224)
     want = np.asarray(jax.jit(jm.module.apply)(variables, x))
@@ -86,7 +86,7 @@ def test_narrow_config_bf16_close_to_jax_fp32():
 
 
 def test_rejects_input_of_another_geometry():
-    tm = create_model("faster_vit_0_224", **NARROW).eval()
+    tm = create_model("faster_vit_0_224", device="cpu", **NARROW).eval()
     with pytest.raises(ValueError, match="window grid"):
         tm(torch.zeros(1, 3, 448, 448))
 
