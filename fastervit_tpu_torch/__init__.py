@@ -3,16 +3,17 @@
     import torch, fastervit_tpu_torch as fvt
     model = fvt.create_model("faster_vit_0_224", dtype=torch.bfloat16,
                              device="cuda").eval()
+    fvt.bake_posemb(model)          # optional deploy mode: biases stored
     logits = model(images)          # images: (B, 3, 224, 224) on the card
 
-On the card the window attention runs through a hand-written CUDA kernel
-(csrc/window_mhsa.cu, built by nvcc at first use); on the CPU it runs through
-its plain PyTorch version. The package imports no jax.
+On the card the window attention runs through hand-written CUDA kernels
+(csrc/*.cu, built by nvcc at first use); on the CPU it runs through their
+plain PyTorch versions. The package imports no jax.
 """
 from fastervit_tpu_torch.models.config import (VARIANTS, DataConfig,
                                                FasterViTConfig)
-from fastervit_tpu_torch.models.registry import (create_model, get_config,
-                                                 list_models)
+from fastervit_tpu_torch.models.registry import (bake_posemb, create_model,
+                                                 get_config, list_models)
 
-__all__ = ["VARIANTS", "DataConfig", "FasterViTConfig", "create_model",
-           "get_config", "list_models"]
+__all__ = ["VARIANTS", "DataConfig", "FasterViTConfig", "bake_posemb",
+           "create_model", "get_config", "list_models"]

@@ -9,6 +9,11 @@ The constant tables (CPB log coordinates, relative-position index, rank-2
 coordinate grid) are non-persistent buffers, made with torch.as_tensor on the
 default device, which `create_model` sets to the device it builds on.
 
+Deploy mode (upstream's switch_to_deploy, the JAX package's
+`Model.bake_posemb`): each position-embedding module has a non-persistent
+`relative_bias` buffer, None until `registry.bake_posemb` stores the module's
+tensor there; a module that holds one returns it instead of running its MLP.
+
 Numerics notes (as in the JAX package):
 * GELU is the exact-erf form (nn.GELU()).
 * BatchNorm eps is 1e-4 in the stem and 1e-5 elsewhere; LayerNorm eps is
@@ -113,7 +118,8 @@ def _rank2_coords(seq_length: int) -> np.ndarray:
 
 class PosEmbMLPSwinv1D(nn.Module):
     """Absolute position embedding: normalized rank-2 grid -> MLP(2 -> 512 ->
-    dim), added to the tokens."""
+    dim), added to the tokens. In deploy mode the (seq_length, dim)
+    embedding is read from `relative_bias`."""
 
     def __init__(self, dim: int, seq_length: int):
         super().__init__()
@@ -122,9 +128,16 @@ class PosEmbMLPSwinv1D(nn.Module):
         self.register_buffer("relative_coords_table",
                              torch.as_tensor(_rank2_coords(seq_length)),
                              persistent=False)
+        self.register_buffer("relative_bias", None, persistent=False)
+
+    def compute(self) -> torch.Tensor:
+        """The (seq_length, dim) embedding, from the parameters."""
+        return self.cpb_mlp(self.relative_coords_table)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.cpb_mlp(self.relative_coords_table)[None]
+        pos = (self.relative_bias if self.relative_bias is not None
+               else self.compute())
+        return x + pos[None]
 
 
 def _log_cpb_table(window_size: int) -> np.ndarray:
@@ -151,17 +164,48 @@ def _relative_position_index(window_size: int) -> np.ndarray:
     return rel.sum(-1)
 
 
+# How PosEmbMLPSwinv2D expands its CPB table into the dense (H, S, S) bias,
+# as in the JAX package: 'auto' takes the separable one-hot product for
+# windows of _SEPARABLE_MIN_S tokens or more and the gather below that.
+# Both select single table entries, so they give the same values (with
+# f32 matmuls in full f32, PyTorch's default).
+_BIAS_EXPAND = "auto"      # 'auto' | 'gather' | 'separable'
+_SEPARABLE_MIN_S = 1024
+
+
+def set_bias_expand(mode: str) -> str:
+    """Select how PosEmbMLPSwinv2D expands its CPB table into the dense
+    (H, S, S) bias; returns the previous mode. Read at every forward."""
+    global _BIAS_EXPAND
+    if mode not in ("auto", "gather", "separable"):
+        raise ValueError(f"bias expansion {mode!r}: 'auto', 'gather' or "
+                         "'separable'")
+    prev, _BIAS_EXPAND = _BIAS_EXPAND, mode
+    return prev
+
+
+def _delta_onehot(n: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """(n, n, 2n-1) constant with [p, q, a] = 1 iff p - q + n - 1 == a."""
+    i = torch.arange(n, device=device)
+    a = torch.arange(2 * n - 1, device=device)
+    return (i[:, None, None] - i[None, :, None] + n - 1 == a).to(dtype)
+
+
 class PosEmbMLPSwinv2D(nn.Module):
     """SwinV2-style continuous relative position bias, returned as a dense
     (num_heads, seq_length, seq_length) tensor for the attention kernel.
 
-    16·sigmoid is applied to the small table before the gather (the two
+    16·sigmoid is applied to the small table before the expansion (the two
     commute). Carrier-token rows and columns, the seq_length - window² first
-    ones, are zero."""
+    ones, are zero. The (S², ) gather index is kept only for windows that
+    'auto' expands by gather: at S = 2304 it would take 42.5 MB a module.
+    In deploy mode the bias is read from `relative_bias`."""
 
     def __init__(self, window_size: int, num_heads: int, seq_length: int):
         super().__init__()
         self.num_heads = num_heads
+        self.window_size = window_size
         self.window_tokens = window_size * window_size
         self.seq_length = seq_length
         self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
@@ -169,19 +213,53 @@ class PosEmbMLPSwinv2D(nn.Module):
         self.register_buffer("relative_coords_table",
                              torch.as_tensor(_log_cpb_table(window_size)),
                              persistent=False)
-        index = _relative_position_index(window_size).reshape(-1)
-        self.register_buffer("relative_position_index",
-                             torch.as_tensor(index), persistent=False)
+        index = None
+        if self.window_tokens < _SEPARABLE_MIN_S:
+            index = torch.as_tensor(
+                _relative_position_index(window_size).reshape(-1))
+        self.register_buffer("relative_position_index", index,
+                             persistent=False)
+        self.register_buffer("relative_bias", None, persistent=False)
 
-    def forward(self) -> torch.Tensor:
-        table = 16.0 * torch.sigmoid(self.cpb_mlp(self.relative_coords_table))
+    def _expand_gather(self, table: torch.Tensor) -> torch.Tensor:
+        index = self.relative_position_index
+        if index is None:
+            index = torch.as_tensor(
+                _relative_position_index(self.window_size).reshape(-1),
+                device=table.device)
         s = self.window_tokens
-        bias = table[self.relative_position_index].reshape(s, s, self.num_heads)
-        bias = bias.permute(2, 0, 1)
-        n_global = self.seq_length - s
+        return table[index].reshape(s, s, self.num_heads).permute(2, 0, 1)
+
+    def _expand_separable(self, table: torch.Tensor) -> torch.Tensor:
+        # bias[h, (rp, cp), (rq, cq)] = T[rp - rq + w - 1, cp - cq + w - 1, h]
+        # is block-Toeplitz in the 2D offsets, so the S²-row gather factors
+        # into two one-hot contractions that write the (H, S, S) layout
+        w, s = self.window_size, self.window_tokens
+        t3 = table.reshape(2 * w - 1, 2 * w - 1, self.num_heads)
+        onehot = _delta_onehot(w, table.dtype, table.device)
+        m1 = torch.einsum("pqa,abh->pqbh", onehot, t3)
+        bias = torch.einsum("xyb,pqbh->hpxqy", onehot, m1)
+        return bias.reshape(self.num_heads, s, s)
+
+    def compute(self) -> torch.Tensor:
+        """The dense (num_heads, seq_length, seq_length) bias, from the
+        parameters."""
+        table = 16.0 * torch.sigmoid(self.cpb_mlp(self.relative_coords_table))
+        mode = _BIAS_EXPAND
+        if mode == "auto":
+            mode = ("separable" if self.window_tokens >= _SEPARABLE_MIN_S
+                    else "gather")
+        bias = (self._expand_separable(table) if mode == "separable"
+                else self._expand_gather(table))
+        n_global = self.seq_length - self.window_tokens
         if n_global > 0:
             bias = F.pad(bias, (n_global, 0, n_global, 0))
         return bias.contiguous()
+
+    def forward(self) -> torch.Tensor:
+        if self.relative_bias is not None:
+            return self.relative_bias
+        return self.compute()
 
 
 class WindowAttention(nn.Module):

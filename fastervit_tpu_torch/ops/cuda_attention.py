@@ -1,7 +1,8 @@
 """Build, binding and launch of the hand-written window-attention kernels,
 the Hopper counterparts of fastervit_tpu/ops/pallas_attention.py's
 `_mhsa_kernel` (K1, csrc/window_mhsa.cu) and `_mhsa_bwd_kernel` (K2,
-csrc/window_mhsa_bwd.cu).
+csrc/window_mhsa_bwd.cu), and of pallas_flash_attention.py's `_fwd_kernel`
+(K3, csrc/window_mhsa_long.cu).
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -25,6 +26,9 @@ MAX_SEQ = 128       # kMaxSeq in csrc/window_mhsa.cu
 MAX_HEAD_DIM = 64   # kMaxHeadDim in csrc/window_mhsa.cu
 BWD_MAX_SEQ = 64       # kMaxSeq in csrc/window_mhsa_bwd.cu
 BWD_MAX_HEAD_DIM = 64  # kMaxHeadDim in csrc/window_mhsa_bwd.cu
+LONG_MAX_HEAD_DIM = 128  # kMaxHeadDim in csrc/window_mhsa_long.cu
+_LONG_TILE = 64          # kTile in csrc/window_mhsa_long.cu
+_MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
 # K2 gives each block one head and a run of windows; this many blocks fill
 # an H100's 132 SMs four times over.
 _BWD_TARGET_BLOCKS = 4 * 132
@@ -101,16 +105,20 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
         lib.window_mhsa_backward.restype = ctypes.c_int
+        lib.window_mhsa_long_forward.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.window_mhsa_long_forward.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def check_supported(qkv_shape: Sequence[int], bias_shape: Sequence[int],
-                    num_heads: int) -> None:
-    """Raise unless the kernel takes these shapes: qkv (B, S, 3C), bias
-    (H, S, S), S <= MAX_SEQ and hd = C/H <= MAX_HEAD_DIM."""
+def _check_shapes(qkv_shape: Sequence[int], bias_shape: Sequence[int],
+                  num_heads: int) -> Tuple[int, int, int]:
+    """Raise unless qkv is (B, S, 3C) with C a multiple of num_heads and
+    bias is (H, S, S); returns (B, S, hd)."""
     if len(qkv_shape) != 3 or qkv_shape[2] % 3:
         raise ValueError(f"qkv must be (B, S, 3C), got {tuple(qkv_shape)}")
     b, s, c3 = qkv_shape
@@ -120,32 +128,59 @@ def check_supported(qkv_shape: Sequence[int], bias_shape: Sequence[int],
     if tuple(bias_shape) != (num_heads, s, s):
         raise ValueError(f"bias must be {(num_heads, s, s)}, got "
                          f"{tuple(bias_shape)}")
-    if s > MAX_SEQ:
+    return b, s, c // num_heads
+
+
+def check_supported(qkv_shape: Sequence[int], bias_shape: Sequence[int],
+                    num_heads: int) -> None:
+    """Raise unless K1 takes these shapes: qkv (B, S, 3C), bias (H, S, S),
+    S <= MAX_SEQ and hd = C/H <= MAX_HEAD_DIM. Longer windows and wider
+    heads are K3's (`ops.attention.attention_route`)."""
+    b, s, hd = _check_shapes(qkv_shape, bias_shape, num_heads)
+    if s > MAX_SEQ or hd > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"window attention with S={s} > {MAX_SEQ} needs the Q-tiled "
-            "long-window kernel (fastervit_tpu/ops/pallas_flash_attention.py"
-            "::_fwd_kernel, K3 in ROADMAP.md), which is not ported yet")
-    if c // num_heads > MAX_HEAD_DIM:
-        raise NotImplementedError(f"head_dim={c // num_heads} > "
-                                  f"{MAX_HEAD_DIM} is not supported")
+            f"K1 (window_mhsa_cuda) takes S <= {MAX_SEQ} and head_dim <= "
+            f"{MAX_HEAD_DIM}, got S={s}, head_dim={hd}: such windows go to "
+            "K3 (window_mhsa_long_cuda)")
     if b * num_heads > 2 ** 31 - 1:
         raise ValueError(f"B*H={b * num_heads} exceeds the launch grid")
+
+
+def check_supported_long(qkv_shape: Sequence[int], bias_shape: Sequence[int],
+                         num_heads: int) -> None:
+    """Raise unless K3 takes these shapes: qkv (B, S, 3C), bias (H, S, S),
+    any S >= 1, hd = C/H <= LONG_MAX_HEAD_DIM, and a grid of (B, S/64, H)
+    blocks that CUDA can launch. The kernel computes every offset in 64
+    bits, so B·S·3C and H·S² may exceed 2^31."""
+    b, s, hd = _check_shapes(qkv_shape, bias_shape, num_heads)
+    if hd > LONG_MAX_HEAD_DIM:
+        raise NotImplementedError(f"K3 (window_mhsa_long_cuda) takes "
+                                  f"head_dim <= {LONG_MAX_HEAD_DIM}, got {hd}")
+    if (b > 2 ** 31 - 1 or num_heads > _MAX_GRID_YZ
+            or -(-s // _LONG_TILE) > _MAX_GRID_YZ):
+        raise ValueError(f"B={b}, S={s}, H={num_heads} exceed the launch "
+                         "grid")
 
 
 def check_supported_backward(qkv_shape: Sequence[int],
                              bias_shape: Sequence[int],
                              num_heads: int) -> None:
-    """Raise unless the backward kernel takes these shapes: those of
-    `check_supported`, with S <= BWD_MAX_SEQ (64) and hd <= BWD_MAX_HEAD_DIM
-    (64). Its block keeps q, k, v, g, P, dl and the dbias sum of one window
-    and head in shared memory: 115 KB at S = hd = 64, of the 227 KB a block
-    may have."""
-    check_supported(qkv_shape, bias_shape, num_heads)
-    s, hd = qkv_shape[1], qkv_shape[2] // 3 // num_heads
+    """Raise unless the backward kernel takes these shapes: qkv (B, S, 3C),
+    bias (H, S, S), S <= BWD_MAX_SEQ (64) and hd <= BWD_MAX_HEAD_DIM (64).
+    Its block keeps q, k, v, g, P, dl and the dbias sum of one window and
+    head in shared memory: 115 KB at S = hd = 64, of the 227 KB a block may
+    have. Longer windows and wider heads wait for K4, the port of
+    pallas_flash_attention.py::_flash_backward."""
+    b, s, hd = _check_shapes(qkv_shape, bias_shape, num_heads)
     if s > BWD_MAX_SEQ or hd > BWD_MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the window-attention backward kernel takes S <= {BWD_MAX_SEQ} "
-            f"and head_dim <= {BWD_MAX_HEAD_DIM}, got S={s}, head_dim={hd}")
+            f"the window-attention backward on the card (K2) takes S <= "
+            f"{BWD_MAX_SEQ} and head_dim <= {BWD_MAX_HEAD_DIM}, got S={s}, "
+            f"head_dim={hd}: longer windows and wider heads wait for K4, the "
+            "port of fastervit_tpu/ops/pallas_flash_attention.py::"
+            "_flash_backward, which is not ported yet")
+    if b * num_heads > 2 ** 31 - 1:
+        raise ValueError(f"B*H={b * num_heads} exceeds the launch grid")
 
 
 def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
@@ -198,6 +233,33 @@ def window_mhsa_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
 
 
 window_mhsa_cuda.launches = 0
+
+
+def window_mhsa_long_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                          num_heads: int, scale: float) -> torch.Tensor:
+    """softmax(q kᵀ·scale + bias) v per window and head, on the card, for
+    any S (K3). qkv: (B, S, 3C) f32 or bf16, channels (3, H, hd), hd <= 128;
+    bias: (H, S, S) f32 or bf16. Returns (B, S, C) in qkv's dtype. Counts
+    its launches in `window_mhsa_long_cuda.launches`."""
+    check_supported_long(qkv.shape, bias.shape, num_heads)
+    _check_inputs(qkv, bias)
+    b, s, c3 = qkv.shape
+    out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if b == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        err = lib.window_mhsa_long_forward(
+            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, c3 // 3,
+            num_heads, int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "window_mhsa_long")
+    window_mhsa_long_cuda.launches += 1
+    return out
+
+
+window_mhsa_long_cuda.launches = 0
 
 
 def backward_grid(batch: int, num_heads: int) -> Tuple[int, int]:

@@ -7,6 +7,11 @@ and the transposes are those of fastervit_tpu/utils/convert.py
 (`torch_key_for_path`, `export_state_dict`); this module is plain Python and
 numpy and imports nothing of the JAX package.
 
+Deploy-mode variables (the 'baked' collection of `Model.bake_posemb`) are
+not parameters: `state_dict_from_jax` leaves them out, `baked_from_jax`
+maps them to the port's `relative_bias` buffers and `load_baked` stores them
+there, as `fastervit_tpu_torch.bake_posemb` would.
+
 Layout transforms:
   flax Dense kernel (in, out)        -> torch Linear weight (out, in)
   flax Conv kernel  (kh, kw, I/g, O) -> torch Conv2d weight (O, I/g, kh, kw)
@@ -19,6 +24,9 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
+from fastervit_tpu_torch.models.layers import (PosEmbMLPSwinv1D,
+                                               PosEmbMLPSwinv2D)
+
 # flax module names whose fc1/fc2 children are torch cpb_mlp Sequentials
 _CPB_PARENTS = {"pos_embed", "hat_pos_embed", "pos_emb_funct"}
 # patch_embed child -> index in the torch conv_down Sequential
@@ -27,11 +35,8 @@ _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
               "mean": "running_mean", "var": "running_var"}
 
 
-def torch_key_for_path(path: Tuple[str, ...]) -> str:
-    """Map a flax variable path (collection stripped) to the upstream
-    state_dict key (same mapping as fastervit_tpu.utils.convert)."""
-    parts = list(path)
-    leaf = parts.pop()
+def _torch_module_path(parts: Tuple[str, ...]) -> list:
+    """A flax module path -> the upstream module path, as a list of names."""
     out = []
     i = 0
     while i < len(parts):
@@ -55,6 +60,14 @@ def torch_key_for_path(path: Tuple[str, ...]) -> str:
         else:
             out.append(p)
         i += 1
+    return out
+
+
+def torch_key_for_path(path: Tuple[str, ...]) -> str:
+    """Map a flax variable path (collection stripped) to the upstream
+    state_dict key (same mapping as fastervit_tpu.utils.convert)."""
+    out = _torch_module_path(path[:-1])
+    leaf = path[-1]
     if leaf.startswith("gamma"):
         return ".".join(out + [leaf])
     return ".".join(out + [_LEAF_NAME[leaf]])
@@ -75,6 +88,8 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     every BatchNorm, which a strict load requires)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, val in _leaves(variables):
+        if path[0] == "baked":  # deploy-mode tensors: see baked_from_jax
+            continue
         key = torch_key_for_path(path[1:])  # drop the collection name
         arr = np.array(val, dtype=np.float32)  # a writable copy
         if arr.ndim == 2:
@@ -89,3 +104,32 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def baked_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The 'baked' collection of JAX variables (numpy arrays) -> f32 tensors
+    keyed by the port's buffer names ("<module>.relative_bias"): the
+    (S, dim) PosEmbMLPSwinv1D embeddings and the (H, S, S) PosEmbMLPSwinv2D
+    biases, in the same layouts on both sides. Empty without the
+    collection."""
+    return {".".join(_torch_module_path(path[:-1]) + ["relative_bias"]):
+            torch.from_numpy(np.array(val, dtype=np.float32))
+            for path, val in _leaves(variables.get("baked", {}))}
+
+
+def load_baked(model: torch.nn.Module,
+               baked: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """Store `baked_from_jax`'s tensors in the model's `relative_bias`
+    buffers, on the device and in the dtype of each module's parameters.
+    Raises KeyError unless they cover exactly the model's position-embedding
+    modules. Returns the model."""
+    want = {f"{name}.relative_bias" for name, m in model.named_modules()
+            if isinstance(m, (PosEmbMLPSwinv1D, PosEmbMLPSwinv2D))}
+    if set(baked) != want:
+        raise KeyError(f"baked tensors missing {sorted(want - set(baked))}, "
+                       f"unexpected {sorted(set(baked) - want)}")
+    for key, tensor in baked.items():
+        module = model.get_submodule(key[:-len(".relative_bias")])
+        ref = module.cpb_mlp[0].weight
+        module.relative_bias = tensor.to(device=ref.device, dtype=ref.dtype)
+    return model

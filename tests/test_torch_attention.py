@@ -10,7 +10,7 @@ import torch
 from fastervit_tpu.ops.pallas_attention import (_mhsa_reference,
                                                 fused_window_mhsa)
 from fastervit_tpu_torch.ops import cuda_attention
-from fastervit_tpu_torch.ops.attention import (window_mhsa,
+from fastervit_tpu_torch.ops.attention import (attention_route, window_mhsa,
                                                window_mhsa_reference)
 from torch_parity import few_torch_threads  # noqa: F401
 
@@ -79,7 +79,10 @@ def test_cuda_wrapper_refuses_cpu_tensors(backward):
 
 @pytest.mark.parametrize("s", [576, 1024, 2304])
 def test_long_windows_name_the_unported_kernel(s):
-    """The 21k-384/512/768 level-2 windows exceed the kernel's S."""
+    """The 21k-384/512/768 level-2 windows exceed K1's S: they route to K3,
+    and K1's own check refuses them naming K3."""
+    assert attention_route(s, 49) == "K3"
+    cuda_attention.check_supported_long((2, s, 3 * 196), (4, s, s), 4)
     with pytest.raises(NotImplementedError, match="K3"):
         cuda_attention.check_supported((2, s, 3 * 196), (4, s, s), 4)
 

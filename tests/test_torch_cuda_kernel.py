@@ -77,9 +77,11 @@ def test_dispatch_launches_kernel(cuda):
 
 @pytest.mark.cuda
 def test_long_window_raises_instead_of_falling_back(cuda):
+    """K1's wrapper refuses a window beyond its S and names K3, which
+    `window_mhsa` routes such windows to (tests/test_torch_cuda_long.py)."""
     qkv, bias = _make(2, 576, 4, 49, cuda)
     with pytest.raises(NotImplementedError, match="K3"):
-        window_mhsa(qkv, bias, 4, 49 ** -0.5)
+        cuda_attention.window_mhsa_cuda(qkv, bias, 4, 49 ** -0.5)
 
 
 @pytest.mark.cuda

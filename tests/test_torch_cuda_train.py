@@ -107,7 +107,8 @@ def test_backward_kernel_is_deterministic(cuda):
 @pytest.mark.parametrize("s,h,d", [(65, 2, 32), (128, 2, 64), (53, 2, 72)])
 def test_backward_beyond_its_limit_raises(cuda, s, h, d):
     """K1 takes S <= 128, K2 only S <= 64: the backward raises, with no
-    fallback. Beyond hd = 64 the forward raises already."""
+    fallback. Beyond hd = 64 the forward runs on K3 and the backward
+    raises."""
     qkv, bias, _ = _make(2, s, h, d, cuda)
     qkv.requires_grad_()
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,6 @@
 """The port runs where jax is not installed: importing it, building a model,
-running it and taking a train step load no jax, jaxlib or flax module."""
+running it live and baked, a long-window attention call, the weights bridge
+and a train step load no jax, jaxlib or flax module."""
 import os
 import subprocess
 import sys
@@ -10,7 +11,9 @@ REPO = Path(__file__).resolve().parent.parent
 PROBE = """
 import sys, numpy as np, torch
 import fastervit_tpu_torch as fvt
-from fastervit_tpu_torch.utils.convert import state_dict_from_jax
+from fastervit_tpu_torch.ops.attention import bias_attention, window_mhsa
+from fastervit_tpu_torch.utils.convert import (baked_from_jax, load_baked,
+                                               state_dict_from_jax)
 from fastervit_tpu_torch.train import train
 from fastervit_tpu_torch.train.mixup import MixupConfig
 from fastervit_tpu_torch.train.steps import (TrainConfig, create_train_state,
@@ -21,6 +24,13 @@ m = fvt.create_model("faster_vit_0_224", device="cpu", depths=[1, 1, 1, 1],
                      num_classes=10).eval()
 with torch.no_grad():
     assert m(torch.zeros(1, 3, 64, 64)).shape == (1, 10)
+    assert fvt.bake_posemb(m)(torch.zeros(1, 3, 64, 64)).shape == (1, 10)
+    assert window_mhsa(torch.zeros(1, 144, 3 * 98), torch.zeros(2, 144, 144),
+                       2, 0.1).shape == (1, 144, 98)
+    q = torch.zeros(1, 2, 144, 49)
+    assert bias_attention(q, q, q, torch.zeros(2, 144, 144), 0.1).shape == \
+        q.shape
+assert baked_from_jax({"params": {}}) == {}
 cfg = TrainConfig(mixup=MixupConfig(num_classes=10))
 step = make_train_step(cfg, lambda t: 1e-3)
 batch = {"image": np.zeros((2, 64, 64, 3), np.float32),
