@@ -20,14 +20,19 @@ import torch.nn.functional as F
 from fastervit_tpu_torch.models.config import FasterViTConfig
 from fastervit_tpu_torch.models.layers import (HAT, BatchNorm2d, ConvBlock,
                                                Downsample, LayerNorm2d,
-                                               PatchEmbed, TokenInitializer)
+                                               PatchEmbed, TokenInitializer,
+                                               checkpointed)
 from fastervit_tpu_torch.ops.windows import window_partition, window_reverse
 
 
 class FasterViTLayer(nn.Module):
     """One level: ConvBlocks (levels 0-1) or HAT blocks (levels 2-3) with
     window partition/reverse, the carrier-token initializer where the level
-    has carriers, any-res pad/crop, and an optional Downsample."""
+    has carriers, any-res pad/crop, and an optional Downsample. With
+    `grad_checkpointing` set, each block runs under `checkpointed` while
+    training with gradients on."""
+
+    grad_checkpointing = False
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  padded_resolution: Tuple[int, int], ct_size: int = 1,
@@ -62,10 +67,16 @@ class FasterViTLayer(nn.Module):
             if not conv and self.sr_ratio != (1, 1) else None)
         self.downsample = Downsample(dim) if downsample else None
 
+    def _run(self, blk: nn.Module, *args):
+        if (self.grad_checkpointing and self.training
+                and torch.is_grad_enabled()):
+            return checkpointed(blk, *args)
+        return blk(*args)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv:
             for blk in self.blocks:
-                x = blk(x)
+                x = self._run(blk, x)
         else:
             _, _, h, w = x.shape
             ws = self.window_size
@@ -82,7 +93,7 @@ class FasterViTLayer(nn.Module):
                   else None)
             x = window_partition(x.permute(0, 2, 3, 1), ws)
             for blk in self.blocks:
-                x, ct = blk(x, ct)
+                x, ct = self._run(blk, x, ct)
             x = window_reverse(x, ws, hp, wp).permute(0, 3, 1, 2)
             if pad_b or pad_r:
                 x = x[:, :, :h, :w]
@@ -127,6 +138,13 @@ class FasterViT(nn.Module):
                      else BatchNorm2d(cfg.num_features, eps=1e-5))
         self.head = (nn.Linear(cfg.num_features, cfg.num_classes)
                      if cfg.num_classes > 0 else nn.Identity())
+
+    def set_grad_checkpointing(self, enable: bool = True) -> None:
+        """Recompute each block's activations in the backward instead of
+        keeping them (timm's set_grad_checkpointing; the JAX package's
+        TrainConfig.grad_checkpoint)."""
+        for level in self.levels:
+            level.grad_checkpointing = enable
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(x)

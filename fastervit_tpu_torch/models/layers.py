@@ -21,12 +21,14 @@ Numerics notes (as in the JAX package):
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from fastervit_tpu_torch.ops.attention import window_mhsa
 from fastervit_tpu_torch.ops.windows import (ct_dewindow, ct_window,
@@ -76,20 +78,71 @@ class BatchNorm2d(nn.BatchNorm2d):
     running_var = 0.9·running_var + 0.1·var, with the *biased* batch
     variance, which flax's BatchNorm(momentum=0.9) uses (torch's own layer
     takes the unbiased one). The statistics are reduced in f32. Evaluation
-    and the state_dict keys are torch's."""
+    and the state_dict keys are torch's. With `update_stats` False (while
+    gradient checkpointing recomputes a block) it normalises alike and
+    leaves the statistics as they are."""
+
+    update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+def _replay_context(block: nn.Module):
+    """torch.utils.checkpoint's context_fn for `block`: the recompute in
+    the backward must draw the DropPath masks of the forward and must not
+    update the BatchNorm statistics a second time. The checkpoint restores
+    the default generators only, and DropPath draws from its own, so the
+    forward's context records that generator's state and the recompute's
+    sets it (and puts back the state it found after), with update_stats
+    off on the block's BatchNorms."""
+    gens = list({id(m.generator): m.generator for m in block.modules()
+                 if isinstance(m, DropPath)
+                 and m.generator is not None}.values())
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    states = []
+
+    @contextlib.contextmanager
+    def forward():
+        states[:] = [g.get_state() for g in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        found = [g.get_state() for g in gens]
+        for g, state in zip(gens, states):
+            g.set_state(state)
+        for m in norms:
+            m.update_stats = False
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.update_stats = True
+            for g, state in zip(gens, found):
+                g.set_state(state)
+
+    return forward(), recompute()
+
+
+def checkpointed(block: nn.Module, *args):
+    """block(*args) with its activations recomputed in the backward
+    (torch.utils.checkpoint, non-reentrant): the same values and gradients,
+    and the same DropPath masks and BatchNorm statistics, as block(*args)."""
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False,
+        context_fn=lambda: _replay_context(block))
 
 
 class Mlp(nn.Module):

@@ -19,6 +19,7 @@ from fastervit_tpu_torch.models.config import (VARIANTS, DataConfig,
 from fastervit_tpu_torch.models.fastervit import FasterViT
 from fastervit_tpu_torch.models.layers import (PosEmbMLPSwinv1D,
                                                PosEmbMLPSwinv2D)
+from fastervit_tpu_torch.utils.convert import load_checkpoint
 
 
 def _natural_key(s: str):
@@ -89,15 +90,26 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def create_model(name: str, dtype: torch.dtype = torch.float32,
                  device: Any = "cuda",
                  generator: Optional[torch.Generator] = None,
+                 pretrained: bool = False, checkpoint_path: str = "",
                  **overrides) -> FasterViT:
-    """Build a FasterViT by name with random weights.
+    """Build a FasterViT by name (fastervit_tpu/models/registry.py::
+    create_model; reference registry.py:195-205).
 
     The model is built on `device`, the card unless the caller asks for
     another ("cpu"; on "meta", no weights are allocated and none are drawn),
-    its weights drawn from `generator` (a CPU generator;
-    seed 0 if None), then cast to `dtype`. Overrides are config fields, as in
-    `get_config`. Returns the module in training mode, as upstream does;
-    call `.eval()` for inference."""
+    its weights drawn from `generator` (a CPU generator; seed 0 if None).
+    With `checkpoint_path`, a reference checkpoint (.pth.tar) is then loaded
+    over them by `utils.convert.load_checkpoint`: keys it lacks or holds at
+    another shape (a 21841-class head, say) keep their random values, with
+    a warning. `pretrained=True` needs that path, since nothing is
+    downloaded. The model is then cast to `dtype`. Overrides are config
+    fields, as in `get_config`. Returns the module in training mode, as
+    upstream does; call `.eval()` for inference. (The JAX package returns a
+    (model, variables) pair when given a checkpoint; a PyTorch module holds
+    its weights.)"""
+    if pretrained and not checkpoint_path:
+        raise ValueError("pretrained=True needs checkpoint_path (nothing is "
+                         "downloaded): fetch the reference .pth.tar first")
     cfg = get_config(name, **overrides)
     device = torch.device(device)
     with device:
@@ -106,6 +118,8 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         _init_weights(model, generator)
+    if checkpoint_path:
+        load_checkpoint(model, checkpoint_path)
     return model.to(dtype)
 
 

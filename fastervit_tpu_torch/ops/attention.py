@@ -10,11 +10,12 @@ per-head bias, read straight from the qkv projection output.
 `window_mhsa` is the single dispatch point, through the autograd function
 `WindowMHSA`; `bias_attention` is the same function on separate
 (B, H, S, D) q, k and v. `attention_route` picks the forward by shape on
-both devices: K1 for short windows and narrow heads, K3 for the rest. A
-tensor on the CPU takes the route's plain PyTorch version, forward and
-backward; a CUDA tensor takes the route's hand-written kernel in
-`cuda_attention` (K1 or K3 forward, K2 backward) or raises. There is no
-fallback from one to the other.
+both devices, K1 for short windows and narrow heads and K3 for the rest;
+`backward_route` picks the backward, K2 for S <= 64 and hd <= 64 and K4 for
+the rest. A tensor on the CPU takes the route's plain PyTorch version; a
+CUDA tensor takes the route's hand-written kernel in `cuda_attention` (K1
+or K3 forward, K2 or K4 backward) or raises. There is no fallback from one
+to the other.
 """
 from __future__ import annotations
 
@@ -76,20 +77,35 @@ def attention_route(s: int, hd: int) -> str:
     return "K3"
 
 
+def backward_route(s: int, hd: int) -> str:
+    """The backward kernel for windows of S tokens and head dim hd: "K2"
+    (window_mhsa_backward_cuda) within its limits, S <= 64 and hd <= 64,
+    else "K4" (window_mhsa_long_backward_cuda). K1-forward windows with
+    64 < S <= 128 take K4 too. The CPU takes the plain version of both."""
+    if (s <= cuda_attention.BWD_MAX_SEQ
+            and hd <= cuda_attention.BWD_MAX_HEAD_DIM):
+        return "K2"
+    return "K4"
+
+
 def window_mhsa_backward_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                    g: torch.Tensor, num_heads: int,
                                    scale: float
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the window-attention backward kernel, with the
-    semantics of fastervit_tpu/ops/pallas_attention.py::_mhsa_bwd_kernel:
-    P recomputed in f32 (and, unlike the forward's PV product, not rounded
-    to qkv's dtype), dP = g·vᵀ, dl = P∘(dP − rowsum(dP∘P)),
-    dq = dl·k·scale, dk = dlᵀ·q·scale, dv = Pᵀ·g, all in f32.
+    """Plain version of both window-attention backward kernels, K2 and K4,
+    with the numerics of fastervit_tpu/ops/pallas_attention.py::
+    _mhsa_bwd_kernel and of pallas_flash_attention.py's `_recompute_p` and
+    `_dl_tile`: P recomputed in f32 and normalised (and, unlike the
+    forward's PV product, not rounded to qkv's dtype), dP = g·vᵀ,
+    dl = P∘(dP − rowsum(dP∘P)), dq = dl·k·scale, dk = dlᵀ·q·scale,
+    dv = Pᵀ·g, all in f32.
 
     Returns dqkv (B, S, 3C) in qkv's dtype, laid out like qkv, and
     dbias (H, S, S) = Σ over windows of dl, summed in f32 and cast once to
-    bias's dtype. (The TPU kernel accumulates dbias in bias's dtype; the f32
-    sum here is the more exact one.)"""
+    bias's dtype. (The TPU kernels accumulate dbias in bias's dtype, or in
+    f32 for the long windows, and the long windows' dk and dv in qkv's
+    dtype across q-tiles; the f32 sums here are the more exact ones.) Holds
+    four (B, H, S, S) f32 tensors."""
     b, s, c3 = qkv.shape
     q, k, v = (t.float() for t in _split_heads(qkv, num_heads))
     gh = g.float().reshape(b, s, num_heads, -1).transpose(1, 2)  # (B,H,S,hd)
@@ -112,9 +128,9 @@ class WindowMHSA(torch.autograd.Function):
     is off inside, so the plain versions keep their f32 logits under
     torch.autocast; qkv and bias keep the dtypes they arrive in.
 
-    On the card the backward is K2, which takes S <= 64 and hd <= 64;
-    beyond that it raises, naming K4, the long-window backward that is
-    not ported yet. The CPU backward takes any shape."""
+    On the card the backward is K2 or K4, by `backward_route`; between
+    them they take every shape with hd <= 128, K3's limit. The CPU backward
+    takes any shape."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
@@ -139,8 +155,12 @@ class WindowMHSA(torch.autograd.Function):
         qkv, bias = ctx.saved_tensors
         g = g.contiguous()
         if qkv.device.type == "cuda":
-            dqkv, dbias = cuda_attention.window_mhsa_backward_cuda(
-                qkv, bias, g, ctx.num_heads, ctx.scale)
+            route = backward_route(qkv.shape[1],
+                                   qkv.shape[2] // 3 // ctx.num_heads)
+            kernel = (cuda_attention.window_mhsa_backward_cuda
+                      if route == "K2"
+                      else cuda_attention.window_mhsa_long_backward_cuda)
+            dqkv, dbias = kernel(qkv, bias, g, ctx.num_heads, ctx.scale)
         else:
             with torch.autocast("cpu", enabled=False):
                 dqkv, dbias = window_mhsa_backward_reference(

@@ -2,7 +2,8 @@
 the Hopper counterparts of fastervit_tpu/ops/pallas_attention.py's
 `_mhsa_kernel` (K1, csrc/window_mhsa.cu) and `_mhsa_bwd_kernel` (K2,
 csrc/window_mhsa_bwd.cu), and of pallas_flash_attention.py's `_fwd_kernel`
-(K3, csrc/window_mhsa_long.cu).
+(K3, csrc/window_mhsa_long.cu) and `_flash_backward` (K4,
+csrc/window_mhsa_long_bwd.cu).
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -32,6 +33,10 @@ _MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
 # K2 gives each block one head and a run of windows; this many blocks fill
 # an H100's 132 SMs four times over.
 _BWD_TARGET_BLOCKS = 4 * 132
+# K4's dbias pass gives each block a run of windows for one (q-tile, head)
+# and an f32 (H, S, S) slab of partial sums per run: at most this many bytes
+# of slabs (one slab is 340 MB at S = 2304, H = 16)
+_LONG_BWD_PARTIAL_BYTES = 2 ** 30
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG_DIR / "csrc"
@@ -109,6 +114,10 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_void_p])
         lib.window_mhsa_long_forward.restype = ctypes.c_int
+        lib.window_mhsa_long_backward.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.window_mhsa_long_backward.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -165,22 +174,39 @@ def check_supported_long(qkv_shape: Sequence[int], bias_shape: Sequence[int],
 def check_supported_backward(qkv_shape: Sequence[int],
                              bias_shape: Sequence[int],
                              num_heads: int) -> None:
-    """Raise unless the backward kernel takes these shapes: qkv (B, S, 3C),
-    bias (H, S, S), S <= BWD_MAX_SEQ (64) and hd <= BWD_MAX_HEAD_DIM (64).
-    Its block keeps q, k, v, g, P, dl and the dbias sum of one window and
-    head in shared memory: 115 KB at S = hd = 64, of the 227 KB a block may
-    have. Longer windows and wider heads wait for K4, the port of
-    pallas_flash_attention.py::_flash_backward."""
+    """Raise unless the backward kernel K2 takes these shapes: qkv
+    (B, S, 3C), bias (H, S, S), S <= BWD_MAX_SEQ (64) and
+    hd <= BWD_MAX_HEAD_DIM (64). Its block keeps q, k, v, g, P, dl and the
+    dbias sum of one window and head in shared memory: 115 KB at
+    S = hd = 64, of the 227 KB a block may have. Longer windows and wider
+    heads are K4's (`ops.attention.backward_route`)."""
     b, s, hd = _check_shapes(qkv_shape, bias_shape, num_heads)
     if s > BWD_MAX_SEQ or hd > BWD_MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"the window-attention backward on the card (K2) takes S <= "
-            f"{BWD_MAX_SEQ} and head_dim <= {BWD_MAX_HEAD_DIM}, got S={s}, "
-            f"head_dim={hd}: longer windows and wider heads wait for K4, the "
-            "port of fastervit_tpu/ops/pallas_flash_attention.py::"
-            "_flash_backward, which is not ported yet")
+            f"the window-attention backward K2 takes S <= {BWD_MAX_SEQ} and "
+            f"head_dim <= {BWD_MAX_HEAD_DIM}, got S={s}, head_dim={hd}: such "
+            "windows go to K4 (window_mhsa_long_backward_cuda, the port of "
+            "fastervit_tpu/ops/pallas_flash_attention.py::_flash_backward)")
     if b * num_heads > 2 ** 31 - 1:
         raise ValueError(f"B*H={b * num_heads} exceeds the launch grid")
+
+
+def check_supported_long_backward(qkv_shape: Sequence[int],
+                                  bias_shape: Sequence[int],
+                                  num_heads: int) -> None:
+    """Raise unless K4 takes these shapes: K3's, qkv (B, S, 3C), bias
+    (H, S, S), any S >= 1 and hd = C/H <= LONG_MAX_HEAD_DIM, with grids of
+    (B, S/64, H) and (groups, S/64, H) blocks that CUDA can launch. Every
+    offset is 64-bit."""
+    b, s, hd = _check_shapes(qkv_shape, bias_shape, num_heads)
+    if hd > LONG_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K4 (window_mhsa_long_backward_cuda) takes head_dim <= "
+            f"{LONG_MAX_HEAD_DIM}, got {hd}")
+    if (b > 2 ** 31 - 1 or num_heads > _MAX_GRID_YZ
+            or -(-s // _LONG_TILE) > _MAX_GRID_YZ):
+        raise ValueError(f"B={b}, S={s}, H={num_heads} exceed the launch "
+                         "grid")
 
 
 def _check_inputs(qkv: torch.Tensor, bias: torch.Tensor,
@@ -304,3 +330,59 @@ def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 window_mhsa_backward_cuda.launches = 0
+
+
+def long_backward_grid(batch: int, seq: int, num_heads: int
+                       ) -> Tuple[int, int]:
+    """(windows per block, groups) of K4's dq and dbias pass, a grid of
+    (groups, S/64, H) blocks: about _BWD_TARGET_BLOCKS blocks, at most
+    _LONG_BWD_PARTIAL_BYTES of f32 (H, S, S) partial sums, every group
+    non-empty."""
+    tiles = -(-seq // _LONG_TILE) * num_heads
+    slab = 4 * num_heads * seq * seq
+    groups = min(batch, max(1, -(-_BWD_TARGET_BLOCKS // tiles)),
+                 max(1, _LONG_BWD_PARTIAL_BYTES // slab))
+    per_block = -(-batch // groups)
+    return per_block, -(-batch // per_block)
+
+
+def window_mhsa_long_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
+                                   g: torch.Tensor, num_heads: int,
+                                   scale: float
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of window attention on the card for any S (K4): (dqkv,
+    dbias) for the output gradient g (B, S, C), with qkv (B, S, 3C) and bias
+    (H, S, S) as the forward took them, hd <= 128. dqkv is in qkv's dtype,
+    dbias in bias's; dbias is summed over the windows in f32, in a fixed
+    order. The scratch (row statistics (2, B, H, S) and dbias partial sums
+    (groups, H, S, S), f32) is allocated here. Counts its launches in
+    `window_mhsa_long_backward_cuda.launches`."""
+    check_supported_long_backward(qkv.shape, bias.shape, num_heads)
+    _check_inputs(qkv, bias, g)
+    b, s, c3 = qkv.shape
+    if tuple(g.shape) != (b, s, c3 // 3):
+        raise ValueError(f"g must be {(b, s, c3 // 3)}, got {tuple(g.shape)}")
+    dqkv = torch.empty_like(qkv)
+    if b == 0:
+        return dqkv, torch.zeros_like(bias)
+    dbias = torch.empty_like(bias)
+    per_block, groups = long_backward_grid(b, s, num_heads)
+    stats = torch.empty((2, b, num_heads, s), dtype=torch.float32,
+                        device=qkv.device)
+    partial = torch.empty((groups,) + tuple(bias.shape), dtype=torch.float32,
+                          device=qkv.device)
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        err = lib.window_mhsa_long_backward(
+            qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            dbias.data_ptr(), stats.data_ptr(), partial.data_ptr(), b, s,
+            c3 // 3, num_heads, per_block, groups,
+            int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "window_mhsa_long_backward")
+    window_mhsa_long_backward_cuda.launches += 1
+    return dqkv, dbias
+
+
+window_mhsa_long_backward_cuda.launches = 0

@@ -159,10 +159,15 @@ def make_train_step(cfg: TrainConfig = TrainConfig(),
     or torch, moved to the model's device as NCHW. metrics: 'loss' and
     'grad_norm' (of the unclipped gradients) as device scalars, 'lr' (the
     schedule at the step before the increment; 0 without a schedule).
-    Gradients stay in the parameters' .grad until the next step."""
-    if cfg.grad_checkpoint:
-        raise NotImplementedError("gradient checkpointing is not ported yet "
-                                  "(ROADMAP.md, queue 1, item 9)")
+    Gradients stay in the parameters' .grad until the next step.
+
+    With cfg.grad_checkpoint, each block of the model recomputes its
+    activations in the backward (`FasterViT.set_grad_checkpointing`). The
+    JAX package remats the whole forward; in eager PyTorch a whole-forward
+    checkpoint would re-materialise every activation at once in the
+    backward and lower no peak, so the port checkpoints block by block.
+    Values, gradients, DropPath masks and BatchNorm statistics are the
+    plain step's."""
 
     def loss_from_logits(logits, targets, soft):
         if soft:
@@ -189,6 +194,8 @@ def make_train_step(cfg: TrainConfig = TrainConfig(),
             targets, soft = labels, False
 
         model.train()
+        if cfg.grad_checkpoint:
+            model.set_grad_checkpointing(True)
         gen = torch.Generator(device=device)
         set_drop_path_generator(model,
                                 gen.manual_seed(seed * 1_000_003 + state.step))

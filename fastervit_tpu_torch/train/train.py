@@ -9,15 +9,28 @@ with the card has no YAML package.
     python -m fastervit_tpu_torch.train.train \
         --config configs/faster_vit_0_224_1k.yaml --synthetic --output out/
 
+Fine-tuning from a reference checkpoint (a .pth.tar; a 21841-class head is
+kept at init with a warning when --num-classes differs):
+
+    python -m fastervit_tpu_torch.train.train --model faster_vit_4_21k_384 \
+        --loadcheckpoint fv4_21k_224.pth.tar --synthetic -b 32 \
+        --dtype bfloat16 --output out/
+
 What runs: synthetic loaders (`--synthetic`, or no --data-dir), the train
 step of `fastervit_tpu_torch.train.steps` (mixup, bf16 autocast, MESA, clip,
-adamw/lamb, EMA), the mixup-off final epochs, eval of the model and of its
-EMA, the NaN guard, summary.csv and a snapshot of the package's sources in
-<output>/code_copy. Flags whose machinery is not ported raise
+adamw/lamb, EMA, --grad-checkpointing), the mixup-off final epochs, eval of
+the model and of its EMA, the NaN guard, summary.csv and a snapshot of the
+package's sources in <output>/code_copy; checkpoints (`utils.checkpoint`):
+a warm start from --loadcheckpoint, one checkpoint an epoch with its eval
+metric in <output>/checkpoints (the --checkpoint-hist best kept), a save
+every --recovery-interval steps, a save and exit 75 on SIGTERM/SIGUSR1
+(`utils.preemption`), and on launch the restore of --resume's newest
+checkpoint or, with --auto-resume (the default), of the output directory's.
+As in the JAX package, a resumed run restores the step, so the schedule and
+the random draws go on where they stopped, but starts its epoch loop at 0
+again (ROADMAP.md). Flags whose machinery is not ported raise
 NotImplementedError naming their ROADMAP item: --data-dir without
---synthetic, --lmdb-dataset, --resume, --loadcheckpoint, --tensorboard,
---log-wandb and --grad-checkpointing. The port writes no checkpoints yet,
-so --auto-resume has nothing to find and every run starts at step 0.
+--synthetic, --lmdb-dataset, --tensorboard and --log-wandb.
 """
 from __future__ import annotations
 
@@ -41,19 +54,19 @@ from fastervit_tpu_torch.train.schedule import (ScheduleConfig,
                                                 create_scheduler)
 from fastervit_tpu_torch.train.steps import (TrainConfig, create_train_state,
                                              make_eval_step, make_train_step)
+from fastervit_tpu_torch.utils.checkpoint import CheckpointManager
+from fastervit_tpu_torch.utils.convert import load_checkpoint
 from fastervit_tpu_torch.utils.metrics import AverageMeter, update_summary
+from fastervit_tpu_torch.utils.preemption import (PreemptionHandler,
+                                                  maybe_auto_resume)
 
 log = logging.getLogger("fastervit_tpu_torch.train")
 
 _NOT_PORTED = {
     "lmdb_dataset": "--lmdb-dataset (ROADMAP.md queue 1 item 9: the "
                     "ImageNet/LMDB loaders)",
-    "resume": "--resume (ROADMAP.md queue 1 item 13: checkpoints)",
-    "loadcheckpoint": "--loadcheckpoint (ROADMAP.md queue 1 item 13: "
-                      "checkpoints)",
     "tensorboard": "--tensorboard (ROADMAP.md queue 1 item 9: logging)",
     "log_wandb": "--log-wandb (ROADMAP.md queue 1 item 9: logging)",
-    "grad_checkpointing": "--grad-checkpointing (ROADMAP.md queue 1 item 9)",
 }
 
 
@@ -99,15 +112,20 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--grad-checkpointing", action="store_true")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--resume", default="")
+    p.add_argument("--resume", default="",
+                   help="a checkpoint directory to restore the newest "
+                        "checkpoint of")
     p.add_argument("--auto-resume", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="kept for the reference's command lines; the port "
-                        "writes no checkpoints yet, so there is nothing to "
-                        "resume from")
-    p.add_argument("--loadcheckpoint", default="")
+                   help="restore the newest checkpoint in the output dir on "
+                        "launch (the requeue relaunch)")
+    p.add_argument("--loadcheckpoint", default="",
+                   help="warm start from a reference .pth.tar (keys of "
+                        "another shape keep their init)")
     p.add_argument("--output", default="./output")
     p.add_argument("--log-interval", type=int, default=50)
+    p.add_argument("--recovery-interval", type=int, default=0)
+    p.add_argument("--checkpoint-hist", type=int, default=1)
     p.add_argument("--eval-metric", default="top1")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tensorboard", action="store_true")
@@ -207,6 +225,10 @@ def train(args: argparse.Namespace) -> dict:
     model = create_model(args.model, device=device,
                          generator=torch.Generator().manual_seed(args.seed),
                          **overrides)
+    if args.loadcheckpoint:
+        # shape-filtered warm start (reference train.py:527-540), before
+        # the EMA copy is taken, as the reference's ModelEmaV2 is
+        load_checkpoint(model, args.loadcheckpoint)
 
     sched_cfg = ScheduleConfig(
         sched=args.sched, lr=args.lr, min_lr=args.min_lr,
@@ -230,8 +252,19 @@ def train(args: argparse.Namespace) -> dict:
         smoothing=args.smoothing, bce_loss=args.bce_loss, mixup=mixup,
         mesa=args.mesa,
         mesa_start_step=int(args.mesa_start_ratio * args.epochs
-                            * steps_per_epoch))
+                            * steps_per_epoch),
+        grad_checkpoint=args.grad_checkpointing)
     state = create_train_state(model, tcfg)
+    ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"),
+                             max_history=args.checkpoint_hist,
+                             recovery_interval=args.recovery_interval)
+    if args.resume:
+        if CheckpointManager(args.resume).restore(state) is not None:
+            log.info("resumed at step %d", state.step)
+    else:
+        # requeue relaunch: restore the newest checkpoint in output/
+        # (reference run_with_submitit.py:13-50 + train.py:505-516)
+        state, _ = maybe_auto_resume(ckpt, state, args.auto_resume)
     train_step = make_train_step(tcfg, schedule_fn, dtype, args.seed)
     # mixup off for the final epochs (reference --mixup-off-epoch,
     # train.py:825-829)
@@ -259,46 +292,59 @@ def train(args: argparse.Namespace) -> dict:
                 "top1": 100.0 * totals["top1"] / n,
                 "top5": 100.0 * totals["top5"] / n}
 
-    best = -float("inf")
     summary_path = os.path.join(args.output, "summary.csv")
-    for epoch in range(num_epochs):
-        step_fn = train_step
-        if (train_step_nomix is not None
-                and epoch >= num_epochs - args.mixup_off_epoch):
-            step_fn = train_step_nomix
-        loss_m, rate_m = AverageMeter(), AverageMeter()
-        t_last, i_last = time.perf_counter(), -1
-        for i, batch in enumerate(train_loader):
-            batch = {k: v for k, v in batch.items() if k != "valid"}
-            metrics = step_fn(state, batch)
-            if i % args.log_interval == 0 or i == len(train_loader) - 1:
-                loss = metrics["loss"].item()
-                if not np.isfinite(loss):
-                    # NaN guard (reference train.py:794-810)
-                    log.error("non-finite loss at epoch %d it %d", epoch, i)
-                    raise FloatingPointError("training loss is non-finite")
-                now = time.perf_counter()
-                rate = args.batch_size * (i - i_last) / (now - t_last)
-                t_last, i_last = now, i
-                loss_m.update(loss)
-                rate_m.update(rate)
-                log.info("epoch %d it %d/%d loss %.4f lr %.2e %.0f img/s",
-                         epoch, i, len(train_loader), loss, metrics["lr"],
-                         rate)
+    best = -float("inf")
+    preempt = PreemptionHandler().install()
+    try:
+        for epoch in range(num_epochs):
+            step_fn = train_step
+            if (train_step_nomix is not None
+                    and epoch >= num_epochs - args.mixup_off_epoch):
+                step_fn = train_step_nomix
+            loss_m, rate_m = AverageMeter(), AverageMeter()
+            t_last, i_last = time.perf_counter(), -1
+            for i, batch in enumerate(train_loader):
+                batch = {k: v for k, v in batch.items() if k != "valid"}
+                metrics = step_fn(state, batch)
+                if preempt.preempted:
+                    # SIGTERM/SIGUSR1: save, exit 75 so that the launcher
+                    # requeues; the relaunch auto-resumes from here
+                    preempt.checkpoint_and_exit(ckpt, state.step, state)
+                if i % args.log_interval == 0 or i == len(train_loader) - 1:
+                    loss = metrics["loss"].item()
+                    if not np.isfinite(loss):
+                        # NaN guard (reference train.py:794-810)
+                        log.error("non-finite loss at epoch %d it %d",
+                                  epoch, i)
+                        raise FloatingPointError("training loss is non-finite")
+                    now = time.perf_counter()
+                    rate = args.batch_size * (i - i_last) / (now - t_last)
+                    t_last, i_last = now, i
+                    loss_m.update(loss)
+                    rate_m.update(rate)
+                    log.info("epoch %d it %d/%d loss %.4f lr %.2e %.0f img/s",
+                             epoch, i, len(train_loader), loss, metrics["lr"],
+                             rate)
+                ckpt.maybe_save_recovery(state.step, state)
 
-        eval_m = run_eval(state.model)
-        log.info("epoch %d eval: %s", epoch, eval_m)
-        if state.ema_model is not None:
-            ema_m = run_eval(state.ema_model)
-            log.info("epoch %d EMA eval: %s", epoch, ema_m)
-            if ema_m["top1"] >= eval_m["top1"]:
-                eval_m = {**ema_m, "ema": 1}
-        if not np.isfinite(eval_m["loss"]):
-            log.error("eval loss non-finite; aborting (NaN guard)")
-            raise FloatingPointError("eval loss is non-finite")
-        best = max(best, eval_m[args.eval_metric])
-        update_summary(epoch, {"loss": loss_m.avg, "img_s": rate_m.avg},
-                       eval_m, summary_path, write_header=(epoch == 0))
+            eval_m = run_eval(state.model)
+            log.info("epoch %d eval: %s", epoch, eval_m)
+            if state.ema_model is not None:
+                ema_m = run_eval(state.ema_model)
+                log.info("epoch %d EMA eval: %s", epoch, ema_m)
+                if ema_m["top1"] >= eval_m["top1"]:
+                    eval_m = {**ema_m, "ema": 1}
+            if not np.isfinite(eval_m["loss"]):
+                log.error("eval loss non-finite; aborting (NaN guard)")
+                raise FloatingPointError("eval loss is non-finite")
+            metric = eval_m[args.eval_metric]
+            ckpt.save(state.step, state, metric=metric)
+            best = max(best, metric)
+            update_summary(epoch, {"loss": loss_m.avg, "img_s": rate_m.avg},
+                           eval_m, summary_path, write_header=(epoch == 0))
+    finally:
+        preempt.uninstall()
+    ckpt.wait()
     return {"best_" + args.eval_metric: best}
 
 

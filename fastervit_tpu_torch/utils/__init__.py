@@ -1,1 +1,1 @@
-"""Weight conversion."""
+"""Weight conversion, checkpoints and preemption."""

@@ -12,6 +12,13 @@ not parameters: `state_dict_from_jax` leaves them out, `baked_from_jax`
 maps them to the port's `relative_bias` buffers and `load_baked` stores them
 there, as `fastervit_tpu_torch.bake_posemb` would.
 
+`load_checkpoint(model, path)` loads a reference checkpoint (.pth.tar) with
+the leniency of fastervit_tpu/utils/convert.py's `load_pytorch_checkpoint`:
+containers unwrapped, DDP and encoder prefixes stripped, missing and
+shape-mismatched keys kept at their initial values with a warning. That is
+what lets a 21k-class checkpoint warm-start a model with another head, and
+an any-res model start from 224² weights.
+
 Layout transforms:
   flax Dense kernel (in, out)        -> torch Linear weight (out, in)
   flax Conv kernel  (kh, kw, I/g, O) -> torch Conv2d weight (O, I/g, kh, kw)
@@ -19,7 +26,8 @@ Layout transforms:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+import logging
+from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,13 @@ _CPB_PARENTS = {"pos_embed", "hat_pos_embed", "pos_emb_funct"}
 _PATCH_EMBED_IDX = {"conv1": "0", "norm1": "1", "conv2": "3", "norm2": "4"}
 _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
               "mean": "running_mean", "var": "running_var"}
+# the two names upstream registers the carrier-token tokenizer's conv under
+_TOKENIZER_NAMES = ("to_global_feature.pos", "pos_embed")
+# buffers rebuilt from the config, never read from a checkpoint
+_CONSTANT_TABLES = ("relative_coords_table", "relative_position_index",
+                    "relative_bias")
+
+log = logging.getLogger(__name__)
 
 
 def _torch_module_path(parts: Tuple[str, ...]) -> list:
@@ -133,3 +148,101 @@ def load_baked(model: torch.nn.Module,
         ref = module.cpb_mlp[0].weight
         module.relative_bias = tensor.to(device=ref.device, dtype=ref.dtype)
     return model
+
+
+def normalize_state_dict(ckpt: Mapping[str, Any], use_ema: bool = False
+                         ) -> Dict[str, Any]:
+    """Unwrap a checkpoint container (`state_dict_ema` with use_ema, then
+    `state_dict`, then `model`) and strip the DDP `module.` and the
+    detection backbones' `encoder.` prefixes (reference faster_vit.py:
+    193-208, registry.py:161-181; fastervit_tpu/utils/convert.py)."""
+    sd = ckpt
+    if not hasattr(next(iter(ckpt.values()), None), "shape"):
+        for key in (("state_dict_ema",) if use_ema else ()) + ("state_dict",
+                                                               "model"):
+            if key in ckpt:
+                sd = ckpt[key]
+                break
+    sd = dict(sd)
+    if next(iter(sd), "").startswith("module."):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    if sorted(sd)[0].startswith("encoder."):
+        sd = {k[len("encoder."):]: v for k, v in sd.items()
+              if k.startswith("encoder.")}
+    return sd
+
+
+def _aliases(key: str) -> List[str]:
+    """`key` and, for the tokenizer's conv, its other upstream name."""
+    for a, b in (_TOKENIZER_NAMES, _TOKENIZER_NAMES[::-1]):
+        if f"global_tokenizer.{a}." in key:
+            return [key, key.replace(f"global_tokenizer.{a}.",
+                                     f"global_tokenizer.{b}.")]
+    return [key]
+
+
+class LoadResult(NamedTuple):
+    """What `load_state_dict_lenient` did, as torch's load_state_dict
+    reports it: the model's keys the source lacks and the source's keys the
+    model has no use for, plus the keys kept at init for their shape as
+    (key, source shape, model shape)."""
+    missing_keys: List[str]
+    mismatched_keys: List[Tuple[str, Tuple[int, ...], Tuple[int, ...]]]
+    unexpected_keys: List[str]
+
+
+@torch.no_grad()
+def load_state_dict_lenient(model: torch.nn.Module,
+                            state_dict: Mapping[str, Any]) -> LoadResult:
+    """Copy every entry of `state_dict` whose key and shape match the
+    model's into it, cast to the model's dtype, on its device. The model's
+    keys that the source lacks (BatchNorm's num_batches_tracked aside) or
+    holds at another shape keep their values; the tokenizer's conv loads
+    from either of its names. Each list of the result is logged as a
+    warning, as fastervit_tpu/utils/convert.py::convert_state_dict does;
+    unexpected keys leave out num_batches_tracked and the constant tables."""
+    own = model.state_dict(keep_vars=True)
+    used, missing, mismatched = set(), [], []
+    for key, target in own.items():
+        src = next((k for k in _aliases(key) if k in state_dict), None)
+        if src is None:
+            if not key.endswith("num_batches_tracked"):
+                missing.append(key)
+            continue
+        used.update(_aliases(src))
+        value = state_dict[src]
+        if not torch.is_tensor(value):
+            value = torch.from_numpy(np.asarray(value))
+        if tuple(value.shape) != tuple(target.shape):
+            mismatched.append((key, tuple(value.shape), tuple(target.shape)))
+            continue
+        target.copy_(value.to(target.dtype))
+    unexpected = [k for k in state_dict if k not in used
+                  and "num_batches_tracked" not in k
+                  and not k.endswith(_CONSTANT_TABLES)]
+    if missing:
+        log.warning("missing keys in source state_dict: %s",
+                    ", ".join(missing))
+    if mismatched:
+        log.warning("shape-mismatched keys kept at init: %s",
+                    ", ".join(f"{k} {s}->{t}" for k, s, t in mismatched))
+    if unexpected:
+        log.warning("unexpected keys in source state_dict: %s",
+                    ", ".join(unexpected))
+    return LoadResult(missing, mismatched, unexpected)
+
+
+def load_checkpoint(model: torch.nn.Module, path: str,
+                    use_ema: bool = False) -> LoadResult:
+    """Load a reference checkpoint file (.pth.tar: a state_dict, possibly
+    inside `state_dict`/`state_dict_ema`/`model`, possibly with `module.`
+    or `encoder.` prefixes) into `model`, leniently
+    (`load_state_dict_lenient`). The file is unpickled in full
+    (weights_only=False), as the JAX package's loader does, since reference
+    checkpoints hold the training arguments beside the weights: load only
+    files you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if not isinstance(ckpt, dict):
+        raise RuntimeError(f"no state_dict found in {path}")
+    return load_state_dict_lenient(model,
+                                   normalize_state_dict(ckpt, use_ema=use_ema))

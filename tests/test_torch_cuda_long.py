@@ -122,13 +122,17 @@ def test_bad_inputs_raise(cuda):
 
 @pytest.mark.cuda
 def test_backward_of_a_long_window_names_k4(cuda):
-    """K2 takes S <= 64: a K3-routed forward trains on the card only once
-    K4 is ported, and says so; it never falls back."""
+    """K2 takes S <= 64: the backward of a K3-routed forward is K4's,
+    counted under K4's wrapper, never K2's."""
     qkv, bias = _make(2, 576, 2, 49, cuda)
     qkv.requires_grad_()
     out = window_mhsa(qkv, bias, 2, 49 ** -0.5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        out.sum().backward()
+    k2 = cuda_attention.window_mhsa_backward_cuda.launches
+    k4 = cuda_attention.window_mhsa_long_backward_cuda.launches
+    out.sum().backward()
+    assert cuda_attention.window_mhsa_long_backward_cuda.launches == k4 + 1
+    assert cuda_attention.window_mhsa_backward_cuda.launches == k2
+    assert bool(torch.isfinite(qkv.grad).all())
 
 
 @pytest.mark.cuda

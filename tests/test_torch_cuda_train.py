@@ -106,13 +106,18 @@ def test_backward_kernel_is_deterministic(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,h,d", [(65, 2, 32), (128, 2, 64), (53, 2, 72)])
 def test_backward_beyond_its_limit_raises(cuda, s, h, d):
-    """K1 takes S <= 128, K2 only S <= 64: the backward raises, with no
-    fallback. Beyond hd = 64 the forward runs on K3 and the backward
-    raises."""
-    qkv, bias, _ = _make(2, s, h, d, cuda)
+    """K1 takes S <= 128, K2 only S <= 64, and hd <= 64: K2 raises beyond,
+    with no fallback, and the autograd backward routes such windows to K4
+    (the K1 forward's 64 < S <= 128 and K3's hd 72 alike)."""
+    qkv, bias, g = _make(2, s, h, d, cuda)
+    with pytest.raises(NotImplementedError, match="K4"):
+        cuda_attention.window_mhsa_backward_cuda(qkv, bias, g, h, d ** -0.5)
     qkv.requires_grad_()
-    with pytest.raises(NotImplementedError):
-        window_mhsa(qkv, bias, h, d ** -0.5).sum().backward()
+    k2 = cuda_attention.window_mhsa_backward_cuda.launches
+    k4 = cuda_attention.window_mhsa_long_backward_cuda.launches
+    window_mhsa(qkv, bias, h, d ** -0.5).sum().backward()
+    assert cuda_attention.window_mhsa_backward_cuda.launches == k2
+    assert cuda_attention.window_mhsa_long_backward_cuda.launches == k4 + 1
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The port runs where jax is not installed: importing it, building a model,
-running it live and baked, a long-window attention call, the weights bridge
-and a train step load no jax, jaxlib or flax module."""
+running it live and baked, a long-window attention call, the weights bridge,
+a train step with gradient checkpointing, and a checkpoint saved and
+restored load no jax, jaxlib or flax module."""
 import os
 import subprocess
 import sys
@@ -9,8 +10,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 PROBE = """
-import sys, numpy as np, torch
+import sys, tempfile, numpy as np, torch
 import fastervit_tpu_torch as fvt
+from fastervit_tpu_torch.utils.checkpoint import CheckpointManager
+from fastervit_tpu_torch.utils.preemption import PreemptionHandler
 from fastervit_tpu_torch.ops.attention import bias_attention, window_mhsa
 from fastervit_tpu_torch.utils.convert import (baked_from_jax, load_baked,
                                                state_dict_from_jax)
@@ -31,11 +34,16 @@ with torch.no_grad():
     assert bias_attention(q, q, q, torch.zeros(2, 144, 144), 0.1).shape == \
         q.shape
 assert baked_from_jax({"params": {}}) == {}
-cfg = TrainConfig(mixup=MixupConfig(num_classes=10))
+cfg = TrainConfig(mixup=MixupConfig(num_classes=10), grad_checkpoint=True)
 step = make_train_step(cfg, lambda t: 1e-3)
 batch = {"image": np.zeros((2, 64, 64, 3), np.float32),
          "label": np.array([1, 2], np.int32)}
-assert np.isfinite(step(create_train_state(m, cfg), batch)["loss"].item())
+state = create_train_state(m, cfg)
+assert np.isfinite(step(state, batch)["loss"].item())
+with tempfile.TemporaryDirectory() as d:
+    CheckpointManager(d).save(state.step, state, metric=1.0)
+    assert CheckpointManager(d).restore(state) is state and state.step == 1
+assert not PreemptionHandler().preempted
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)

@@ -1,7 +1,8 @@
 """The port's training CLI on the CPU: a few steps of a tiny model with the
 fv0 recipe from configs/faster_vit_0_224_1k.yaml, the flat-YAML reader
 against PyYAML on every config, and the flags whose machinery is not
-ported, which raise."""
+ported, which raise. (Checkpoints, resume and warm start:
+tests/test_torch_checkpoint.py.)"""
 import csv
 import math
 from pathlib import Path
@@ -56,10 +57,7 @@ def test_flat_yaml_reader_refuses_nested_yaml(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--data-dir", "/nonexistent"], ["--synthetic", "--lmdb-dataset"],
-    ["--synthetic", "--resume", "ckpt"],
-    ["--synthetic", "--loadcheckpoint", "w.pth"],
-    ["--synthetic", "--tensorboard"], ["--synthetic", "--log-wandb"],
-    ["--synthetic", "--grad-checkpointing"]])
+    ["--synthetic", "--tensorboard"], ["--synthetic", "--log-wandb"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(flags + ["--device", "cpu", "--output", str(tmp_path)])
