@@ -53,7 +53,25 @@ Phases, each of which raises on failure:
      memory, one step profiled; then peak memory and step time with
      gradient checkpointing;
  17. one bf16 train step of faster_vit_5_224 and of faster_vit_0_any_res
-     (576x960) at batch 8: their K1, K2, K3 and K4 launches.
+     (576x960) at batch 8: their K1, K2, K3 and K4 launches;
+ 18. K5, the multi-scale deformable attention kernel, against its plain
+     version in fp32 and bf16 at DINO-4scale's encoder and decoder shapes
+     (batch 2, 800x1333) and at odd ones (D 4, 8 and 64, a 1x1 level,
+     border and far-outside locations, N = 0, Q = 0), two launches
+     bit-identical; kernel, plain version and upstream's grid_sample form
+     timed at the served shapes;
+ 19. DINO-4scale on faster_vit_4_21k_224 in fp32, batch 1, 480x640: the
+     card (kernel path) against the CPU (plain path), the backbone maps,
+     the encoder's proposals, the two-stage selection and every decoder
+     layer, and its K1, K3 and K5 launches;
+ 20. the serving path: that detector in bf16 at batch 2 on an 800x1333
+     canvas: 17 K1, 12 K3 and 12 K5 launches a forward, bf16 against fp32
+     on the same weights up to the encoder output, 10 timed batches, peak
+     memory, one forward profiled;
+ 21. the detection CLI (--eval --synthetic, the served config, 800x800)
+     from a reference-layout DINO checkpoint it writes first, then the
+     route check of DINO-4scale on faster_vit_0_224 at 800x1333 (11 K1,
+     6 K3, 12 K5).
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -148,6 +166,36 @@ BATCH = 256
 TRAIN_BATCH = 128
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
+F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores, same source
+# DINO-4scale at 800x1333: the transformer's four levels, and the encoder
+# (Q = S) and decoder calls of K5 at batch 2, with 8 heads of 32 channels
+# and 4 points: (N, Q, M, D, P, levels, calls per forward)
+DINO_LEVELS = ((100, 167), (50, 84), (25, 42), (13, 21))
+K5_SERVED = [(2, 22223, 8, 32, 4, DINO_LEVELS, 6),
+             (2, 900, 8, 32, 4, DINO_LEVELS, 6)]
+# ... and odd shapes, checked only: narrow and wide heads, a 1x1 level,
+# one level, many points, an empty batch and an empty query set
+K5_ODD = [(1, 37, 3, 4, 2, ((5, 7), (1, 1), (3, 2)), 0),
+          (2, 50, 2, 8, 3, ((9, 4), (1, 1)), 0),
+          (1, 64, 4, 64, 4, ((12, 17), (6, 9), (3, 5), (2, 3)), 0),
+          (3, 41, 5, 33, 1, ((7, 7),), 0),
+          (0, 10, 8, 32, 4, DINO_LEVELS, 0),
+          (2, 0, 8, 32, 4, DINO_LEVELS, 0)]
+TOL_K5_FP32 = 1e-5   # f32 throughout; only the order of the sums differs
+DINO_CONFIG = "configs/dino/dino_4scale_faster_vit_4_21k_224.py"
+DINO_CANVAS = (800, 1333)
+DINO_BATCH = 2
+# DINO fp32 card vs CPU, relative to each tensor's largest entry: f32 with
+# TF32 off through 23 backbone blocks and 6 + 6 transformer layers, the
+# sums in another order
+TOL_DINO_FP32 = 1e-4
+# DINO bf16 vs fp32 up to the encoder output, as ||bf16 - fp32|| / ||fp32||
+# over the encoder memory and the proposals' class logits: bf16 keeps 8
+# significant bits (2^-9 relative rounding) at every stored activation of
+# the 23 backbone blocks and 6 encoder layers, and MSDA's sampling
+# locations, rounded to bf16, move a sample by up to a third of a pixel at
+# level 0 (2^-9 of 0.5 of 167 pixels): a few percent
+TOL_DINO_BF16 = 5e-2
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -478,11 +526,22 @@ def launches(cuda_attention):
             cuda_attention.window_mhsa_long_backward_cuda.launches)
 
 
-def reset_launches(cuda_attention) -> None:
+def detection_launches(cuda_attention, cuda_msda):
+    """Launches so far of K1, K3 and K5, the kernels of the detector's
+    forward."""
+    return (cuda_attention.window_mhsa_cuda.launches,
+            cuda_attention.window_mhsa_long_cuda.launches,
+            cuda_msda.ms_deform_attn_cuda.launches)
+
+
+def reset_launches(cuda_attention, cuda_msda=None) -> None:
+    """Every kernel's count to 0 (K5's too, given cuda_msda)."""
     cuda_attention.window_mhsa_cuda.launches = 0
     cuda_attention.window_mhsa_backward_cuda.launches = 0
     cuda_attention.window_mhsa_long_cuda.launches = 0
     cuda_attention.window_mhsa_long_backward_cuda.launches = 0
+    if cuda_msda is not None:
+        cuda_msda.ms_deform_attn_cuda.launches = 0
 
 
 def synthetic_batch(batch: int, seed: int, size=(224, 224)) -> dict:
@@ -566,6 +625,7 @@ def train_parity_phase(fvt, cuda_attention, steps,
 
 
 KINDS = [  # (kind, substrings of a kernel's name), first match wins
+    ("K5 ms_deform_attn", ("msda_fwd",)),
     ("K4 window_mhsa_long_backward", ("long_bwd", "long_dbias_sum")),
     ("K3 window_mhsa_long", ("window_mhsa_long",)),
     ("K2 window_mhsa_backward", ("window_mhsa_bwd", "dbias_sum")),
@@ -987,9 +1047,11 @@ def k4_phase(cuda_attention, attention) -> dict:
           f"[{card()}]")
     return {"name": "window_mhsa_long_backward", "route": "cuda",
             "source": "fastervit_tpu_torch/csrc/window_mhsa_long_bwd.cu",
-            "replaces": "fastervit_tpu/ops/pallas_flash_attention.py:284",
-            "replaces_kernels": "_bwd_dq_kernel (:243) and _bwd_dkv_kernel "
-                                "(:263), both called by _flash_backward",
+            "replaces": "fastervit_tpu/ops/pallas_flash_attention.py:288",
+            "replaces_kernels": "_bwd_dq_kernel (:243, its pallas_call at "
+                                ":288) and _bwd_dkv_kernel (:263, its "
+                                "pallas_call at :315), both called by "
+                                "_flash_backward",
             "launches": None, "max_abs_err": err16_all,
             "max_abs_err_fp32": err32_all,
             "err_is": "max |err| / max |plain| of dqkv and dbias",
@@ -1189,6 +1251,392 @@ def family_train_phase(fvt, cuda_attention, steps, mixup) -> None:
         torch.cuda.empty_cache()
 
 
+def msda_inputs(n, q, m, d, p, shapes, gen, timing=False):
+    """f32 MSDA inputs on the card: value N(0, 1); weights softmax-
+    normalised over L·P; locations uniform in [0, 1] for timing (the
+    model's samples fall inside the map), else in [-0.1, 1.1] with a
+    quarter of them on the borders (0, 1) or far outside (±10, ±1e9) and a
+    tenth half a pixel inside an edge."""
+    s, nl = sum(h * w for h, w in shapes), len(shapes)
+    value = torch.randn(n, s, m, d, device="cuda", generator=gen)
+    w = torch.randn(n, q, m, nl * p, device="cuda", generator=gen)
+    w = w.softmax(-1).reshape(n, q, m, nl, p)
+    loc = torch.rand(n, q, m, nl, p, 2, device="cuda", generator=gen)
+    if not timing:
+        loc = loc * 1.2 - 0.1
+        special = torch.tensor([0.0, 1.0, -10.0, 10.0, -1e9, 1e9],
+                               device="cuda")
+        pick = torch.rand(loc.shape, device="cuda", generator=gen) < 0.25
+        idx = torch.randint(0, len(special), loc.shape, device="cuda",
+                            generator=gen)
+        loc = torch.where(pick, special[idx], loc)
+        wh = torch.tensor([[w_, h_] for h_, w_ in shapes], device="cuda")
+        edge = (0.5 / wh)[None, None, None, :, None, :].expand_as(loc)
+        r = torch.rand(loc.shape, device="cuda", generator=gen)
+        loc = torch.where(r < 0.05, edge, torch.where(r < 0.1, 1 - edge, loc))
+    return value, loc.contiguous(), w.contiguous()
+
+
+def msda_grid_sample(value, shapes, loc, weights):
+    """Upstream's plain MSDA, ms_deform_attn_core_pytorch (dino/models/dino/
+    ops/functions/ms_deform_attn_func.py:41-61): F.grid_sample per level
+    (zero padding, align_corners=False), then the weighted sum. Timed as
+    the yardstick of K5; the port never calls it."""
+    n, s, m, d = value.shape
+    _, q, _, nl, p, _ = loc.shape
+    values = value.split([h * w for h, w in shapes], dim=1)
+    grids = 2 * loc - 1
+    sampled = []
+    for lid, (h, w) in enumerate(shapes):
+        v = values[lid].flatten(2).transpose(1, 2).reshape(n * m, d, h, w)
+        g = grids[:, :, :, lid].transpose(1, 2).flatten(0, 1)
+        sampled.append(torch.nn.functional.grid_sample(
+            v, g, mode="bilinear", padding_mode="zeros", align_corners=False))
+    weights = weights.transpose(1, 2).reshape(n * m, 1, q, nl * p)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * weights).sum(-1)
+    return out.view(n, m * d, q).transpose(1, 2).contiguous()
+
+
+def k5_phase(cuda_msda, msda) -> dict:
+    """K5 against its plain version at the served and odd shapes, then
+    kernel, plain version and the grid_sample form timed in bf16 at the
+    served shapes."""
+    kernel = cuda_msda.ms_deform_attn_cuda
+    plain = msda.msda_reference
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    err32_all = err16_all = 0.0
+    for n, q, m, d, p, shapes, _ in K5_SERVED + K5_ODD:
+        value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
+        v16, l16, w16 = (t.bfloat16() for t in (value, loc, w))
+        before = kernel.launches
+        got, got16 = kernel(value, shapes, loc, w), kernel(v16, shapes, l16,
+                                                           w16)
+        err32 = err16 = 0.0
+        if n * q:
+            err32 = (got - plain(value, shapes, loc, w)).abs().max().item()
+            want = plain(v16.float(), shapes, l16.float(), w16.float())
+            err16 = ((got16.float() - want).abs().max()
+                     / want.abs().max().clamp(min=1.0)).item()
+            check(torch.equal(kernel(value, shapes, loc, w), got)
+                  and torch.equal(kernel(v16, shapes, l16, w16), got16),
+                  f"K5 differs between two launches at {(n, q, m, d, p)}")
+            del want
+        else:
+            check(kernel.launches == before
+                  and got.shape == got16.shape == (n, q, m * d),
+                  f"K5 on an empty input {(n, q)}")
+        torch.cuda.synchronize()
+        print(f"K5 ms_deform_attn N={n} Q={q} M={m} D={d} P={p} levels "
+              f"{shapes}: max|err| fp32 {err32:.3e} (tol {TOL_K5_FP32}), "
+              f"bf16 max|err| / max(1, max|plain|) {err16:.3e} (tol "
+              f"{2 ** -8:.3e}: one bf16 rounding); two launches "
+              "bit-identical")
+        check(err32 <= TOL_K5_FP32, f"K5 fp32 error {err32} at "
+                                    f"{(n, q, m, d, p)}")
+        check(err16 <= 2 ** -8, f"K5 bf16 error {err16} at {(n, q, m, d, p)}")
+        err32_all, err16_all = max(err32_all, err32), max(err16_all, err16)
+        del value, loc, w, v16, l16, w16, got, got16
+
+    step = {"ms": 0.0, "plain_ms": 0.0, "grid_sample_ms": 0.0,
+            "bound_ms": 0.0}
+    per_call = {}
+    ops_ms = bytes_ms = 0.0
+    for n, q, m, d, p, shapes, calls in K5_SERVED:
+        value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen, timing=True)
+        gs_err = (msda_grid_sample(value, shapes, loc, w)
+                  - plain(value, shapes, loc, w)).abs().max().item()
+        v16, l16, w16 = (t.bfloat16() for t in (value, loc, w))
+        del value, loc, w
+        plain_ms, ms, gs_ms = in_turns(
+            lambda: plain(v16, shapes, l16, w16),
+            lambda: kernel(v16, shapes, l16, w16),
+            lambda: msda_grid_sample(v16, shapes, l16, w16), 20)
+        # value, locations and weights read, the output written, bf16
+        nbytes = 2 * (v16.numel() + l16.numel() + w16.numel()
+                      + n * q * m * d)
+        # per sample: its geometry and four corner weights (18 f32 ops),
+        # then one FMA per corner and channel
+        samples = n * q * m * len(shapes) * p
+        flops = samples * (8.0 * d + 18)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        by = ("operations" if flops / F32_FLOP_PER_S
+              > nbytes / HBM_BYTES_PER_S else "bytes")
+        per_call[f"({n},{q},{m},{d},{p})"] = {
+            "ms": ms, "plain_ms": plain_ms, "grid_sample_ms": gs_ms,
+            "bound_ms": bound, "bound_by": by}
+        for key, t in (("ms", ms), ("plain_ms", plain_ms),
+                       ("grid_sample_ms", gs_ms), ("bound_ms", bound)):
+            step[key] += calls * t
+        ops_ms += calls * 1e3 * flops / F32_FLOP_PER_S
+        bytes_ms += calls * 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"K5 ms_deform_attn N={n} Q={q} bf16: kernel {ms:.4f} ms "
+              f"({samples / ms / 1e6:.1f} G samples/s), plain "
+              f"{plain_ms:.4f} ms, grid_sample form {gs_ms:.4f} ms (fp32 "
+              f"max|err| against plain {gs_err:.3e}), bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32, {by}) "
+              "per call")
+        check(gs_err <= 1e-4, f"grid_sample form off the plain version by "
+                              f"{gs_err}")
+        del v16, l16, w16
+    print(f"K5 ms_deform_attn over one DINO-4scale bf16 b{DINO_BATCH} "
+          f"800x1333 forward's 12 calls: kernel {step['ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms, grid_sample form "
+          f"{step['grid_sample_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms "
+          f"[{card()}]")
+    return {"name": "ms_deform_attn", "route": "cuda",
+            "source": "fastervit_tpu_torch/csrc/msda_fwd.cu",
+            "replaces": "fastervit_tpu/ops/msda_pallas.py:141",
+            "replaces_kernels": "_p_kernel (:79) and _sample_loop (:42) of "
+                                "fused_bilinear_gather, run per level by "
+                                "msda_forward_pallas (:156)",
+            "launches": None, "max_abs_err": err16_all,
+            "max_abs_err_fp32": err32_all,
+            "err_is": "bf16: max |err| / max(1, max |plain|); fp32: max "
+                      "|err|",
+            **step,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library_ms": None,
+            "library": "none: no one PyTorch call computes MSDA; upstream's "
+                       "ms_deform_attn_core_pytorch form (4 grid_sample "
+                       "calls and a weighted sum) is timed as "
+                       "grid_sample_ms",
+            "per": f"one DINO-4scale bf16 b{DINO_BATCH} 800x1333 forward (12 "
+                   "calls: 6 in the encoder at Q = 22,223, 6 in the decoder "
+                   "at Q = 900)",
+            "per_call": per_call}
+
+
+def dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg) -> None:
+    """The served detector in fp32, batch 1, 480x640: the card (kernel
+    path) against the CPU (plain path) on the same weights, step by step;
+    both decoders run on the CPU's two-stage selection."""
+    t0 = time.perf_counter()
+    det_cpu = dino.build_dino_from_config(
+        cfg, resolution=(480, 640), device="cpu",
+        generator=torch.Generator().manual_seed(31)).eval()
+    det = copy.deepcopy(det_cpu).to("cuda")
+    build_s = time.perf_counter() - t0
+    x = torch.randn(1, 3, 480, 640, generator=torch.Generator().manual_seed(32))
+    runs, seconds = {}, {}
+    with torch.no_grad():
+        for where, m in (("cpu", det_cpu), ("card", det)):
+            t0 = time.perf_counter()
+            before = detection_launches(cuda_attention, cuda_msda)
+            feats = m.features(x.to(where if where == "cpu" else "cuda"))
+            enc = m.transformer.encode(m.project(feats))
+            runs[where] = (feats, enc, m.transformer.select(enc))
+            seconds[where] = time.perf_counter() - t0
+        topk = runs["cpu"][2]
+        out_cpu = det_cpu.transformer.decode(runs["cpu"][1], topk)
+        out = det.transformer.decode(runs["card"][1], topk.cuda())
+        torch.cuda.synchronize()
+        calls = tuple(a - b for a, b in zip(
+            detection_launches(cuda_attention, cuda_msda), before))
+    errs = {}
+    for key in runs["cpu"][0]:
+        errs[key] = rel_to_largest(runs["card"][0][key].cpu(),
+                                   runs["cpu"][0][key])
+    for key in ("enc_logits", "memory"):
+        errs[key] = rel_to_largest(runs["card"][1][key].cpu(),
+                                   runs["cpu"][1][key])
+    errs["enc_boxes"] = rel_to_largest(
+        torch.sigmoid(runs["card"][1]["enc_unsig"]).cpu(),
+        torch.sigmoid(runs["cpu"][1]["enc_unsig"]))
+    for key in ("interm_logits", "interm_boxes"):
+        errs[key] = rel_to_largest(out[key].cpu(), out_cpu[key])
+    for i in range(len(out_cpu["logits"])):
+        errs[f"logits {i}"] = rel_to_largest(out["logits"][i].cpu(),
+                                             out_cpu["logits"][i])
+        errs[f"boxes {i}"] = rel_to_largest(out["boxes"][i].cpu(),
+                                            out_cpu["boxes"][i])
+    scores = runs["cpu"][1]["enc_logits"].max(-1).values[0]
+    k = topk.shape[1]
+    ranked = scores.sort(descending=True).values
+    margin = (ranked[k - 1] - ranked[k]).item()
+    card_topk = runs["card"][2].cpu()[0]
+    diff = (card_topk != topk[0]).nonzero().flatten()
+    gap = ((scores[card_topk[diff]] - scores[topk[0][diff]]).abs().max()
+           .item() if len(diff) else 0.0)
+    worst = max(errs, key=errs.get)
+    print(f"DINO-4scale faster_vit_4_21k_224 fp32 b1 480x640, card vs CPU, "
+          f"max|err| / max|CPU| per tensor (tol {TOL_DINO_FP32}): "
+          + ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
+          + f"; worst {worst}; two-stage selection: {len(diff)} of {k} "
+          f"positions differ (largest score gap {gap:.2e}; margin between "
+          f"the {k}-th and {k + 1}-th score {margin:.2e}); K1, K3, K5 "
+          f"launches per forward {calls}; build {build_s:.1f} s, CPU "
+          f"{seconds['cpu']:.1f} s, card {seconds['card']:.1f} s")
+    check(all(v <= TOL_DINO_FP32 for v in errs.values()),
+          f"DINO fp32 card vs CPU: {worst} off by {errs[worst]}")
+    check(gap <= TOL_DINO_FP32 * ranked[0].abs().item(),
+          f"two-stage selections differ by score gaps up to {gap}")
+    check(calls == (17, 12, 12), f"DINO 480x640 K1, K3, K5 launches {calls},"
+                                 " expected 17, 12, 12")
+
+
+def dino_serving_phase(cuda_attention, cuda_msda, dino, cfg) -> dict:
+    """The serving path: the served detector in bf16 at batch 2 on an
+    800x1333 canvas, against fp32 on the same weights up to the encoder
+    output; 10 batches timed, one forward profiled."""
+    det = dino.build_dino_from_config(
+        cfg, resolution=DINO_CANVAS,
+        generator=torch.Generator().manual_seed(33)).eval()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    x = torch.randn(DINO_BATCH, 3, *DINO_CANVAS, device="cuda", generator=gen)
+    with torch.no_grad():
+        enc = det.transformer.encode(det.project(det.features(x)))
+        ref = {k: enc[k] for k in ("memory", "enc_logits")}
+        del enc
+        det16 = det.to(torch.bfloat16)  # the same weights, now bf16
+        x16 = x.bfloat16()
+        del x
+        reset_launches(cuda_attention, cuda_msda)
+        out = det16(x16)
+        torch.cuda.synchronize()
+        calls = detection_launches(cuda_attention, cuda_msda)
+        post = dino.postprocess(out, torch.tensor([DINO_CANVAS] * DINO_BATCH,
+                                                  device="cuda"))
+        enc16 = det16.transformer.encode(det16.project(det16.features(x16)))
+        gaps = {k: ((enc16[k].float() - v).norm() / v.norm()).item()
+                for k, v in ref.items()}
+        maxabs = {k: (enc16[k].float() - v).abs().max().item()
+                  for k, v in ref.items()}
+        del enc16, ref
+    q, kc = det16.num_queries, det16.num_classes
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 out["logits"] + out["boxes"] + list(post.values()))
+    print(f"DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} "
+          f"{DINO_CANVAS[0]}x{DINO_CANVAS[1]}: K1, K3, K5 launches per "
+          f"forward {calls}; bf16 vs fp32 up to the encoder output, "
+          f"||bf16 - fp32|| / ||fp32||: "
+          + ", ".join(f"{k} {v:.3e} (max|diff| {maxabs[k]:.3e})"
+                      for k, v in gaps.items())
+          + f" (tol {TOL_DINO_BF16}); decoder outputs and the "
+          f"{post['boxes'].shape[1]} detections a image finite: {finite}")
+    check(calls == (17, 12, 12), f"DINO serving K1, K3, K5 launches {calls}, "
+                                 "expected 17, 12, 12")
+    check(all(v <= TOL_DINO_BF16 for v in gaps.values()),
+          f"DINO bf16 off fp32: {gaps}")
+    check(finite and out["logits"][-1].shape == (DINO_BATCH, q, kc)
+          and out["boxes"][-1].shape == (DINO_BATCH, q, 4)
+          and post["boxes"].shape == (DINO_BATCH, 300, 4),
+          "DINO bf16 outputs finite, of the expected shapes")
+    del out, post
+
+    run = lambda: det16(x16)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(10):
+            run()
+        end.record()
+        end.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 10
+        ms = start.elapsed_time(end) / 10
+        peak = torch.cuda.max_memory_allocated()
+    smi = card()
+    print(f"DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} "
+          f"{DINO_CANVAS[0]}x{DINO_CANVAS[1]} eager: {ms:.3f} ms per batch "
+          f"(CUDA events over 10 batches after 2; host {wall_ms:.3f} ms), "
+          f"{DINO_BATCH * 1000 / ms:.2f} img/s; peak memory "
+          f"{peak / 2**20:.1f} MiB [{smi}]")
+    with torch.no_grad():
+        profile_device(run, 1, f"DINO-4scale faster_vit_4_21k_224 bf16 "
+                       f"b{DINO_BATCH} 800x1333 forward", ms, smi,
+                       "dino_profile.json")
+    del det16, x16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": calls, "ms": ms, "peak": peak}
+
+
+def dino_cli_phase(cuda_attention, cuda_msda, dino, detection_cli,
+                   cfg) -> None:
+    """The detection CLI on the card from a reference-layout checkpoint
+    (the shared heads under both of their names, and upstream's denoising
+    label embedding, which the port reports and skips); then the route of
+    DINO-4scale on faster_vit_0_224 at 800x1333."""
+    records = _Records()
+    pkg_log = logging.getLogger("fastervit_tpu_torch")
+    prev_level = pkg_log.level
+    pkg_log.addHandler(records)
+    pkg_log.setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            src = dino.build_dino_from_config(
+                cfg, resolution=(800, 800),
+                generator=torch.Generator().manual_seed(35))
+            sd = {k: v.cpu() for k, v in src.state_dict().items()}
+            del src
+            sd["label_enc.weight"] = torch.randn(92, 256)
+            heads = sum(k.startswith(("bbox_embed.", "class_embed.",
+                                      "transformer.decoder.bbox_embed.",
+                                      "transformer.decoder.class_embed."))
+                        for k in sd)
+            path = Path(tmp) / "dino_4scale_faster_vit_4_21k_224.pth"
+            torch.save({"model": sd}, path)
+            del sd
+            write_s = time.perf_counter() - t0
+            reset_launches(cuda_attention, cuda_msda)
+            t0 = time.perf_counter()
+            stats = detection_cli.main([
+                "--config", str(REPO / DINO_CONFIG), "--eval", "--synthetic",
+                "--image-size", "800", "--dtype", "bfloat16",
+                "--checkpoint", str(path), "--output", str(Path(tmp) / "out")])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            calls = detection_launches(cuda_attention, cuda_msda)
+            written = json.loads((Path(tmp) / "out" / "eval.json").read_text())
+    finally:
+        pkg_log.removeHandler(records)
+        pkg_log.setLevel(prev_level)
+    warned = [m for m in records.messages
+              if m.startswith(("missing keys", "unexpected keys",
+                               "shape-mismatched"))]
+    print(f"detection CLI (--eval --synthetic, {DINO_CONFIG}, 800x800, bf16, "
+          f"2 batches of 2) from a reference-layout .pth ({heads} shared-head "
+          f"keys, written in {write_s:.1f} s): {cli_s:.1f} s; load warnings "
+          f"{warned}; K1, K3, K5 launches {calls}; eval.json {written}")
+    check(warned == ["unexpected keys in source state_dict: label_enc.weight"],
+          f"checkpoint load warnings {warned}")
+    check(calls == (34, 24, 24), f"CLI K1, K3, K5 launches {calls}, expected "
+                                 "34, 24, 24")
+    check(json.dumps(written) == json.dumps(stats)
+          and {"mAP", "AP50", "AR100"} <= set(written),
+          f"eval.json {written}")
+
+    cfg0 = type(cfg).fromfile(REPO / "configs/dino/"
+                                     "dino_4scale_faster_vit_0_224.py")
+    det0 = dino.build_dino_from_config(
+        cfg0, resolution=DINO_CANVAS, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(36)).eval()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    x = torch.randn(DINO_BATCH, 3, *DINO_CANVAS, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        reset_launches(cuda_attention, cuda_msda)
+        out = det0(x)
+        torch.cuda.synchronize()
+        calls = detection_launches(cuda_attention, cuda_msda)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in out["logits"] + out["boxes"])
+    print(f"DINO-4scale faster_vit_0_224 bf16 b{DINO_BATCH} 800x1333: K1, "
+          f"K3, K5 launches per forward {calls}; outputs finite: {finite}")
+    check(calls == (11, 6, 12), f"fv0 DINO K1, K3, K5 launches {calls}, "
+                                "expected 11, 6, 12")
+    check(finite, "fv0 DINO outputs finite")
+    del det0, x, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -1196,9 +1644,13 @@ def main() -> None:
         sys.exit(1)
     sys.path.insert(0, str(REPO))
     import fastervit_tpu_torch as fvt
-    from fastervit_tpu_torch.ops import attention, cuda_attention
+    from fastervit_tpu_torch.detection import dino
+    from fastervit_tpu_torch.detection import main as detection_cli
+    from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
+    from fastervit_tpu_torch.ops import msda
     from fastervit_tpu_torch.train import mixup, schedule, steps
     from fastervit_tpu_torch.train import train as train_cli
+    from fastervit_tpu_torch.utils.pyconfig import PyConfig
 
     # 1. device
     smi = card()
@@ -1328,7 +1780,27 @@ def main() -> None:
     # 17. the train-step routes of fv5 (hd 80) and fv0_any_res
     family_train_phase(fvt, cuda_attention, steps, mixup)
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    # 18. K5 against its plain version
+    k5 = k5_phase(cuda_msda, msda)
+
+    # 19. DINO fp32: the kernel path on the card against the plain path on
+    #     the CPU
+    cfg = PyConfig.fromfile(REPO / DINO_CONFIG)
+    dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg)
+
+    # 20. the serving path: DINO-4scale, bf16, batch 2, 800x1333
+    served_det = dino_serving_phase(cuda_attention, cuda_msda, dino, cfg)
+    k1["launches_detection"], k3["launches_detection"], k5["launches"] = (
+        served_det["launches"])
+    k5["launches_in"] = k1["launches_detection_in"] = \
+        k3["launches_detection_in"] = (
+            f"one DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} "
+            "800x1333 forward of the detection serving path")
+
+    # 21. the detection CLI, and the fv0 detector's route
+    dino_cli_phase(cuda_attention, cuda_msda, dino, detection_cli, cfg)
+
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -6,9 +6,11 @@
     fvt.bake_posemb(model)          # optional deploy mode: biases stored
     logits = model(images)          # images: (B, 3, 224, 224) on the card
 
-On the card the window attention runs through hand-written CUDA kernels
-(csrc/*.cu, built by nvcc at first use); on the CPU it runs through their
-plain PyTorch versions. The package imports no jax.
+On the card the window attention and the detectors' multi-scale
+deformable attention run through hand-written CUDA kernels (csrc/*.cu,
+built by nvcc at first use); on the CPU they run through their plain
+PyTorch versions. DINO detection serving is in `fastervit_tpu_torch.
+detection` (`dino.build_dino_from_config`). The package imports no jax.
 """
 from fastervit_tpu_torch.models.config import (VARIANTS, DataConfig,
                                                FasterViTConfig)

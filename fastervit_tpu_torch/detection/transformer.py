@@ -1,0 +1,397 @@
+"""Deformable-DETR transformer with DINO's two-stage query selection and
+iterative box refinement, for inference: the PyTorch port of
+fastervit_tpu/detection/transformer.py (reference downstream/
+object_detection/dino/models/dino/deformable_transformer.py: encoder :446,
+decoder :596, two-stage selection :327-431).
+
+Numerics follow the JAX package (and through it the reference):
+- sine embeddings use the (y, x, w, h) 128-feature interleaved sin/cos
+  layout of gen_sineembed_for_position;
+- the encoder's position embedding is PositionEmbeddingSineHW with
+  temperature 20, plus the level embedding;
+- two-stage proposals are inverse-sigmoid grid anchors with wh =
+  0.05·2^level, +inf outside (0.01, 0.99), scored through enc_output +
+  LayerNorm and the enc_out_{class,bbox}_embed heads;
+- the decoder refines boxes from the *unnormed* layer output, while the
+  reported per-layer boxes and logits come from the shared-LayerNorm hidden
+  state.
+
+Module names are upstream's, so that an upstream DINO state_dict loads as
+it is: `encoder.layers.{i}` (self_attn, norm1, linear1, linear2, norm2),
+`decoder.layers.{i}` (self_attn, an nn.MultiheadAttention, norm2,
+cross_attn, norm1, linear1, linear2, norm3), `decoder.ref_point_head`,
+`decoder.norm`, the shared heads `decoder.bbox_embed.{i}` and
+`decoder.class_embed.{i}` (one module, listed once per layer),
+`enc_output`, `enc_output_norm`, `enc_out_class_embed`,
+`enc_out_bbox_embed`, `tgt_embed`, `level_embed`.
+
+The port fixes the levels' spatial shapes when it is built (the detector's
+canvas), so the constant tables (position embedding, reference points,
+proposals) are non-persistent buffers made once on the build device.
+Padding masks, contrastive denoising (dn_*) and MOTR's track queries
+(track_*) come with the detection training and tracking slices; their
+entry points raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fastervit_tpu_torch.ops.msda import MSDeformAttnModule, normalize_shapes
+
+_LATER = ("{} comes with the detection training slice (padding masks, "
+          "contrastive denoising) or the tracking slice (MOTR's track "
+          "queries); the port serves unpadded inputs")
+
+
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """util/misc.py inverse_sigmoid: clamp to [eps, 1], then the logit."""
+    x = x.clamp(0, 1)
+    return torch.log(x.clamp(min=eps) / (1 - x).clamp(min=eps))
+
+
+def _interleaved_sincos(coord: torch.Tensor, num_feats: int,
+                        temperature: float) -> torch.Tensor:
+    """(...,) coordinates -> (..., num_feats) as [sin f0, cos f0, sin f1,
+    ...] (utils.py:161, position_encoding.py:57-58)."""
+    i = torch.arange(num_feats, dtype=torch.float64, device=coord.device)
+    dim_t = (temperature ** (2 * (i // 2) / num_feats)).float()
+    p = coord[..., None].float() / dim_t
+    return torch.stack([torch.sin(p[..., 0::2]), torch.cos(p[..., 1::2])],
+                       dim=-1).reshape(*coord.shape, num_feats)
+
+
+def gen_sineembed(pos: torch.Tensor, num_feats: int = 128) -> torch.Tensor:
+    """gen_sineembed_for_position (utils.py:151-177): (..., 2 or 4)
+    normalised coordinates -> (..., 2 or 4 · num_feats), ordered
+    (y, x[, w, h]); computed in f32, returned in pos's dtype."""
+    scale = 2 * math.pi
+    order = [1, 0] + ([2, 3] if pos.shape[-1] == 4 else [])
+    return torch.cat([_interleaved_sincos(pos[..., i] * scale, num_feats,
+                                          10000.0) for i in order],
+                     dim=-1).to(pos.dtype)
+
+
+def position_embedding_sine_hw(spatial_shapes: Sequence[Tuple[int, int]],
+                               num_pos_feats: int = 128,
+                               temperature_h: float = 20.0,
+                               temperature_w: float = 20.0) -> np.ndarray:
+    """PositionEmbeddingSineHW (position_encoding.py:64-135) of unpadded
+    levels, flattened over all of them: (S, 2·num_pos_feats) float32, the
+    y block then the x block, each interleaved sin/cos."""
+    eps = 1e-6
+    scale = 2 * math.pi
+    dim_ty = temperature_h ** (2 * (np.arange(num_pos_feats) // 2)
+                               / num_pos_feats)
+    dim_tx = temperature_w ** (2 * (np.arange(num_pos_feats) // 2)
+                               / num_pos_feats)
+    out = []
+    for h, w in spatial_shapes:
+        y = (np.arange(h, dtype=np.float32) + 1.0) / (h + eps) * scale
+        x = (np.arange(w, dtype=np.float32) + 1.0) / (w + eps) * scale
+        py, px = y[:, None] / dim_ty, x[:, None] / dim_tx
+        py = np.stack([np.sin(py[:, 0::2]), np.cos(py[:, 1::2])],
+                      -1).reshape(h, num_pos_feats)
+        px = np.stack([np.sin(px[:, 0::2]), np.cos(px[:, 1::2])],
+                      -1).reshape(w, num_pos_feats)
+        lvl = np.concatenate([np.repeat(py[:, None], w, 1),
+                              np.repeat(px[None], h, 0)], -1)
+        out.append(lvl.reshape(h * w, 2 * num_pos_feats))
+    return np.concatenate(out, 0).astype(np.float32)
+
+
+def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]]
+                             ) -> np.ndarray:
+    """Each level's pixel centres, normalised: (S, L, 2) float32
+    (get_reference_points with valid ratios of 1,
+    deformable_transformer.py:489-503)."""
+    pts = []
+    for h, w in spatial_shapes:
+        y, x = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5,
+                           indexing="ij")
+        pts.append(np.stack([x.ravel() / w, y.ravel() / h], -1))
+    ref = np.concatenate(pts, 0)
+    return np.tile(ref[:, None, :], (1, len(spatial_shapes), 1)).astype(
+        np.float32)
+
+
+def output_proposals(spatial_shapes: Sequence[Tuple[int, int]]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """gen_encoder_output_proposals' anchors (utils.py:34-65), unpadded:
+    (proposal logits (S, 4) float32, +inf on invalid rows; valid (S,)
+    bool)."""
+    props = []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        gy, gx = np.meshgrid(np.arange(h, dtype=np.float32),
+                             np.arange(w, dtype=np.float32), indexing="ij")
+        grid = np.stack([(gx.ravel() + 0.5) / w, (gy.ravel() + 0.5) / h], -1)
+        wh = np.full((h * w, 2), 0.05 * (2.0 ** lvl), np.float32)
+        props.append(np.concatenate([grid, wh], -1))
+    p = np.concatenate(props, 0)
+    valid = ((p > 0.01) & (p < 0.99)).all(-1)
+    with np.errstate(divide="ignore"):
+        logit = np.log(p / (1 - p))
+    logit[~valid] = np.inf
+    return logit.astype(np.float32), valid
+
+
+def valid_ratios_from_mask(*args, **kwargs):
+    raise NotImplementedError(_LATER.format("valid_ratios_from_mask"))
+
+
+def encoder_reference_points_masked(*args, **kwargs):
+    raise NotImplementedError(_LATER.format(
+        "encoder_reference_points_masked"))
+
+
+def position_embedding_sine_hw_masked(*args, **kwargs):
+    raise NotImplementedError(_LATER.format(
+        "position_embedding_sine_hw_masked"))
+
+
+def output_proposals_masked(*args, **kwargs):
+    raise NotImplementedError(_LATER.format("output_proposals_masked"))
+
+
+def forward_ffn(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
+                norm: nn.LayerNorm) -> torch.Tensor:
+    """The FFN of fastervit_tpu's transformer.py (forward_ffn,
+    deformable_transformer.py:831-835 and 909-913): linear1 -> relu ->
+    linear2, residual, LayerNorm. Its layers sit in the encoder and decoder
+    layers under upstream's names."""
+    return norm(x + linear2(F.relu(linear1(x))))
+
+
+class EncoderLayer(nn.Module):
+    """DeformableTransformerEncoderLayer (deformable_transformer.py:
+    796-850): MSDA self-attention (position on the query) -> norm1 -> FFN
+    (norm2)."""
+
+    def __init__(self, dim: int = 256, n_heads: int = 8, n_points: int = 4,
+                 n_levels: int = 4, ffn_dim: int = 2048):
+        super().__init__()
+        self.self_attn = MSDeformAttnModule(dim, n_levels, n_heads, n_points)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.linear1 = nn.Linear(dim, ffn_dim)
+        self.linear2 = nn.Linear(ffn_dim, dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, src: torch.Tensor, pos: torch.Tensor,
+                ref_points: torch.Tensor,
+                spatial_shapes: Sequence) -> torch.Tensor:
+        """src: (B, S, C); pos: (B or 1, S, C); ref_points: (B, S, L, 2)."""
+        attn = self.self_attn(src + pos, ref_points, src, spatial_shapes)
+        src = self.norm1(src + attn)
+        return forward_ffn(src, self.linear1, self.linear2, self.norm2)
+
+
+class DecoderLayer(nn.Module):
+    """DeformableTransformerDecoderLayer (deformable_transformer.py:
+    852-1014), module_seq ['sa', 'ca', 'ffn']: self-attention (q = k =
+    tgt + query_pos, v = tgt; norm2) -> MSDA cross-attention on
+    tgt + query_pos (norm1) -> FFN (norm3). The self-attention is
+    nn.MultiheadAttention, upstream's module (in_proj_weight)."""
+
+    def __init__(self, dim: int = 256, n_heads: int = 8, n_points: int = 4,
+                 n_levels: int = 4, ffn_dim: int = 2048):
+        super().__init__()
+        self.self_attn = nn.MultiheadAttention(dim, n_heads, batch_first=True)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.cross_attn = MSDeformAttnModule(dim, n_levels, n_heads,
+                                             n_points)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.linear1 = nn.Linear(dim, ffn_dim)
+        self.linear2 = nn.Linear(ffn_dim, dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, tgt: torch.Tensor, query_pos: torch.Tensor,
+                ref_input: torch.Tensor, memory: torch.Tensor,
+                spatial_shapes: Sequence) -> torch.Tensor:
+        """tgt, query_pos: (B, Q, C); ref_input: the per-level reference
+        boxes (B, Q, L, 4); memory: (B, S, C)."""
+        q = tgt + query_pos
+        sa = self.self_attn(q, q, tgt, need_weights=False)[0]
+        tgt = self.norm2(tgt + sa)
+        ca = self.cross_attn(tgt + query_pos, ref_input, memory,
+                             spatial_shapes)
+        tgt = self.norm1(tgt + ca)
+        return forward_ffn(tgt, self.linear1, self.linear2, self.norm3)
+
+
+class MLPHead(nn.Module):
+    """The reference's MLP (dino.py): `layers` Linears with relu between,
+    in_dim -> hidden -> ... -> out."""
+
+    def __init__(self, in_dim: int, hidden: int, out: int, layers: int = 3):
+        super().__init__()
+        dims = [in_dim] + [hidden] * (layers - 1) + [out]
+        self.layers = nn.ModuleList(nn.Linear(a, b)
+                                    for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+class TransformerEncoder(nn.Module):
+    """The encoder's layers (upstream DeformableTransformerEncoder)."""
+
+    def __init__(self, layers: List[EncoderLayer]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class TransformerDecoder(nn.Module):
+    """The decoder's layers, the reference-point head, the shared final
+    LayerNorm and the shared box and class heads (upstream
+    TransformerDecoder; the heads are listed once per layer, as upstream
+    lists its shared module)."""
+
+    def __init__(self, layers: List[DecoderLayer], dim: int,
+                 num_classes: int):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.ref_point_head = MLPHead(2 * dim, dim, dim, layers=2)
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        bbox, cls = MLPHead(dim, dim, 4, layers=3), nn.Linear(dim,
+                                                              num_classes)
+        self.bbox_embed = nn.ModuleList([bbox] * len(layers))
+        self.class_embed = nn.ModuleList([cls] * len(layers))
+
+
+class DeformableTransformer(nn.Module):
+    """Encoder + two-stage query selection + box-refining decoder over the
+    flattened multi-scale features of fixed `spatial_shapes`
+    (fastervit_tpu/detection/transformer.py::DeformableTransformer, with
+    DINO's defaults: shared decoder heads, embed_init_tgt).
+
+    forward = decode(encode(srcs), select(...)); the three steps are
+    methods so that a caller can hold two runs to one query selection."""
+
+    def __init__(self, spatial_shapes: Sequence[Tuple[int, int]],
+                 dim: int = 256, n_heads: int = 8, n_points: int = 4,
+                 enc_layers: int = 6, dec_layers: int = 6,
+                 ffn_dim: int = 2048, num_queries: int = 900,
+                 num_classes: int = 91):
+        super().__init__()
+        shapes = normalize_shapes(spatial_shapes)
+        self.spatial_shapes, self.dim = shapes, dim
+        self.num_queries = num_queries
+        n_levels = len(shapes)
+        self.level_embed = nn.Parameter(torch.empty(n_levels, dim))
+        self.encoder = TransformerEncoder(
+            [EncoderLayer(dim, n_heads, n_points, n_levels, ffn_dim)
+             for _ in range(enc_layers)])
+        self.decoder = TransformerDecoder(
+            [DecoderLayer(dim, n_heads, n_points, n_levels, ffn_dim)
+             for _ in range(dec_layers)], dim, num_classes)
+        self.enc_output = nn.Linear(dim, dim)
+        self.enc_output_norm = nn.LayerNorm(dim, eps=1e-5)
+        self.enc_out_class_embed = nn.Linear(dim, num_classes)
+        self.enc_out_bbox_embed = MLPHead(dim, dim, 4, layers=3)
+        self.tgt_embed = nn.Embedding(num_queries, dim)
+        logit, valid = output_proposals(shapes)
+        level = np.repeat(np.arange(n_levels), [h * w for h, w in shapes])
+        for name, table in (
+                ("pos_sine", position_embedding_sine_hw(shapes, dim // 2)),
+                ("ref_points", encoder_reference_points(shapes)),
+                ("proposals", logit), ("proposal_valid", valid),
+                ("level_index", level)):
+            self.register_buffer(name, torch.as_tensor(table),
+                                 persistent=False)
+
+    def encode(self, srcs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """srcs: (B, S, C) flattened multi-scale features. Returns the
+        encoder memory, the projected two-stage memory `out_memory`, the
+        class logits `enc_logits` (B, S, K) and the unsigmoided boxes
+        `enc_unsig` (B, S, 4) of every proposal."""
+        b, s, _ = srcs.shape
+        if s != len(self.level_index):
+            raise ValueError(f"{s} tokens, the transformer was built for "
+                             f"{len(self.level_index)} ({self.spatial_shapes})")
+        pos = (self.pos_sine + self.level_embed[self.level_index])[None]
+        ref = self.ref_points.expand(b, -1, -1, -1)
+        memory = srcs
+        for layer in self.encoder.layers:
+            memory = layer(memory, pos, ref, self.spatial_shapes)
+        out_memory = memory * self.proposal_valid.to(memory.dtype)[None, :,
+                                                                   None]
+        out_memory = self.enc_output_norm(self.enc_output(out_memory))
+        return {"memory": memory, "out_memory": out_memory,
+                "enc_logits": self.enc_out_class_embed(out_memory),
+                "enc_unsig": (self.enc_out_bbox_embed(out_memory)
+                              + self.proposals[None])}
+
+    def select(self, enc: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """DINO's two-stage selection: the (B, k) indices of the k =
+        min(num_queries, S) proposals of highest class score, best first."""
+        k = min(self.num_queries, enc["enc_logits"].shape[1])
+        scores = enc["enc_logits"].max(-1).values
+        return scores.topk(k, dim=1).indices
+
+    def decode(self, enc: Dict[str, torch.Tensor],
+               topk: torch.Tensor) -> Dict:
+        """The decoder on the proposals `topk` (B, k) of `encode`'s output.
+        Returns enc_logits, enc_boxes, interm_logits, interm_boxes,
+        init_proposals, and per decoder layer lists of logits (B, k, K),
+        boxes (B, k, 4) cxcywh in [0, 1] and hidden states."""
+        memory, out_memory = enc["memory"], enc["out_memory"]
+        b, k = topk.shape
+        n_levels = len(self.spatial_shapes)
+
+        def take(t):
+            return torch.gather(t, 1, topk[..., None].expand(-1, -1,
+                                                             t.shape[-1]))
+
+        ref_undetach = take(enc["enc_unsig"])
+        ref_boxes = torch.sigmoid(ref_undetach).detach()
+        init_proposals = torch.sigmoid(take(self.proposals[None].expand(
+            b, -1, -1)))
+        tgt_undetach = take(out_memory)
+        tgt = self.tgt_embed.weight[None, :k].expand(b, -1, -1)
+        outputs: Dict = {
+            "enc_logits": enc["enc_logits"],
+            "enc_boxes": torch.sigmoid(enc["enc_unsig"]),
+            "interm_logits": self.enc_out_class_embed(tgt_undetach),
+            "interm_boxes": torch.sigmoid(ref_undetach),
+            "init_proposals": init_proposals,
+            "logits": [], "boxes": [], "hidden": []}
+        dec = self.decoder
+        report_ref = ref_boxes
+        for i, layer in enumerate(dec.layers):
+            ref_input = ref_boxes[:, :, None, :].expand(-1, -1, n_levels, -1)
+            qp = dec.ref_point_head(gen_sineembed(ref_input[:, :, 0],
+                                                  self.dim // 2))
+            tgt = layer(tgt, qp, ref_input, memory, self.spatial_shapes)
+            hidden = dec.norm(tgt)
+            # the refinement chain runs on the unnormed output
+            # (deformable_transformer.py:761-765), the reported boxes on the
+            # normed one and this layer's input reference (dino.py:280-291)
+            new_ref = torch.sigmoid(dec.bbox_embed[i](tgt)
+                                    + inverse_sigmoid(ref_boxes))
+            outputs["boxes"].append(torch.sigmoid(
+                dec.bbox_embed[i](hidden) + inverse_sigmoid(report_ref)))
+            outputs["logits"].append(dec.class_embed[i](hidden))
+            outputs["hidden"].append(hidden)
+            report_ref = new_ref
+            ref_boxes = new_ref.detach()
+        return outputs
+
+    def forward(self, srcs: torch.Tensor, dn_labels=None, dn_boxes=None,
+                dn_attn_mask=None, track_tgt=None, track_boxes=None) -> Dict:
+        """srcs: (B, S, C). Returns `decode`'s dict."""
+        if dn_labels is not None or dn_boxes is not None \
+                or dn_attn_mask is not None:
+            raise NotImplementedError(_LATER.format("contrastive denoising"))
+        if track_tgt is not None or track_boxes is not None:
+            raise NotImplementedError(_LATER.format("track queries"))
+        enc = self.encode(srcs)
+        return self.decode(enc, self.select(enc))

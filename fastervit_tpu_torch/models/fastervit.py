@@ -11,7 +11,7 @@ differs.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -42,7 +42,8 @@ class FasterViTLayer(nn.Module):
                  drop_path: Sequence[float] = (0.0,),
                  layer_scale: Optional[float] = None,
                  layer_scale_conv: Optional[float] = None,
-                 only_local: bool = False, do_propagation: bool = False):
+                 only_local: bool = False, do_propagation: bool = False,
+                 dynamic_mode: bool = False):
         super().__init__()
         self.conv = conv
         self.window_size = window_size
@@ -60,10 +61,12 @@ class FasterViTLayer(nn.Module):
                     window_size=window_size, ct_size=ct_size,
                     mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
                     drop_path=drop_path[i], layer_scale=layer_scale,
-                    last=(i == depth - 1), do_propagation=do_propagation)
+                    last=(i == depth - 1), do_propagation=do_propagation,
+                    dynamic_mode=dynamic_mode)
                 for i in range(depth))
         self.global_tokenizer = (
-            TokenInitializer(dim, (hp, wp), window_size, ct_size)
+            TokenInitializer(dim, (hp, wp), window_size, ct_size,
+                             raster_output=dynamic_mode)
             if not conv and self.sr_ratio != (1, 1) else None)
         self.downsample = Downsample(dim) if downsample else None
 
@@ -73,7 +76,10 @@ class FasterViTLayer(nn.Module):
             return checkpointed(blk, *args)
         return blk(*args)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_pre_downsample: bool = False):
+        """x: (B, C, H, W). Returns the level's output, or with
+        `return_pre_downsample` the pair (output, the map before the
+        Downsample), as the pyramid needs."""
         if self.conv:
             for blk in self.blocks:
                 x = self._run(blk, x)
@@ -98,12 +104,19 @@ class FasterViTLayer(nn.Module):
             if pad_b or pad_r:
                 x = x[:, :, :h, :w]
             x = x.contiguous()
+        pre = x
         if self.downsample is not None:
             x = self.downsample(x)
+        if return_pre_downsample:
+            return x, pre
         return x
 
 
-def _build_levels(cfg: FasterViTConfig) -> nn.ModuleList:
+def _build_levels(cfg: FasterViTConfig, dynamic_mode: bool = False,
+                  padded: Optional[Sequence[Tuple[int, int]]] = None
+                  ) -> nn.ModuleList:
+    """The four levels; `padded` gives each level's padded resolution
+    (default: the config's)."""
     dpr = cfg.drop_path_schedule()
     levels = []
     for i in range(cfg.num_levels):
@@ -111,13 +124,14 @@ def _build_levels(cfg: FasterViTConfig) -> nn.ModuleList:
         levels.append(FasterViTLayer(
             dim=cfg.level_dim(i), depth=cfg.depths[i],
             num_heads=cfg.num_heads[i], window_size=cfg.window_size[i],
-            padded_resolution=cfg.level_padded_resolution(i),
+            padded_resolution=(padded[i] if padded is not None
+                               else cfg.level_padded_resolution(i)),
             ct_size=cfg.ct_size, conv=(i < 2), downsample=(i < 3),
             mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
             qk_scale=cfg.qk_scale, drop_path=dpr[start:start + cfg.depths[i]],
             layer_scale=cfg.layer_scale,
             layer_scale_conv=cfg.layer_scale_conv, only_local=not cfg.hat[i],
-            do_propagation=cfg.do_propagation))
+            do_propagation=cfg.do_propagation, dynamic_mode=dynamic_mode))
     return nn.ModuleList(levels)
 
 
@@ -152,3 +166,69 @@ class FasterViT(nn.Module):
             x = level(x)
         x = self.norm(x).mean(dim=(2, 3))
         return self.head(x)
+
+
+def level_shapes(height: int, width: int, levels: int = 4
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """Each level's (H, W) for an input of height x width: the stem's two
+    stride-2 convolutions, then a stride-2 Downsample between levels, each
+    taking ceil(n / 2) (3x3, padding 1). The config's `level_resolution`
+    truncates instead, which is exact for the classifiers' square inputs
+    but not for a detector's canvas (1333 / 16 = 83.3, and level 2 is 84
+    wide)."""
+    h, w = -(-(-(-height // 2)) // 2), -(-(-(-width // 2)) // 2)
+    out = []
+    for _ in range(levels):
+        out.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    return tuple(out)
+
+
+class FasterViTPyramid(nn.Module):
+    """Feature-pyramid mode, the backbone of the detectors (fastervit_tpu/
+    models/fastervit.py::FasterViTPyramid; reference downstream/
+    object_detection/dino/models/dino/fastervit.py:705-707, 792-846): each
+    level's map before its Downsample, through a per-level norm, for the
+    levels in `out_indices`. `stage_norm` is "batchnorm" (the port's
+    flax-style BatchNorm2d, eps 1e-5; the DINO default) or "layernorm"
+    (LayerNorm2d, eps 1e-6); the norms are `norm{i}`, upstream's names.
+    The levels run the runtime-dynamic HAT variant, as the downstream
+    backbones do (the JAX pyramid's default `dynamic_mode=True`).
+
+    Input (B, C, H, W) at the config's resolution, the canvas the model is
+    built for (levels are sized with `level_shapes`); returns
+    {"res2": (B, C0, H/4, W/4), ..., "res5": (B, C3, H/32, W/32)}, NCHW,
+    for the levels asked for."""
+
+    def __init__(self, cfg: FasterViTConfig,
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 stage_norm: str = "batchnorm"):
+        super().__init__()
+        if cfg.drop_rate or cfg.attn_drop_rate:
+            raise NotImplementedError("dropout (drop_rate, attn_drop_rate) "
+                                      "is not ported")
+        if stage_norm not in ("batchnorm", "layernorm"):
+            raise ValueError(f"stage_norm {stage_norm!r}: 'batchnorm' or "
+                             "'layernorm'")
+        self.cfg = cfg
+        self.out_indices = tuple(out_indices)
+        shapes = level_shapes(*cfg.resolution, cfg.num_levels)
+        padded = [(h + (-h) % ws, w + (-w) % ws)
+                  for (h, w), ws in zip(shapes, cfg.window_size)]
+        self.patch_embed = PatchEmbed(cfg.in_chans, cfg.in_dim, cfg.dim)
+        self.levels = _build_levels(cfg, dynamic_mode=True, padded=padded)
+        for i in self.out_indices:
+            dim = cfg.level_dim(i)
+            self.add_module(f"norm{i}",
+                            BatchNorm2d(dim, eps=1e-5)
+                            if stage_norm == "batchnorm"
+                            else LayerNorm2d(dim, eps=1e-6))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.patch_embed(x)
+        feats = {}
+        for i, level in enumerate(self.levels):
+            x, pre = level(x, return_pre_downsample=True)
+            if i in self.out_indices:
+                feats[f"res{i + 2}"] = getattr(self, f"norm{i}")(pre)
+        return feats

@@ -169,17 +169,42 @@ def _rank2_coords(seq_length: int) -> np.ndarray:
     return table.reshape(2, -1).T  # (g*g, 2), raster order
 
 
+def _rank2_coords_dynamic(grid_h: int, grid_w: int) -> np.ndarray:
+    """The detection backbones' runtime-dynamic variant (fastervit_tpu/
+    models/layers.py::_rank2_coords_dynamic): a (grid_h, grid_w) grid
+    normalized by the *total* token count // 2, not the edge // 2."""
+    seq = grid_h * grid_w
+    table = np.stack(np.meshgrid(np.arange(grid_h, dtype=np.float32),
+                                 np.arange(grid_w, dtype=np.float32),
+                                 indexing="ij"))
+    table -= seq // 2
+    table /= seq // 2
+    return table.reshape(2, -1).T
+
+
 class PosEmbMLPSwinv1D(nn.Module):
     """Absolute position embedding: normalized rank-2 grid -> MLP(2 -> 512 ->
     dim), added to the tokens. In deploy mode the (seq_length, dim)
-    embedding is read from `relative_bias`."""
+    embedding is read from `relative_bias`.
 
-    def __init__(self, dim: int, seq_length: int):
+    With `norm_by_seq` (the detection backbones' dynamic mode) the grid is
+    `grid`'s (H, W), normalized by the token count; such a site is never
+    baked, as in the JAX package (layers.py:124), so `bake_posemb` leaves
+    it live."""
+
+    def __init__(self, dim: int, seq_length: int,
+                 grid: Optional[Tuple[int, int]] = None,
+                 norm_by_seq: bool = False):
         super().__init__()
+        self.norm_by_seq = norm_by_seq
         self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
                                      nn.Linear(512, dim, bias=False))
-        self.register_buffer("relative_coords_table",
-                             torch.as_tensor(_rank2_coords(seq_length)),
+        if norm_by_seq:
+            gh, gw = grid or (int(seq_length ** 0.5),) * 2
+            coords = _rank2_coords_dynamic(gh, gw)
+        else:
+            coords = _rank2_coords(seq_length)
+        self.register_buffer("relative_coords_table", torch.as_tensor(coords),
                              persistent=False)
         self.register_buffer("relative_bias", None, persistent=False)
 
@@ -315,6 +340,14 @@ class PosEmbMLPSwinv2D(nn.Module):
         return self.compute()
 
 
+def is_bakeable(module: nn.Module) -> bool:
+    """Whether deploy mode stores `module`'s tensor: every position
+    embedding but a dynamic-mode (`norm_by_seq`) one."""
+    return (isinstance(module, PosEmbMLPSwinv2D)
+            or (isinstance(module, PosEmbMLPSwinv1D)
+                and not module.norm_by_seq))
+
+
 class WindowAttention(nn.Module):
     """MHSA over a window (plus the carrier tokens in front of it) with the
     CPB bias: qkv -> bias -> window attention kernel -> proj."""
@@ -402,12 +435,18 @@ class TokenInitializer(nn.Module):
     The pool's kernel and stride are integer math on the padded resolution
     (for FasterViT-0 level 2: kernel 5, stride 3 on 14x14). The conv is
     registered under two names, `pos_embed` and `to_global_feature.pos`, as
-    upstream registers it."""
+    upstream registers it.
+
+    With `raster_output` (the detection backbones' dynamic mode,
+    layers.py:516-525) the pooled grid is padded to a ct_size multiple and
+    flattened in raster order instead."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
-                 window_size: int, ct_size: int = 1):
+                 window_size: int, ct_size: int = 1,
+                 raster_output: bool = False):
         super().__init__()
         self.ct_size = ct_size
+        self.raster_output = raster_output
         kernel, stride = [], []
         for r in input_resolution:
             out = int(ct_size * r / window_size)
@@ -421,9 +460,15 @@ class TokenInitializer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, C, H, W) -> (B, hc*wc, C) carrier tokens, window-grouped."""
-        x = self.to_global_feature(x).permute(0, 2, 3, 1)  # (B, hc, wc, C)
-        b, hc, wc, c = x.shape
+        x = self.to_global_feature(x)
         cs = self.ct_size
+        if self.raster_output:
+            pad_b, pad_r = (-x.shape[2]) % cs, (-x.shape[3]) % cs
+            if pad_b or pad_r:
+                x = F.pad(x, (0, pad_r, 0, pad_b))
+            return x.flatten(2).transpose(1, 2)
+        x = x.permute(0, 2, 3, 1)  # (B, hc, wc, C)
+        b, hc, wc, c = x.shape
         ct = x.reshape(b, hc // cs, cs, wc // cs, cs, c)
         ct = ct.permute(0, 1, 3, 2, 4, 5)  # (B, nWh, nWw, cs, cs, C)
         return ct.reshape(b, hc * wc, c)
@@ -435,13 +480,19 @@ class HAT(nn.Module):
     Carrier tokens run a global MHSA in raster order, are re-grouped per
     window and concatenated in front of the window tokens for a joint
     windowed MHSA, then split back; the last block of a level can propagate
-    the carriers into the window tokens."""
+    the carriers into the window tokens.
+
+    `dynamic_mode` is the detection backbones' variant (fastervit_tpu/
+    models/layers.py:657-705): both position embeddings normalize their
+    grid by the token count (`norm_by_seq`), and the carriers get theirs
+    on rectangular grids too."""
 
     def __init__(self, dim: int, num_heads: int, sr_ratio: Tuple[int, int],
                  window_size: int, ct_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, layer_scale: Optional[float] = None,
-                 last: bool = False, do_propagation: bool = False):
+                 last: bool = False, do_propagation: bool = False,
+                 dynamic_mode: bool = False):
         super().__init__()
         ws, cs = window_size, ct_size
         self.window_size, self.ct_size = ws, cs
@@ -455,7 +506,9 @@ class HAT(nn.Module):
             return (nn.Parameter(torch.full((dim,), float(layer_scale)))
                     if layer_scale is not None else None)
 
-        self.pos_embed = PosEmbMLPSwinv1D(dim, seq_length=ws * ws)
+        self.pos_embed = PosEmbMLPSwinv1D(dim, seq_length=ws * ws,
+                                          grid=(ws, ws),
+                                          norm_by_seq=dynamic_mode)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, resolution=ws,
                                     seq_length=ws * ws + self.cr_per_window,
@@ -473,8 +526,10 @@ class HAT(nn.Module):
             self.hat_drop_path = DropPath(drop_path)
             self.hat_norm2 = nn.LayerNorm(dim, eps=1e-5)
             self.hat_mlp = Mlp(dim, hidden)
-            self.hat_pos_embed = (PosEmbMLPSwinv1D(dim, seq_length=cr_total)
-                                  if sr_ratio[0] == sr_ratio[1] else None)
+            self.hat_pos_embed = (
+                PosEmbMLPSwinv1D(dim, seq_length=cr_total, grid=self.grid,
+                                 norm_by_seq=dynamic_mode)
+                if sr_ratio[0] == sr_ratio[1] or dynamic_mode else None)
             self.gamma1, self.gamma2 = gamma(), gamma()
 
     @staticmethod

@@ -16,9 +16,9 @@ import torch.nn as nn
 
 from fastervit_tpu_torch.models.config import (VARIANTS, DataConfig,
                                                FasterViTConfig)
-from fastervit_tpu_torch.models.fastervit import FasterViT
-from fastervit_tpu_torch.models.layers import (PosEmbMLPSwinv1D,
-                                               PosEmbMLPSwinv2D)
+from fastervit_tpu_torch.models.fastervit import (FasterViT,
+                                                  FasterViTPyramid)
+from fastervit_tpu_torch.models.layers import is_bakeable
 from fastervit_tpu_torch.utils.convert import load_checkpoint
 
 
@@ -91,7 +91,7 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
                  device: Any = "cuda",
                  generator: Optional[torch.Generator] = None,
                  pretrained: bool = False, checkpoint_path: str = "",
-                 **overrides) -> FasterViT:
+                 pyramid: bool = False, **overrides) -> nn.Module:
     """Build a FasterViT by name (fastervit_tpu/models/registry.py::
     create_model; reference registry.py:195-205).
 
@@ -113,7 +113,7 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
     cfg = get_config(name, **overrides)
     device = torch.device(device)
     with device:
-        model = FasterViT(cfg)
+        model = FasterViTPyramid(cfg) if pyramid else FasterViT(cfg)
     if device.type != "meta":
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -136,9 +136,10 @@ def bake_posemb(model: nn.Module) -> nn.Module:
     they cost device memory: about 2.1 GB in bf16 for faster_vit_4_21k_768.
 
     Returns the model. A module that holds a baked tensor no longer passes
-    gradients to its MLP; bake again after any change to the weights."""
-    modules = [m for m in model.modules()
-               if isinstance(m, (PosEmbMLPSwinv1D, PosEmbMLPSwinv2D))]
+    gradients to its MLP; bake again after any change to the weights. The
+    dynamic-mode embeddings of a pyramid (`norm_by_seq`) stay live, as the
+    JAX package never bakes them."""
+    modules = [m for m in model.modules() if is_bakeable(m)]
     for m in modules:
         m.relative_bias = None
     for m in modules:

@@ -1,0 +1,226 @@
+"""Multi-scale deformable attention (MSDA), PyTorch port of
+fastervit_tpu/ops/msda.py's forward.
+
+`ms_deform_attn` is the single dispatch point: a CUDA tensor goes to K5,
+the hand-written kernel `csrc/msda_fwd.cu` (through `cuda_msda`), a CPU
+tensor to `msda_reference`, the plain version. There is no fallback from
+one to the other. The TPU package's backend switch (`set_msda_backend`,
+its Pallas-below-4096-queries threshold) and its GSPMD query sharding are
+TPU workarounds and have no counterpart: on the card every call is K5.
+
+Layouts are the JAX package's: value (N, S, M, D) with S = Σ H·W over the
+levels; sampling locations (N, Q, M, L, P, 2) as normalised (x, y);
+attention weights (N, Q, M, L, P); output (N, Q, M·D).
+
+Sampling follows `_level_geometry` (msda.py:56-73), grid_sample's
+align_corners=False with zero padding: x = loc_x·W − 0.5, y = loc_y·H −
+0.5; a corner outside the map adds 0, and a sample whose top-left corner
+(x0, y0) lies outside [−1, W−1] × [−1, H−1] adds exactly 0.
+
+Only the forward is here: the MSDA backward (msda.py:184-233, XLA in the
+JAX package) belongs to the detection training slice.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fastervit_tpu_torch.ops import cuda_msda
+
+Shapes = Tuple[Tuple[int, int], ...]
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for low-precision inputs, f64 kept (msda.py::_compute_dtype)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _level_geometry(ll: torch.Tensor, h: int, w: int):
+    """Sampling geometry of one level (msda.py::_level_geometry).
+    ll: (N, Q, M, P, 2) normalised (x, y). Returns fx, fy, valid, each
+    (N, Q, M, P, 1) in the compute dtype, and iy, ix (N, Q, M, P) int64:
+    the start indices of each sample's 2×2 patch in the zero-padded
+    (h + 2, w + 2) map."""
+    cdt = _compute_dtype(ll.dtype)
+    x = ll[..., 0].to(cdt) * w - 0.5          # align_corners=False
+    y = ll[..., 1].to(cdt) * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    # a patch is representable iff its 2x2 corners fit the padded map;
+    # farther-out samples contribute exactly zero
+    valid = ((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1)
+             & (y0 <= h - 1)).to(cdt)[..., None]
+    # clamp in floating point first: a far-out location is out of int range
+    ix = (x0.clamp(-1, w) + 1).long().clamp(0, w)
+    iy = (y0.clamp(-1, h) + 1).long().clamp(0, h)
+    return fx, fy, valid, iy, ix
+
+
+def _padded_level_map(v: torch.Tensor, n: int, h: int, w: int, m: int,
+                      d: int) -> torch.Tensor:
+    """(N, H·W, M, D) -> (N·M, H+2, W+2, D) with a zero border."""
+    vm = v.reshape(n, h, w, m, d).permute(0, 3, 1, 2, 4)
+    vm = F.pad(vm, (0, 0, 1, 1, 1, 1))
+    return vm.reshape(n * m, h + 2, w + 2, d)
+
+
+def msda_reference(value: torch.Tensor, spatial_shapes: Sequence,
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: a port of fastervit_tpu/ops/msda.py::_msda_body
+    (one gather of 2×2 corner patches per (query, level, point) from the
+    zero-padded level map, the bilinear combine, the weighted sum over the
+    points, levels added in order). Geometry and sums are in f32 for bf16
+    inputs (f64 kept); the output is in value's dtype. Holds each level's
+    (N·M, Q·P, 2, 2, D) patches in the compute dtype."""
+    shapes = normalize_shapes(spatial_shapes)
+    n, s, m, d = value.shape
+    q, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    cdt = _compute_dtype(value.dtype)
+    acc = torch.zeros((n, q, m, d), dtype=cdt, device=value.device)
+    start = 0
+    for lvl, (h, w) in enumerate(shapes):
+        v = value[:, start:start + h * w]
+        start += h * w
+        vm = _padded_level_map(v, n, h, w, m, d).reshape(
+            n * m, (h + 2) * (w + 2), d)
+        fx, fy, valid, iy, ix = _level_geometry(
+            sampling_locations[:, :, :, lvl], h, w)
+        # flat index of each patch's top-left corner, (N·M, Q·P)
+        base = (iy * (w + 2) + ix).permute(0, 2, 1, 3).reshape(n * m, q * p)
+        corners = torch.stack([base, base + 1, base + w + 2, base + w + 3],
+                              -1).reshape(n * m, q * p * 4)
+        patches = torch.gather(vm, 1, corners[..., None].expand(-1, -1, d))
+        patches = patches.reshape(n, m, q, p, 4, d).permute(0, 2, 1, 3, 4, 5)
+        patches = patches.to(cdt)                     # (N, Q, M, P, 4, D)
+        interp = ((1 - fy) * (1 - fx) * patches[..., 0, :]
+                  + (1 - fy) * fx * patches[..., 1, :]
+                  + fy * (1 - fx) * patches[..., 2, :]
+                  + fy * fx * patches[..., 3, :]) * valid
+        wl = attention_weights[:, :, :, lvl, :, None].to(cdt)
+        acc = acc + (interp * wl).sum(3)              # (N, Q, M, D)
+    if start != s:
+        raise ValueError(f"spatial shapes {shapes} cover {start} tokens, "
+                         f"value has {s}")
+    return acc.reshape(n, q, m * d).to(value.dtype)
+
+
+def normalize_shapes(spatial_shapes: Sequence) -> Shapes:
+    """The levels' (H, W) as a tuple of int pairs."""
+    return tuple((int(h), int(w)) for h, w in spatial_shapes)
+
+
+def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor) -> torch.Tensor:
+    """MSDA forward (fastervit_tpu/ops/msda.py::ms_deform_attn).
+    value: (N, S, M, D); spatial_shapes: the levels' (H, W), static;
+    sampling_locations: (N, Q, M, L, P, 2) normalised (x, y);
+    attention_weights: (N, Q, M, L, P). Returns (N, Q, M·D) in value's
+    dtype. CUDA tensors launch K5 (`cuda_msda.ms_deform_attn_cuda`), which
+    raises on what it does not take and on inputs that need a gradient;
+    CPU tensors take `msda_reference`."""
+    if value.device.type == "cuda":
+        return cuda_msda.ms_deform_attn_cuda(value, spatial_shapes,
+                                             sampling_locations,
+                                             attention_weights)
+    if value.device.type == "cpu":
+        return msda_reference(value, spatial_shapes, sampling_locations,
+                              attention_weights)
+    raise NotImplementedError(f"MSDA has no path for device {value.device}")
+
+
+@functools.lru_cache(maxsize=64)
+def _level_wh(shapes: Shapes, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """(L, 2) tensor of the levels' (W, H), made once per shapes, dtype and
+    device, so that a forward on the card copies nothing to it."""
+    return torch.tensor([[w, h] for h, w in shapes], dtype=dtype,
+                        device=device)
+
+
+def _sampling_offset_bias(n_heads: int, n_levels: int,
+                          n_points: int) -> np.ndarray:
+    """Directional bias of the sampling-offset head (msda.py::
+    _sampling_offset_bias_init; reference ops/modules/ms_deform_attn.py:
+    47-60): head h points along angle 2πh/n_heads, scaled by the point's
+    index + 1. Flat (M·L·P·2,)."""
+    thetas = np.arange(n_heads, dtype=np.float64) * (2.0 * np.pi / n_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)     # (M, 2)
+    grid = grid / np.abs(grid).max(-1, keepdims=True)
+    grid = np.tile(grid[:, None, None, :], (1, n_levels, n_points, 1))
+    for i in range(n_points):
+        grid[:, :, i, :] *= i + 1
+    return grid.reshape(-1).astype(np.float32)
+
+
+class MSDeformAttnModule(nn.Module):
+    """Deformable-attention layer (fastervit_tpu/ops/msda.py::
+    MSDeformAttnModule; reference ops/modules/ms_deform_attn.py:30-126):
+    value, offset and weight projections around `ms_deform_attn`. Parameter
+    names are upstream's. Initialised as the JAX module is: the offset and
+    weight heads' kernels zero, the offset bias directional, the value and
+    output projections left to the caller's init."""
+
+    def __init__(self, d_model: int = 256, n_levels: int = 4,
+                 n_heads: int = 8, n_points: int = 4):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError(f"d_model {d_model} is not a multiple of "
+                             f"n_heads {n_heads}")
+        self.d_model, self.n_levels = d_model, n_levels
+        self.n_heads, self.n_points = n_heads, n_points
+        self.value_proj = nn.Linear(d_model, d_model)
+        self.sampling_offsets = nn.Linear(d_model,
+                                          n_heads * n_levels * n_points * 2)
+        self.attention_weights = nn.Linear(d_model,
+                                           n_heads * n_levels * n_points)
+        self.output_proj = nn.Linear(d_model, d_model)
+        self.reset_offset_heads()
+
+    @torch.no_grad()
+    def reset_offset_heads(self) -> None:
+        """The offset and weight heads' init (zero kernels, directional
+        offset bias, zero weight bias)."""
+        self.sampling_offsets.weight.zero_()
+        self.sampling_offsets.bias.copy_(torch.as_tensor(
+            _sampling_offset_bias(self.n_heads, self.n_levels,
+                                  self.n_points)))
+        self.attention_weights.weight.zero_()
+        self.attention_weights.bias.zero_()
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                input_flatten: torch.Tensor,
+                spatial_shapes: Sequence) -> torch.Tensor:
+        """query: (N, Q, C); reference_points: (N, Q, L, 2) or (N, Q, L, 4),
+        normalised; input_flatten: (N, S, C); spatial_shapes: the levels'
+        (H, W). Returns (N, Q, C). (Padding masks wait for the detection
+        training slice.)"""
+        n, q, _ = query.shape
+        s = input_flatten.shape[1]
+        m, l, p = self.n_heads, self.n_levels, self.n_points
+        value = self.value_proj(input_flatten).reshape(n, s, m,
+                                                       self.d_model // m)
+        offsets = self.sampling_offsets(query).reshape(n, q, m, l, p, 2)
+        weights = F.softmax(self.attention_weights(query).reshape(
+            n, q, m, l * p), dim=-1).reshape(n, q, m, l, p)
+        if reference_points.shape[-1] == 2:
+            wh = _level_wh(normalize_shapes(spatial_shapes), offsets.dtype,
+                           offsets.device)              # (L, 2) as (W, H)
+            loc = (reference_points[:, :, None, :, None, :]
+                   + offsets / wh[None, None, None, :, None, :])
+        elif reference_points.shape[-1] == 4:
+            loc = (reference_points[:, :, None, :, None, :2]
+                   + offsets / p * reference_points[:, :, None, :, None, 2:]
+                   * 0.5)
+        else:
+            raise ValueError(f"reference points of shape "
+                             f"{tuple(reference_points.shape)}")
+        out = ms_deform_attn(value, spatial_shapes, loc.contiguous(),
+                             weights.contiguous())
+        return self.output_proj(out)

@@ -32,8 +32,7 @@ from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from fastervit_tpu_torch.models.layers import (PosEmbMLPSwinv1D,
-                                               PosEmbMLPSwinv2D)
+from fastervit_tpu_torch.models.layers import is_bakeable
 
 # flax module names whose fc1/fc2 children are torch cpb_mlp Sequentials
 _CPB_PARENTS = {"pos_embed", "hat_pos_embed", "pos_emb_funct"}
@@ -72,6 +71,9 @@ def _torch_module_path(parts: Tuple[str, ...]) -> list:
             i += 1
         elif p in ("fc1", "fc2") and out and out[-1].split(".")[-1] in _CPB_PARENTS:
             out.append("cpb_mlp." + ("0" if p == "fc1" else "2"))
+        elif p.startswith("norm_") and p[len("norm_"):].isdigit():
+            # a pyramid's per-level norms: norm_0 -> norm0
+            out.append("norm" + p[len("norm_"):])
         else:
             out.append(p)
         i += 1
@@ -137,9 +139,10 @@ def load_baked(model: torch.nn.Module,
     """Store `baked_from_jax`'s tensors in the model's `relative_bias`
     buffers, on the device and in the dtype of each module's parameters.
     Raises KeyError unless they cover exactly the model's position-embedding
-    modules. Returns the model."""
+    modules that deploy mode bakes (not a pyramid's dynamic-mode ones).
+    Returns the model."""
     want = {f"{name}.relative_bias" for name, m in model.named_modules()
-            if isinstance(m, (PosEmbMLPSwinv1D, PosEmbMLPSwinv2D))}
+            if is_bakeable(m)}
     if set(baked) != want:
         raise KeyError(f"baked tensors missing {sorted(want - set(baked))}, "
                        f"unexpected {sorted(set(baked) - want)}")

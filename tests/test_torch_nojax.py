@@ -1,7 +1,10 @@
 """The port runs where jax is not installed: importing it, building a model,
 running it live and baked, a long-window attention call, the weights bridge,
-a train step with gradient checkpointing, and a checkpoint saved and
-restored load no jax, jaxlib or flax module."""
+a train step with gradient checkpointing, a checkpoint saved and restored,
+the detection modules (a tiny DINO detector built from a config file, run
+and post-processed, the MSDA and box ops, the evaluator, the weights bridge
+and the CLI) and chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu
+module."""
 import os
 import subprocess
 import sys
@@ -44,6 +47,26 @@ with tempfile.TemporaryDirectory() as d:
     CheckpointManager(d).save(state.step, state, metric=1.0)
     assert CheckpointManager(d).restore(state) is state and state.step == 1
 assert not PreemptionHandler().preempted
+import chip_smoke
+from fastervit_tpu_torch.detection import (coco_eval, convert, dino,
+                                           transformer)
+from fastervit_tpu_torch.detection import main as detection_cli
+from fastervit_tpu_torch.ops import boxes, msda
+from fastervit_tpu_torch.utils.pyconfig import PyConfig
+cfg = PyConfig.fromfile("configs/dino/dino_4scale_faster_vit_0_224.py")
+cfg.merge_from_dict({"backbone_overrides": {"depths": [1, 1, 1, 1],
+                                            "dim": 16, "in_dim": 8,
+                                            "num_heads": [1, 1, 2, 2]},
+                     "hidden_dim": 64, "num_queries": 5, "enc_layers": 1,
+                     "dec_layers": 1})
+det = dino.build_dino_from_config(cfg, resolution=(64, 64),
+                                  device="cpu").eval()
+with torch.no_grad():
+    post = dino.postprocess(det(torch.zeros(1, 3, 64, 64)),
+                            torch.tensor([[64, 64]]), num_select=5)
+assert post["boxes"].shape == (1, 5, 4)
+assert boxes.box_iou(post["boxes"][0], post["boxes"][0])[0].shape == (5, 5)
+assert detection_cli.parse_args(["--config", "c.py", "--eval"]).eval
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
