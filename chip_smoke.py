@@ -71,7 +71,24 @@ Phases, each of which raises on failure:
  21. the detection CLI (--eval --synthetic, the served config, 800x800)
      from a reference-layout DINO checkpoint it writes first, then the
      route check of DINO-4scale on faster_vit_0_224 at 800x1333 (11 K1,
-     6 K3, 12 K5).
+     6 K3, 12 K5);
+ 22. K6, the fused HAT sub-block kernel, against its plain version in fp32
+     and bf16 at FasterViT-0's batch-256 sites (carrier, joint, level 3)
+     and odd ones (fv1's carrier, 10 heads, hd 49, S = 1, a ragged batch,
+     B = 0), γ learned and ones, its DropPath instantiation with zero
+     masks, two launches bit-identical; K6, the plain version and the
+     composed sub-block timed at the fv0 sites beside the bound;
+ 23. faster_vit_0_224 fp32 b4 with set_fused_hat(True): the card (17 K6, no
+     K1) against the CPU (plain path) and the card's composed path;
+ 24. the serving path through the fused block: faster_vit_0_224 bf16 b256
+     with set_fused_hat(True): 17 K6 launches and none of K1-K5 a forward,
+     logits against fp32, 20 batches timed in turns with the switch off,
+     launches a forward and device busy share from torch.profiler both
+     ways, peak memory, both forwards profiled; a baked forward
+     bit-identical;
+ 25. fused_hat_block_dp forward and backward at the joint site in bf16 and
+     fp32 against autograd through the plain version (output, x, params,
+     bias, dp1, dp2): 1 K6, 1 K1 and 1 K2 launch.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -192,10 +209,32 @@ TOL_DINO_FP32 = 1e-4
 # DINO bf16 vs fp32 up to the encoder output, as ||bf16 - fp32|| / ||fp32||
 # over the encoder memory and the proposals' class logits: bf16 keeps 8
 # significant bits (2^-9 relative rounding) at every stored activation of
-# the 23 backbone blocks and 6 encoder layers, and MSDA's sampling
-# locations, rounded to bf16, move a sample by up to a third of a pixel at
-# level 0 (2^-9 of 0.5 of 167 pixels): a few percent
+# the 23 backbone blocks and 6 encoder layers (MSDA's sampling locations
+# and the reference boxes stay f32, as in the JAX detector): a few percent
 TOL_DINO_BF16 = 5e-2
+# K6, the fused HAT sub-block: (B, S, heads, C, calls per FasterViT-0 bf16
+# b256 forward): the level-2 carrier and joint sub-blocks and level 3, timed;
+# then checked only: faster_vit_1's carrier (C 320, 8 heads, hd 40), 10
+# heads of 32 at C 320, a head dim of 49, one token a window, a ragged
+# batch of carrier windows, and an empty batch
+K6_FV0_SITES = [(256, 16, 8, 256, 6), (1024, 53, 8, 256, 6),
+                (256, 49, 16, 512, 5)]
+K6_ODD = [(64, 16, 8, 320, 0), (6, 16, 10, 320, 0), (8, 49, 4, 196, 0),
+          (5, 1, 2, 32, 0), (3, 16, 8, 256, 0), (0, 53, 8, 256, 0)]
+# K6 against its plain version (relative to max(1, max |plain|)): f32
+# throughout with TF32 off, the sums in another order; bf16: the plain
+# version rounds each product to bf16 before its f32 bias (as the JAX
+# reference does) and the kernel does not, one bf16 step at each of the
+# rounded intermediates
+TOL_K6_FP32 = 2e-5
+TOL_K6_BF16 = 1e-2
+# fused_hat_block_dp's gradients through the recompute backward (K1 + K2)
+# against autograd through the plain version, relative to each tensor's
+# largest entry: f32 (dbias and the weights' gradients sum over 54,272
+# tokens in another order), and bf16 (the same roundings but for the
+# attention's, which K2 keeps in f32)
+TOL_K6_GRAD_FP32 = 1e-4
+TOL_K6_GRAD_BF16 = 5e-2
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -625,6 +664,7 @@ def train_parity_phase(fvt, cuda_attention, steps,
 
 
 KINDS = [  # (kind, substrings of a kernel's name), first match wins
+    ("K6 hat_block", ("hat_block_kernel",)),
     ("K5 ms_deform_attn", ("msda_fwd",)),
     ("K4 window_mhsa_long_backward", ("long_bwd", "long_dbias_sum")),
     ("K3 window_mhsa_long", ("window_mhsa_long",)),
@@ -648,12 +688,14 @@ KINDS = [  # (kind, substrings of a kernel's name), first match wins
 
 
 def profile_device(fn, n: int, what: str, unit_ms: float, smi: str,
-                   out_name: str) -> None:
+                   out_name: str):
     """torch.profiler over n calls of fn (n `what`s): device time by kind
     of kernel, against the unprofiled time unit_ms of one call, written to
     chiprun_out/<out_name> with the raw kernel table. Annotations that the
     profiler mirrors onto the device's timeline (such as
-    Optimizer.step#AdamW.step) are not kernels and are left out."""
+    Optimizer.step#AdamW.step) are not kernels and are left out. Returns
+    {"device_ms", "launches", "busy"} a call (busy: device time over
+    unit_ms), or None if the profiler recorded no device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -676,7 +718,7 @@ def profile_device(fn, n: int, what: str, unit_ms: float, smi: str,
     total = sum(t for t, _ in kernels.values())
     if not total:
         print("profile: torch.profiler recorded no device time")
-        return
+        return None
     kinds = {}
     for name, (t, c) in kernels.items():
         low = name.lower()
@@ -700,6 +742,8 @@ def profile_device(fn, n: int, what: str, unit_ms: float, smi: str,
         "kinds": {k: {"ms": t, "launches": c} for k, (t, c) in kinds.items()},
         "kernels": [{"name": k, "ms": t, "launches": c}
                     for k, (t, c) in top]}, indent=1))
+    return {"device_ms": total, "busy": total / unit_ms,
+            "launches": sum(c for _, c in kernels.values())}
 
 
 def train_main_phase(fvt, cuda_attention, steps, train_cli, schedule,
@@ -1637,6 +1681,360 @@ def dino_cli_phase(cuda_attention, cuda_msda, dino, detection_cli,
     torch.cuda.empty_cache()
 
 
+def hat_inputs(b, s, h, c, gen, dtype=torch.float32, learned=True):
+    """x (B, S, C), the params of ops.hat_block.PARAM_ORDER (matrices
+    (out, in), scaled by 1/sqrt(fan in)) and a bias (H, S, S) on the card,
+    all in `dtype`; γ learned or ones."""
+    hidden = 4 * c
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    def u(n, shift=0.0):
+        return torch.rand(n, device="cuda", generator=gen) + shift
+
+    params = {"ln1_scale": u(c, 0.5), "ln1_bias": r(c, scale=0.1),
+              "qkv_w": r(3 * c, c, scale=c ** -0.5),
+              "qkv_b": r(3 * c, scale=0.05),
+              "proj_w": r(c, c, scale=c ** -0.5), "proj_b": r(c, scale=0.05),
+              "gamma3": u(c) if learned else torch.ones(c, device="cuda"),
+              "ln2_scale": u(c, 0.5), "ln2_bias": r(c, scale=0.1),
+              "fc1_w": r(hidden, c, scale=c ** -0.5),
+              "fc1_b": r(hidden, scale=0.05),
+              "fc2_w": r(c, hidden, scale=hidden ** -0.5),
+              "fc2_b": r(c, scale=0.05),
+              "gamma4": u(c) if learned else torch.ones(c, device="cuda")}
+    x, bias = r(b, s, c), r(h, s, s)
+    return (x.to(dtype), {k: v.to(dtype) for k, v in params.items()},
+            bias.to(dtype))
+
+
+def composed_sub_block(attention, x, p, bias, h, scale):
+    """The port's composed HAT sub-block (models.layers.HAT._sub_block with
+    the switch off): LayerNorm, cuBLAS products, K1, GELU and elementwise
+    passes."""
+    c = x.shape[-1]
+    F = torch.nn.functional
+    y = F.layer_norm(x, (c,), p["ln1_scale"], p["ln1_bias"], 1e-5)
+    y = attention.window_mhsa(F.linear(y, p["qkv_w"], p["qkv_b"]), bias, h,
+                              scale)
+    x = x + p["gamma3"] * F.linear(y, p["proj_w"], p["proj_b"])
+    y = F.layer_norm(x, (c,), p["ln2_scale"], p["ln2_bias"], 1e-5)
+    y = F.linear(F.gelu(F.linear(y, p["fc1_w"], p["fc1_b"])), p["fc2_w"],
+                 p["fc2_b"])
+    return x + p["gamma4"] * y
+
+
+def drop_masks(b, gen, keep=0.6):
+    """Two (B,) DropPath scales (0 or 1/keep), each with a zero in it."""
+    masks = []
+    for _ in range(2):
+        m = (torch.rand(b, device="cuda", generator=gen) < keep).float()
+        m[0] = 0.0
+        masks.append(m / keep)
+    return masks
+
+
+def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
+    """K6 against its plain version in fp32 and bf16 at FasterViT-0's
+    batch-256 sites and odd shapes, γ learned and ones, the DropPath
+    instantiation at the joint site, two launches bit-identical; K6, the
+    plain version and the composed sub-block timed at the fv0 sites."""
+    kernel = cuda_hat_block.hat_block_cuda
+    plain = hat_block.hat_block_reference
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    err32_all = err16_all = abs16_all = 0.0
+    ms_fwd = plain_fwd = composed_fwd = bound_fwd = 0.0
+    per_call = []
+    for b, s, h, c, calls in K6_FV0_SITES + K6_ODD:
+        scale = (c // h) ** -0.5
+        if b == 0:
+            x, p, bias = hat_inputs(b, s, h, c, gen)
+            before = kernel.launches
+            out = kernel(x, p, bias, h, scale)
+            print(f"K6 hat_block B=0 S={s} H={h} C={c}: output "
+                  f"{tuple(out.shape)}, launches {kernel.launches - before}")
+            check(out.shape == (0, s, c) and kernel.launches == before,
+                  "K6 on an empty batch launches nothing")
+            continue
+        for learned in ((True, False) if calls else (True,)):
+            x, p, bias = hat_inputs(b, s, h, c, gen, learned=learned)
+            got = kernel(x, p, bias, h, scale)
+            want = plain(x, p, bias, h, scale, attn_impl="plain")
+            err32 = rel_err(got, want)
+            x16, bias16 = x.bfloat16(), bias.bfloat16()
+            p16 = {k: v.bfloat16() for k, v in p.items()}
+            got16 = kernel(x16, p16, bias16, h, scale)
+            want16 = plain(x16, p16, bias16, h, scale, attn_impl="plain")
+            err16 = rel_err(got16, want16)
+            abs16 = ((got16.float() - want16.float()).abs().max().item()
+                     if b else 0.0)
+            same = (torch.equal(kernel(x, p, bias, h, scale), got)
+                    and torch.equal(kernel(x16, p16, bias16, h, scale),
+                                    got16))
+            torch.cuda.synchronize()
+            print(f"K6 hat_block B={b} S={s} H={h} C={c} γ "
+                  f"{'learned' if learned else 'ones'}: max|err| / max(1, "
+                  f"max|plain|) fp32 {err32:.3e} (tol {TOL_K6_FP32}), bf16 "
+                  f"{err16:.3e} (tol {TOL_K6_BF16}); two launches "
+                  f"bit-identical: {same}")
+            check(err32 <= TOL_K6_FP32, f"K6 fp32 error {err32} at "
+                                        f"{(b, s, h, c)}")
+            check(err16 <= TOL_K6_BF16, f"K6 bf16 error {err16} at "
+                                        f"{(b, s, h, c)}")
+            check(same, f"K6 launches differ at {(b, s, h, c)}")
+            check(got.shape == (b, s, c) and got16.dtype == torch.bfloat16,
+                  f"K6 output at {(b, s, h, c)}")
+            err32_all, err16_all = max(err32_all, err32), max(err16_all,
+                                                              err16)
+            abs16_all = max(abs16_all, abs16)
+        if not calls:
+            continue
+        # the serving path's dtypes, in turns; the composed sub-block is
+        # the yardstick (no single PyTorch call computes a HAT sub-block)
+        hidden, hd = 4 * c, c // h
+        plain_ms, ms, composed_ms = in_turns(
+            lambda: plain(x16, p16, bias16, h, scale, attn_impl="plain"),
+            lambda: kernel(x16, p16, bias16, h, scale),
+            lambda: composed_sub_block(attention, x16, p16, bias16, h,
+                                       scale))
+        gap = rel_err(composed_sub_block(attention, x16, p16, bias16, h,
+                                         scale), got16)
+        flops = (2.0 * b * s * c * (4 * c + 2 * hidden)
+                 + 4.0 * b * h * s * s * hd)
+        nbytes = 2 * (2 * b * s * c + sum(v.numel() for v in p16.values())
+                      + bias16.numel())
+        bound = bound_ms(nbytes, flops)
+        ms_fwd += calls * ms
+        plain_fwd += calls * plain_ms
+        composed_fwd += calls * composed_ms
+        bound_fwd += calls * bound
+        per_call.append({"B": b, "S": s, "H": h, "C": c, "calls": calls,
+                         "ms": ms, "plain_ms": plain_ms,
+                         "composed_ms": composed_ms, "bound_ms": bound,
+                         "gflop": flops / 1e9, "mb": nbytes / 1e6})
+        print(f"K6 hat_block B={b} S={s} H={h} C={c} bf16: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, composed sub-block "
+              f"{composed_ms:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.1f} "
+              f"GFLOP, {nbytes / 1e6:.1f} MB; {flops / ms / 1e9:.1f} TFLOP/s) "
+              f"per call; composed vs K6 {gap:.3e}")
+
+    # the DropPath instantiation at the joint site, masks with zeros
+    b, s, h, c, _ = K6_FV0_SITES[1]
+    scale = (c // h) ** -0.5
+    dp1, dp2 = drop_masks(b, gen)
+    for dtype, tol in ((torch.float32, TOL_K6_FP32),
+                       (torch.bfloat16, TOL_K6_BF16)):
+        x, p, bias = hat_inputs(b, s, h, c, gen, dtype)
+        got = kernel(x, p, bias, h, scale, dp1, dp2)
+        err = rel_err(got, plain(x, p, bias, h, scale, dp1, dp2,
+                                 attn_impl="plain"))
+        same = torch.equal(kernel(x, p, bias, h, scale, dp1, dp2), got)
+        torch.cuda.synchronize()
+        print(f"K6 hat_block (DropPath) B={b} S={s} H={h} C={c} {dtype}: "
+              f"max|err| / max(1, max|plain|) {err:.3e} (tol {tol}); two "
+              f"launches bit-identical: {same}")
+        check(err <= tol and same, f"K6 DropPath {dtype}: {err}, {same}")
+    print(f"K6 hat_block over one fv0 bf16 b{BATCH} forward's 17 calls: "
+          f"kernel {ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, composed "
+          f"sub-blocks {composed_fwd:.4f} ms, bound {bound_fwd:.4f} ms")
+    return {"name": "hat_block", "route": "cuda",
+            "source": "fastervit_tpu_torch/csrc/hat_block.cu",
+            "replaces": "fastervit_tpu/ops/pallas_hat_block.py:259",
+            "launches": None, "max_abs_err": abs16_all,
+            "max_rel_err_bf16": err16_all, "max_rel_err_fp32": err32_all,
+            "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": bound_fwd,
+            "bound_by": "operations", "library_ms": None,
+            "composed_ms": composed_fwd,
+            "library": "none: no single PyTorch call computes a HAT "
+                       "sub-block; composed_ms is the port's composed "
+                       "sub-block (LayerNorm, cuBLAS, K1, elementwise)",
+            "per": f"one fv0 bf16 b{BATCH} forward (17 calls)",
+            "per_call": per_call}
+
+
+def fused_fp32_phase(fvt, cuda_attention, cuda_hat_block) -> None:
+    """faster_vit_0_224 fp32 b4 with the fused block on: the card (K6)
+    against the CPU (the plain version), and against the card's composed
+    path."""
+    model_cpu = fvt.create_model("faster_vit_0_224", device="cpu",
+                                 generator=torch.Generator().manual_seed(41))
+    model_cpu.eval()
+    model = copy.deepcopy(model_cpu).to("cuda")
+    x = torch.randn(4, 3, 224, 224,
+                    generator=torch.Generator().manual_seed(42))
+    prev = fvt.set_fused_hat(True)
+    try:
+        with torch.no_grad():
+            want = model_cpu(x)
+            k6 = cuda_hat_block.hat_block_cuda.launches
+            before = launches(cuda_attention)
+            got = model(x.to("cuda"))
+            torch.cuda.synchronize()
+            k6 = cuda_hat_block.hat_block_cuda.launches - k6
+            calls = tuple(a - b for a, b in zip(launches(cuda_attention),
+                                                before))
+    finally:
+        fvt.set_fused_hat(prev)
+    with torch.no_grad():
+        composed = model(x.to("cuda"))
+    err = (got.cpu() - want).abs().max().item()
+    gap = (got - composed).abs().max().item()
+    print(f"fv0 fp32 b4, fused block on: card (K6) vs CPU (plain) max"
+          f"|dlogits| {err:.3e} (tol {TOL_MODEL_FP32}); vs the card's "
+          f"composed path {gap:.3e}; K6 launches {k6}, K1, K2, K3, K4 "
+          f"{calls}")
+    check(got.shape == (4, 1000) and bool(torch.isfinite(got).all()),
+          "fused fp32 logits finite, (4, 1000)")
+    check(err <= TOL_MODEL_FP32, f"fused fp32 logits error {err}")
+    check(gap <= TOL_MODEL_FP32, f"fused vs composed fp32 logits {gap}")
+    check(k6 == 17 and calls == (0, 0, 0, 0),
+          f"fused fp32 launches K6 {k6}, K1-K4 {calls}, expected 17 K6")
+
+
+def fused_serving_phase(fvt, cuda_attention, cuda_msda,
+                        cuda_hat_block) -> dict:
+    """The serving path with the fused block: faster_vit_0_224 bf16 b256,
+    set_fused_hat(True): 17 K6 and no other kernel's launch a forward,
+    logits against fp32 on the same weights, timed in turns with the
+    switch off, launches a forward from torch.profiler both ways, peak
+    memory, one forward profiled; then a baked forward."""
+    model = fvt.create_model("faster_vit_0_224",
+                             generator=torch.Generator().manual_seed(43))
+    model.eval()
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    x = torch.randn(BATCH, 3, 224, 224, device="cuda", generator=gen)
+    with torch.no_grad():
+        ref = model(x)
+    model16 = model.to(torch.bfloat16)  # the same weights, now bf16
+    x16 = x.bfloat16()
+    del x
+    run = lambda: model16(x16)
+    prev = fvt.set_fused_hat(True)
+    try:
+        with torch.no_grad():
+            reset_launches(cuda_attention, cuda_msda)
+            cuda_hat_block.hat_block_cuda.launches = 0
+            logits = run()
+            torch.cuda.synchronize()
+            k6 = cuda_hat_block.hat_block_cuda.launches
+            others = launches(cuda_attention) + (
+                cuda_msda.ms_deform_attn_cuda.launches,)
+            gap = (logits.float() - ref).abs().max().item()
+            print(f"fv0 bf16 b{BATCH}, fused block on: K6 launches {k6}; "
+                  f"K1, K2, K3, K4, K5 {others}; max|bf16 - fp32 logits| "
+                  f"{gap:.4f} (tol {TOL_MODEL_BF16})")
+            check(k6 == 17 and others == (0, 0, 0, 0, 0),
+                  f"fused serving launches K6 {k6}, K1-K5 {others}")
+            check(logits.shape == (BATCH, 1000)
+                  and bool(torch.isfinite(logits).all()),
+                  f"fused bf16 logits finite, ({BATCH}, 1000)")
+            check(gap <= TOL_MODEL_BF16, f"fused bf16 logits off fp32 by "
+                                         f"{gap}")
+            # on, off, off, on; peak memory of each
+            times, peaks = {True: [], False: []}, {}
+            for on in (True, False, False, True):
+                fvt.set_fused_hat(on)
+                torch.cuda.reset_peak_memory_stats()
+                times[on].append(time_ms(run, iters=20, warmup=5))
+                peaks[on] = torch.cuda.max_memory_allocated()
+            on_ms, off_ms = (sum(times[k]) / 2 for k in (True, False))
+            smi = card()
+            print(f"fv0 bf16 b{BATCH} eager, fused block on: {on_ms:.3f} ms "
+                  f"per batch ({times[True][0]:.3f}, {times[True][1]:.3f}), "
+                  f"{BATCH * 1000 / on_ms:.1f} img/s, peak memory "
+                  f"{peaks[True] / 2**20:.1f} MiB; off (composed, K1): "
+                  f"{off_ms:.3f} ms ({times[False][0]:.3f}, "
+                  f"{times[False][1]:.3f}), {BATCH * 1000 / off_ms:.1f} img/s, "
+                  f"peak {peaks[False] / 2**20:.1f} MiB [{smi}]")
+            prof = {}
+            for on, ms, name in ((False, off_ms, "composed_serve_profile"),
+                                 (True, on_ms, "fused_serve_profile")):
+                fvt.set_fused_hat(on)
+                prof[on] = profile_device(
+                    run, 1, f"fv0 bf16 b{BATCH} fused-"
+                    f"{'on' if on else 'off'} forward", ms, smi,
+                    f"{name}.json")
+            if prof[True] and prof[False]:
+                print(f"kernel launches a forward (torch.profiler): fused "
+                      f"on {prof[True]['launches']:.0f}, off "
+                      f"{prof[False]['launches']:.0f}; device busy "
+                      f"{100 * prof[True]['busy']:.1f}% on, "
+                      f"{100 * prof[False]['busy']:.1f}% off")
+            # deploy mode with the switch on
+            fvt.bake_posemb(model16)
+            cuda_hat_block.hat_block_cuda.launches = 0
+            baked = run()
+            torch.cuda.synchronize()
+            same = torch.equal(baked, logits)
+            print(f"fv0 bf16 b{BATCH}, fused block on, baked: K6 launches "
+                  f"{cuda_hat_block.hat_block_cuda.launches}; logits "
+                  f"bit-identical to live: {same}")
+            check(same and cuda_hat_block.hat_block_cuda.launches == 17,
+                  "baked fused forward")
+    finally:
+        fvt.set_fused_hat(prev)
+    del model16, x16, logits, ref, baked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": k6, "ms": on_ms, "off_ms": off_ms,
+            "peak": peaks[True], "peak_off": peaks[False],
+            "profile": prof}
+
+
+def k6_dp_grad_phase(cuda_attention, cuda_hat_block, hat_block) -> None:
+    """fused_hat_block_dp forward and backward at fv0's joint site, bf16
+    and fp32, against autograd through the plain version: the output and
+    the gradients of x, every param, the bias, dp1 and dp2; K6, K1 and K2
+    launches (the backward recomputes through K1 and K2)."""
+    b, s, h, c, _ = K6_FV0_SITES[1]
+    scale = (c // h) ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    names = ["x", "bias"] + list(hat_block.PARAM_ORDER) + ["dp1", "dp2"]
+    for dtype, tol in ((torch.bfloat16, TOL_K6_GRAD_BF16),
+                       (torch.float32, TOL_K6_GRAD_FP32)):
+        x, p, bias = hat_inputs(b, s, h, c, gen, dtype)
+        dps = drop_masks(b, gen)
+        g = torch.randn(b, s, c, device="cuda", generator=gen).to(dtype)
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in
+                      [x, bias] + [p[k] for k in hat_block.PARAM_ORDER]
+                      + dps]
+            xx, bb, *rest = leaves
+            out = fn(xx, dict(zip(hat_block.PARAM_ORDER, rest[:14])), bb,
+                     *rest[14:])
+            return [out] + list(torch.autograd.grad(out, leaves, g))
+
+        before = (cuda_hat_block.hat_block_cuda.launches,
+                  cuda_attention.window_mhsa_cuda.launches,
+                  cuda_attention.window_mhsa_backward_cuda.launches)
+        got = grads(lambda xx, pp, bb, d1, d2: hat_block.fused_hat_block_dp(
+            xx, pp, bb, d1, d2, h, scale))
+        torch.cuda.synchronize()
+        calls = tuple(a - b_ for a, b_ in zip(
+            (cuda_hat_block.hat_block_cuda.launches,
+             cuda_attention.window_mhsa_cuda.launches,
+             cuda_attention.window_mhsa_backward_cuda.launches), before))
+        want = grads(lambda xx, pp, bb, d1, d2: hat_block.hat_block_reference(
+            xx, pp, bb, h, scale, d1, d2, attn_impl="plain"))
+        errs = {n: rel_to_largest(a, e)
+                for n, a, e in zip(["out"] + names, got, want)}
+        worst = max(errs, key=errs.get)
+        print(f"fused_hat_block_dp B={b} S={s} H={h} C={c} {dtype}, forward "
+              f"and backward vs autograd through the plain version, max|err| "
+              f"/ max|plain| (tol {tol}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; K6, K1, K2 launches {calls}")
+        check(all(v <= tol for v in errs.values()),
+              f"fused_hat_block_dp {dtype}: {worst} off by {errs[worst]}")
+        check(calls == (1, 1, 1), f"fused_hat_block_dp launches {calls}, "
+                                  "expected 1 K6, 1 K1, 1 K2")
+        del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -1647,7 +2045,7 @@ def main() -> None:
     from fastervit_tpu_torch.detection import dino
     from fastervit_tpu_torch.detection import main as detection_cli
     from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
-    from fastervit_tpu_torch.ops import msda
+    from fastervit_tpu_torch.ops import cuda_hat_block, hat_block, msda
     from fastervit_tpu_torch.train import mixup, schedule, steps
     from fastervit_tpu_torch.train import train as train_cli
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -1800,7 +2198,24 @@ def main() -> None:
     # 21. the detection CLI, and the fv0 detector's route
     dino_cli_phase(cuda_attention, cuda_msda, dino, detection_cli, cfg)
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    # 22. K6 against its plain version
+    k6 = k6_phase(cuda_hat_block, hat_block, attention)
+
+    # 23. fv0 fp32 with the fused block: K6 on the card against the plain
+    #     version on the CPU
+    fused_fp32_phase(fvt, cuda_attention, cuda_hat_block)
+
+    # 24. the serving path through the fused block: fv0, bf16, batch 256
+    served_fused = fused_serving_phase(fvt, cuda_attention, cuda_msda,
+                                       cuda_hat_block)
+    k6["launches"] = served_fused["launches"]
+    k6["launches_in"] = (f"one faster_vit_0_224 bf16 b{BATCH} forward with "
+                         "set_fused_hat(True), the fused serving path")
+
+    # 25. fused_hat_block_dp forward and backward at the joint site
+    k6_dp_grad_phase(cuda_attention, cuda_hat_block, hat_block)
+
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

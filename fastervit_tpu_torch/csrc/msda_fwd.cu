@@ -21,10 +21,13 @@
 // the model holds it, with the levels' (H, W, start) in a small int32 table
 // on the device, as upstream's ms_deformable_im2col_gpu_kernel does.
 //
-// Types: value, loc and weights all f32 or all bf16. Geometry, corner
-// weights and sums are f32 (a bf16 map widened to f32 is exact, so this is
-// the TPU kernel's f32 upcast, msda_pallas.py:169-178); the output is in
-// value's type.
+// Types: value, loc and weights all f32, all bf16, or value and weights
+// bf16 beside f32 locations, which is what the JAX package's bf16 detector
+// hands its MSDA (f32 reference points plus bf16 offsets,
+// fastervit_tpu/ops/msda.py:496-508): the location type is a template
+// parameter of its own. Geometry, corner weights and sums are f32 (a bf16
+// map widened to f32 is exact, so this is the TPU kernel's f32 upcast,
+// msda_pallas.py:169-178); the output is in value's type.
 //
 // Design: one warp per (n, q, m), one lane per channel (two for D > 32;
 // D ≤ 64). The L·P samples of a warp are taken 32 at a time: lane j
@@ -65,11 +68,12 @@ constexpr int kWarps = 8;          // warps (rows) per block
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 
-// levels: (num_levels, 3) int32 rows of (H, W, first token).
-template <typename T>
+// levels: (num_levels, 3) int32 rows of (H, W, first token). T: value,
+// weights and out; TL: loc.
+template <typename T, typename TL>
 __global__ void __launch_bounds__(kThreads)
 msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
-                const T* __restrict__ loc, const T* __restrict__ weights,
+                const TL* __restrict__ loc, const T* __restrict__ weights,
                 T* __restrict__ out, long long rows, int queries, int seq,
                 int heads, int channels, int num_levels, int points) {
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -78,7 +82,7 @@ msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
   const int m = int(row % heads);
   const long long n = row / heads / queries;
   const int samples = num_levels * points;
-  const T* loc_r = loc + row * samples * 2;
+  const TL* loc_r = loc + row * samples * 2;
   const T* w_r = weights + row * samples;
   const long long token_stride = (long long)heads * channels;
   const T* v_nm = value + n * seq * token_stride + (long long)m * channels;
@@ -138,15 +142,15 @@ msda_fwd_kernel(const T* __restrict__ value, const int* __restrict__ levels,
   if (has1) o_r[d1] = from_f32<T>(acc1);
 }
 
-template <typename T>
+template <typename T, typename TL>
 cudaError_t launch(const void* value, const void* levels, const void* loc,
                    const void* weights, void* out, long long rows,
                    int queries, int seq, int heads, int channels,
                    int num_levels, int points, cudaStream_t stream) {
   const long long blocks = (rows + kWarps - 1) / kWarps;
-  msda_fwd_kernel<T><<<unsigned(blocks), kThreads, 0, stream>>>(
+  msda_fwd_kernel<T, TL><<<unsigned(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(value), static_cast<const int*>(levels),
-      static_cast<const T*>(loc), static_cast<const T*>(weights),
+      static_cast<const TL*>(loc), static_cast<const T*>(weights),
       static_cast<T*>(out), rows, queries, seq, heads, channels, num_levels,
       points);
   return cudaGetLastError();
@@ -159,25 +163,32 @@ extern "C" {
 // value: (batch, seq, heads, channels); levels: (num_levels, 3) int32 rows
 // of (H, W, first token) on the device, Σ H·W = seq; loc: (batch, queries,
 // heads, num_levels, points, 2); weights: (batch, queries, heads,
-// num_levels, points); out: (batch, queries, heads·channels). All of
-// value, loc, weights and out f32 (bf16 = 0) or bf16 (bf16 = 1). Returns
-// the cudaError_t of the launch.
+// num_levels, points); out: (batch, queries, heads·channels). value,
+// weights and out f32 (bf16 = 0) or bf16 (bf16 = 1); loc f32 (loc_bf16 =
+// 0) or, beside bf16 values only, bf16 (loc_bf16 = 1). Returns the
+// cudaError_t of the launch.
 int msda_forward(const void* value, const void* levels, const void* loc,
                  const void* weights, void* out, int batch, int queries,
                  int seq, int heads, int channels, int num_levels,
-                 int points, int bf16, void* stream) {
+                 int points, int bf16, int loc_bf16, void* stream) {
   const long long rows = (long long)batch * queries * heads;
   if (batch <= 0 || queries <= 0 || seq <= 0 || heads <= 0 ||
       channels <= 0 || channels > kMaxChannels || num_levels <= 0 ||
-      points <= 0 || (rows + kWarps - 1) / kWarps > INT_MAX)
+      points <= 0 || (rows + kWarps - 1) / kWarps > INT_MAX ||
+      (loc_bf16 && !bf16))
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? int(launch<__nv_bfloat16>(value, levels, loc, weights, out,
+  if (!bf16)
+    return int(launch<float, float>(value, levels, loc, weights, out, rows,
+                                    queries, seq, heads, channels,
+                                    num_levels, points, s));
+  if (loc_bf16)
+    return int(launch<__nv_bfloat16, __nv_bfloat16>(
+        value, levels, loc, weights, out, rows, queries, seq, heads,
+        channels, num_levels, points, s));
+  return int(launch<__nv_bfloat16, float>(value, levels, loc, weights, out,
                                           rows, queries, seq, heads,
-                                          channels, num_levels, points, s))
-              : int(launch<float>(value, levels, loc, weights, out, rows,
-                                  queries, seq, heads, channels, num_levels,
-                                  points, s));
+                                          channels, num_levels, points, s));
 }
 
 }  // extern "C"

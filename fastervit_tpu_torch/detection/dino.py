@@ -183,7 +183,9 @@ def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),
     reference's build_dino(args)) for a canvas of `resolution` (H, W; the
     default is COCO evaluation's 800 short side and 1333 long side), on
     `device` (the card unless the caller asks for "cpu"), its weights drawn
-    from `generator` (a CPU generator; seed 0 if None) and cast to `dtype`.
+    from `generator` (a CPU generator; seed 0 if None) and cast to `dtype`
+    (but for the transformer's constant tables and level_embed, which stay
+    f32 as in the JAX detector: `DeformableTransformer._apply`).
     Reads the keys that fastervit_tpu's build_dino_from_config reads
     (backbone, backbone_overrides, num_classes, hidden_dim, num_queries,
     enc_layers, dec_layers, num_feature_levels, return_interm_indices);

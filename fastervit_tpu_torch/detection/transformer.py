@@ -28,6 +28,13 @@ cross_attn, norm1, linear1, linear2, norm3), `decoder.ref_point_head`,
 The port fixes the levels' spatial shapes when it is built (the detector's
 canvas), so the constant tables (position embedding, reference points,
 proposals) are non-persistent buffers made once on the build device.
+
+Dtypes follow the JAX package's bf16 detector output by output: the three
+tables and `level_embed` stay f32 whatever dtype the module is cast to
+(`DeformableTransformer._apply`), so the sampling locations, `enc_unsig`,
+the reference boxes and every reported box (`enc_boxes`, `interm_boxes`,
+`init_proposals`, `boxes`) are f32 beside bf16 activations and logits;
+the position embedding is summed in f32 and cast once.
 Padding masks, contrastive denoising (dn_*) and MOTR's track queries
 (track_*) come with the detection training and tracking slices; their
 entry points raise.
@@ -276,6 +283,10 @@ class DeformableTransformer(nn.Module):
     forward = decode(encode(srcs), select(...)); the three steps are
     methods so that a caller can hold two runs to one query selection."""
 
+    # f32 under any cast of the module, as the JAX package keeps its tables
+    # (transformer.py:99, 112-113, 204) and its level_embed parameter
+    _F32_TENSORS = ("pos_sine", "ref_points", "proposals", "level_embed")
+
     def __init__(self, spatial_shapes: Sequence[Tuple[int, int]],
                  dim: int = 256, n_heads: int = 8, n_points: int = 4,
                  enc_layers: int = 6, dec_layers: int = 6,
@@ -308,6 +319,24 @@ class DeformableTransformer(nn.Module):
             self.register_buffer(name, torch.as_tensor(table),
                                  persistent=False)
 
+    def _apply(self, fn, recurse=True):
+        """Module._apply (behind .to(), .cuda(), .bfloat16(), ...) that
+        moves the _F32_TENSORS to the new device but keeps them in f32:
+        their f32 values are kept aside and put back after the cast, so no
+        cast rounds them."""
+        kept = {name: getattr(self, name).data for name in self._F32_TENSORS}
+        super()._apply(fn, recurse)
+        for name, old in kept.items():
+            new = getattr(self, name)
+            if new.dtype == torch.float32:
+                continue
+            value = old.to(device=new.device, dtype=torch.float32)
+            if isinstance(new, nn.Parameter):
+                new.data = value
+            else:
+                self._buffers[name] = value
+        return self
+
     def encode(self, srcs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """srcs: (B, S, C) flattened multi-scale features. Returns the
         encoder memory, the projected two-stage memory `out_memory`, the
@@ -317,7 +346,10 @@ class DeformableTransformer(nn.Module):
         if s != len(self.level_index):
             raise ValueError(f"{s} tokens, the transformer was built for "
                              f"{len(self.level_index)} ({self.spatial_shapes})")
-        pos = (self.pos_sine + self.level_embed[self.level_index])[None]
+        # summed in f32, cast once (JAX transformer.py:403); the reference
+        # points stay f32, so MSDA's sampling locations are f32
+        pos = (self.pos_sine + self.level_embed[self.level_index]).to(
+            srcs.dtype)[None]
         ref = self.ref_points.expand(b, -1, -1, -1)
         memory = srcs
         for layer in self.encoder.layers:
@@ -344,6 +376,8 @@ class DeformableTransformer(nn.Module):
         init_proposals, and per decoder layer lists of logits (B, k, K),
         boxes (B, k, 4) cxcywh in [0, 1] and hidden states."""
         memory, out_memory = enc["memory"], enc["out_memory"]
+        # enc_unsig is f32 (the bf16 head plus the f32 proposals), and so
+        # are the reference boxes and every box derived from them
         b, k = topk.shape
         n_levels = len(self.spatial_shapes)
 
@@ -368,8 +402,10 @@ class DeformableTransformer(nn.Module):
         report_ref = ref_boxes
         for i, layer in enumerate(dec.layers):
             ref_input = ref_boxes[:, :, None, :].expand(-1, -1, n_levels, -1)
-            qp = dec.ref_point_head(gen_sineembed(ref_input[:, :, 0],
-                                                  self.dim // 2))
+            # the f32 embedding enters the head in its dtype, as flax's
+            # Dense casts its input
+            qp = dec.ref_point_head(gen_sineembed(
+                ref_input[:, :, 0], self.dim // 2).to(tgt.dtype))
             tgt = layer(tgt, qp, ref_input, memory, self.spatial_shapes)
             hidden = dec.norm(tgt)
             # the refinement chain runs on the unnormed output

@@ -31,8 +31,26 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from fastervit_tpu_torch.ops.attention import window_mhsa
+from fastervit_tpu_torch.ops.hat_block import (compute_dtype,
+                                               fused_block_supported,
+                                               fused_hat_block,
+                                               hat_block_params)
 from fastervit_tpu_torch.ops.windows import (ct_dewindow, ct_window,
                                              nearest_upsample_tokens)
+
+# Route every eligible HAT sub-block of an eval-mode forward through the
+# fused block, K6 on the card (the JAX package's switch, layers.py:199-213).
+# Off by default, as in JAX, where the reason was a TPU measurement; on this
+# card whether it wins is measured by chip_smoke.py. Read at every call.
+_FUSED_HAT = False
+
+
+def set_fused_hat(on: bool) -> bool:
+    """Turn the fused HAT block on or off for eval-mode forwards; returns
+    the previous setting. The port is eager, so the next forward reads it."""
+    global _FUSED_HAT
+    prev, _FUSED_HAT = _FUSED_HAT, bool(on)
+    return prev
 
 
 class DropPath(nn.Module):
@@ -532,9 +550,20 @@ class HAT(nn.Module):
                 if sr_ratio[0] == sr_ratio[1] or dynamic_mode else None)
             self.gamma1, self.gamma2 = gamma(), gamma()
 
-    @staticmethod
-    def _sub_block(x, norm1, attn, norm2, mlp, g_attn, g_mlp, drop_path):
-        """One pre-LN attention + MLP residual pair."""
+    def _sub_block(self, x, norm1, attn, norm2, mlp, g_attn, g_mlp,
+                   drop_path):
+        """One pre-LN attention + MLP residual pair: through the fused HAT
+        block (K6 on the card) when `set_fused_hat` is on, the module is in
+        eval mode and K6 takes the shape (JAX layers.py:619-631); else
+        composed."""
+        hidden = mlp.fc1.out_features
+        if (_FUSED_HAT and not self.training and attn.qkv.bias is not None
+                and fused_block_supported(x.shape, x.shape[-1], hidden,
+                                          attn.num_heads)):
+            params = hat_block_params(norm1, attn, norm2, mlp, g_attn, g_mlp,
+                                      compute_dtype(x))
+            return fused_hat_block(x, params, attn.pos_emb_funct(),
+                                   attn.num_heads, attn.scale)
         y = attn(norm1(x))
         x = x + drop_path(y if g_attn is None else g_attn * y)
         y = mlp(norm2(x))

@@ -5,7 +5,8 @@ csrc/window_mhsa_bwd.cu), and of pallas_flash_attention.py's `_fwd_kernel`
 (K3, csrc/window_mhsa_long.cu) and `_flash_backward` (K4,
 csrc/window_mhsa_long_bwd.cu). The same library holds K5, the
 multi-scale deformable attention forward (csrc/msda_fwd.cu), which
-`ops/cuda_msda.py` binds.
+`ops/cuda_msda.py` binds, and K6, the fused HAT sub-block
+(csrc/hat_block.cu), which `ops/cuda_hat_block.py` binds.
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -121,8 +122,12 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_void_p])
         lib.window_mhsa_long_backward.restype = ctypes.c_int
         lib.msda_forward.argtypes = (  # K5, bound in ops/cuda_msda.py
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
+        lib.hat_block_forward.argtypes = (  # K6, in ops/cuda_hat_block.py
+            [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.hat_block_forward.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

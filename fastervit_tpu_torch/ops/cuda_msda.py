@@ -73,9 +73,11 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
                         attention_weights: torch.Tensor) -> torch.Tensor:
     """MSDA forward on the card (K5). value (N, S, M, D), D <= 64;
     spatial_shapes: the levels' (H, W); sampling_locations
-    (N, Q, M, L, P, 2); attention_weights (N, Q, M, L, P); all three f32 or
-    all bf16, contiguous, on one card. Returns (N, Q, M·D) in value's
-    dtype. Counts its launches in `ms_deform_attn_cuda.launches`.
+    (N, Q, M, L, P, 2); attention_weights (N, Q, M, L, P); all three f32,
+    all bf16, or value and weights bf16 beside f32 locations (what the bf16
+    detector passes, as the JAX package's does); contiguous, on one card.
+    Returns (N, Q, M·D) in value's dtype. Counts its launches in
+    `ms_deform_attn_cuda.launches`.
 
     Forward only: inputs that need a gradient raise NotImplementedError,
     since the MSDA backward (a col2im kernel) is the detection training
@@ -88,10 +90,11 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
                                           for t in tensors):
         raise ValueError("inputs must be on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if value.dtype not in _DTYPES or any(t.dtype != value.dtype
-                                         for t in tensors):
-        raise TypeError("value, sampling locations and attention weights "
-                        "must all be float32 or all bfloat16, got "
+    if (value.dtype not in _DTYPES or weights.dtype != value.dtype
+            or loc.dtype not in (value.dtype, torch.float32)):
+        raise TypeError("K5 takes value, sampling locations and attention "
+                        "weights all float32, all bfloat16, or bfloat16 "
+                        "value and weights with float32 locations; got "
                         f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
@@ -113,6 +116,7 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
             value.data_ptr(), levels.data_ptr(), loc.data_ptr(),
             weights.data_ptr(), out.data_ptr(), n, q, s, m, d, len(shapes),
             p, int(value.dtype == torch.bfloat16),
+            int(loc.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     cuda_attention._raise_on(err, "msda_forward")
     ms_deform_attn_cuda.launches += 1

@@ -123,6 +123,24 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_HAT_MATRICES = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
+
+
+def hat_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The params dict of the JAX package's `fused_hat_block` (numpy; Dense
+    kernels as (in, out)) -> the port's (ops.hat_block.PARAM_ORDER; the
+    matrices as nn.Linear holds them, (out, in)), each in its own dtype."""
+    out = {}
+    for key, val in params.items():
+        arr = np.asarray(val)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).bfloat16()
+        else:
+            t = torch.from_numpy(np.array(arr))
+        out[key] = t.T.contiguous() if key in _HAT_MATRICES else t
+    return out
+
+
 def baked_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The 'baked' collection of JAX variables (numpy arrays) -> f32 tensors
     keyed by the port's buffer names ("<module>.relative_bias"): the

@@ -94,6 +94,27 @@ def test_kernel_bf16_matches_plain(cuda, n, q, m, d, p, shapes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,q,m,d,p,shapes", CASES)
+def test_kernel_bf16_value_f32_locations_matches_plain(cuda, n, q, m, d, p,
+                                                       shapes):
+    """The bf16 detector's mix, as the JAX package's: bf16 value and
+    weights, f32 sampling locations."""
+    value, loc, w = make_inputs(n, q, m, d, p, shapes, cuda, 2)
+    value, w = value.bfloat16(), w.bfloat16()
+    got = cuda_msda.ms_deform_attn_cuda(value, shapes, loc, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, q, m * d)
+    if n * q:
+        want = msda_reference(value.float(), shapes, loc, w.float())
+        # the same f32 math on the same inputs, rounded to bf16 once
+        bound = 2 ** -8 * max(1.0, want.abs().max().item())
+        assert (got.float() - want).abs().max().item() <= bound
+        assert torch.equal(msda_reference(value, shapes, loc, w).float(),
+                           want.bfloat16().float())
+        again = cuda_msda.ms_deform_attn_cuda(value, shapes, loc, w)
+        assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
 def test_dispatch_and_module_launch_kernel(cuda):
     shapes = ((6, 8), (3, 4))
     value, loc, w = make_inputs(2, 30, 4, 8, 2, shapes, cuda)
@@ -124,10 +145,16 @@ def test_inputs_that_need_a_gradient_raise(cuda):
 def test_bad_inputs_raise(cuda):
     shapes = ((6, 8),)
     value, loc, w = make_inputs(1, 5, 2, 8, 2, shapes, cuda)
-    with pytest.raises(TypeError):
+    # the mixes K5 refuses: bf16 locations beside f32 values, weights in
+    # another dtype than the value's, half precision; it names what it takes
+    with pytest.raises(TypeError, match="float32 locations"):
         ms_deform_attn(value, shapes, loc.bfloat16(), w)
+    with pytest.raises(TypeError, match="float32 locations"):
+        ms_deform_attn(value.bfloat16(), shapes, loc, w)
     with pytest.raises(TypeError):
         ms_deform_attn(value.half(), shapes, loc.half(), w.half())
+    assert ms_deform_attn(value.bfloat16(), shapes, loc,
+                          w.bfloat16()).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="cover"):
         ms_deform_attn(value, ((6, 7),), loc, w)
     with pytest.raises(ValueError):

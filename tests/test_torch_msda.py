@@ -92,6 +92,52 @@ def test_reference_matches_jax_bf16(case):
         assert (np.abs(got.float().numpy() - other) <= bound).all()
 
 
+@pytest.mark.parametrize("case", CASES[1:4],
+                         ids=[f"{len(c[5])}levels" for c in CASES[1:4]])
+def test_reference_f32_locations_beside_bf16_values_matches_jax(case):
+    """The bf16 detector's mix: bf16 value and weights, f32 locations. The
+    geometry is computed in f32 from the f32 locations, as JAX's
+    `_level_geometry` does (promote(loc.dtype, f32))."""
+    value, loc, w = _inputs(*case, seed=3)
+    value, w = value.astype(jnp.bfloat16), w.astype(jnp.bfloat16)
+    shapes = case[5]
+    tv, tw = (torch.from_numpy(np.asarray(t, np.float32)).bfloat16()
+              for t in (value, w))
+    got = msda_reference(tv, shapes, torch.from_numpy(loc), tw)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jmsda._msda_body(shapes, value, jnp.asarray(loc), w),
+                      np.float32)
+    # the same f32 math, rounded to bf16 once: one bf16 step apart at most
+    bound = 2 ** -8 * np.maximum(np.abs(want), 1.0)
+    assert (np.abs(got.float().numpy() - want) <= bound).all()
+    # the f32 locations matter: rounding them to bf16 moves samples
+    rounded = msda_reference(tv, shapes, torch.from_numpy(loc).bfloat16(), tw)
+    assert not torch.equal(rounded, got)
+
+
+def test_bf16_module_hands_f32_locations_to_msda(monkeypatch):
+    """A bf16 MSDeformAttnModule with f32 reference points (the bf16
+    detector's) passes f32 sampling locations and bf16 value and weights
+    to `ms_deform_attn`, as the JAX module does (msda.py:496-508)."""
+    from fastervit_tpu_torch.ops import msda as tmsda
+    seen = []
+
+    def spy(value, shapes, loc, weights):
+        seen.append((value.dtype, loc.dtype, weights.dtype))
+        return tmsda.msda_reference(value, shapes, loc, weights)
+
+    monkeypatch.setattr(tmsda, "ms_deform_attn", spy)
+    shapes = ((6, 7), (3, 4))
+    tm = MSDeformAttnModule(32, 2, 4, 2).bfloat16()
+    query = torch.randn(2, 5, 32, dtype=torch.bfloat16)
+    feats = torch.randn(2, 54, 32, dtype=torch.bfloat16)
+    for coords in (2, 4):
+        ref = torch.rand(2, 5, 2, coords)
+        with torch.no_grad():
+            assert tm(query, ref, feats, shapes).dtype == torch.bfloat16
+    assert seen == [(torch.bfloat16, torch.float32, torch.bfloat16)] * 2
+
+
 def _module_params(rng, d_model, m, nl, p):
     """Random JAX MSDeformAttnModule params (kernel (in, out), bias)."""
     def dense(i, o):

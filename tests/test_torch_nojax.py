@@ -1,5 +1,6 @@
 """The port runs where jax is not installed: importing it, building a model,
-running it live and baked, a long-window attention call, the weights bridge,
+running it live and baked and through the fused HAT block (ops.hat_block,
+ops.cuda_hat_block), a long-window attention call, the weights bridge,
 a train step with gradient checkpointing, a checkpoint saved and restored,
 the detection modules (a tiny DINO detector built from a config file, run
 and post-processed, the MSDA and box ops, the evaluator, the weights bridge
@@ -31,6 +32,10 @@ m = fvt.create_model("faster_vit_0_224", device="cpu", depths=[1, 1, 1, 1],
 with torch.no_grad():
     assert m(torch.zeros(1, 3, 64, 64)).shape == (1, 10)
     assert fvt.bake_posemb(m)(torch.zeros(1, 3, 64, 64)).shape == (1, 10)
+    from fastervit_tpu_torch.ops import cuda_hat_block, hat_block
+    prev = fvt.set_fused_hat(True)
+    assert m(torch.zeros(1, 3, 64, 64)).shape == (1, 10)
+    fvt.set_fused_hat(prev)
     assert window_mhsa(torch.zeros(1, 144, 3 * 98), torch.zeros(2, 144, 144),
                        2, 0.1).shape == (1, 144, 98)
     q = torch.zeros(1, 2, 144, 49)
@@ -79,3 +84,27 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_fused_hat_block_off_the_cpu_never_takes_the_plain_version(
+        monkeypatch):
+    """A tensor that is not on the CPU never reaches hat_block_reference:
+    on the card it launches K6 (tests/test_torch_cuda_hat_block.py), on
+    any other device it raises."""
+    import pytest
+    import torch
+    from fastervit_tpu_torch.ops import hat_block
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(hat_block, "hat_block_reference", refuse)
+    c = 8
+    params = {k: torch.zeros((3 * c, c) if k == "qkv_w" else (3 * c,)
+                             if k == "qkv_b" else (c, c) if k in (
+                                 "proj_w", "fc1_w", "fc2_w") else (c,),
+                             device="meta") for k in hat_block.PARAM_ORDER}
+    x = torch.zeros(2, 4, c, device="meta")
+    with pytest.raises(NotImplementedError, match="no path"):
+        hat_block.fused_hat_block(x, params, torch.zeros(1, 4, 4), 1, 0.1)
+
