@@ -1329,7 +1329,7 @@ def msda_grid_sample(value, shapes, loc, weights):
     n, s, m, d = value.shape
     _, q, _, nl, p, _ = loc.shape
     values = value.split([h * w for h, w in shapes], dim=1)
-    grids = 2 * loc - 1
+    grids = (2 * loc - 1).to(value.dtype)  # grid_sample takes one dtype
     sampled = []
     for lid, (h, w) in enumerate(shapes):
         v = values[lid].flatten(2).transpose(1, 2).reshape(n * m, d, h, w)
@@ -1344,25 +1344,26 @@ def msda_grid_sample(value, shapes, loc, weights):
 def k5_phase(cuda_msda, msda) -> dict:
     """K5 against its plain version at the served and odd shapes, then
     kernel, plain version and the grid_sample form timed in bf16 at the
-    served shapes."""
+    served shapes. The bf16 inputs are what the bf16 detector hands K5:
+    value and weights in bf16, the sampling locations in f32."""
     kernel = cuda_msda.ms_deform_attn_cuda
     plain = msda.msda_reference
     gen = torch.Generator(device="cuda").manual_seed(30)
     err32_all = err16_all = 0.0
     for n, q, m, d, p, shapes, _ in K5_SERVED + K5_ODD:
         value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
-        v16, l16, w16 = (t.bfloat16() for t in (value, loc, w))
+        v16, w16 = value.bfloat16(), w.bfloat16()
         before = kernel.launches
-        got, got16 = kernel(value, shapes, loc, w), kernel(v16, shapes, l16,
+        got, got16 = kernel(value, shapes, loc, w), kernel(v16, shapes, loc,
                                                            w16)
         err32 = err16 = 0.0
         if n * q:
             err32 = (got - plain(value, shapes, loc, w)).abs().max().item()
-            want = plain(v16.float(), shapes, l16.float(), w16.float())
+            want = plain(v16.float(), shapes, loc, w16.float())
             err16 = ((got16.float() - want).abs().max()
                      / want.abs().max().clamp(min=1.0)).item()
             check(torch.equal(kernel(value, shapes, loc, w), got)
-                  and torch.equal(kernel(v16, shapes, l16, w16), got16),
+                  and torch.equal(kernel(v16, shapes, loc, w16), got16),
                   f"K5 differs between two launches at {(n, q, m, d, p)}")
             del want
         else:
@@ -1379,7 +1380,7 @@ def k5_phase(cuda_msda, msda) -> dict:
                                     f"{(n, q, m, d, p)}")
         check(err16 <= 2 ** -8, f"K5 bf16 error {err16} at {(n, q, m, d, p)}")
         err32_all, err16_all = max(err32_all, err32), max(err16_all, err16)
-        del value, loc, w, v16, l16, w16, got, got16
+        del value, loc, w, v16, w16, got, got16
 
     step = {"ms": 0.0, "plain_ms": 0.0, "grid_sample_ms": 0.0,
             "bound_ms": 0.0}
@@ -1389,15 +1390,16 @@ def k5_phase(cuda_msda, msda) -> dict:
         value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen, timing=True)
         gs_err = (msda_grid_sample(value, shapes, loc, w)
                   - plain(value, shapes, loc, w)).abs().max().item()
-        v16, l16, w16 = (t.bfloat16() for t in (value, loc, w))
-        del value, loc, w
+        v16, w16 = value.bfloat16(), w.bfloat16()
+        del value, w
         plain_ms, ms, gs_ms = in_turns(
-            lambda: plain(v16, shapes, l16, w16),
-            lambda: kernel(v16, shapes, l16, w16),
-            lambda: msda_grid_sample(v16, shapes, l16, w16), 20)
-        # value, locations and weights read, the output written, bf16
-        nbytes = 2 * (v16.numel() + l16.numel() + w16.numel()
-                      + n * q * m * d)
+            lambda: plain(v16, shapes, loc, w16),
+            lambda: kernel(v16, shapes, loc, w16),
+            lambda: msda_grid_sample(v16, shapes, loc, w16), 20)
+        # value, locations and weights read, the output written: bf16 but
+        # for the f32 locations
+        nbytes = (2 * (v16.numel() + w16.numel() + n * q * m * d)
+                  + 4 * loc.numel())
         # per sample: its geometry and four corner weights (18 f32 ops),
         # then one FMA per corner and channel
         samples = n * q * m * len(shapes) * p
@@ -1421,7 +1423,7 @@ def k5_phase(cuda_msda, msda) -> dict:
               "per call")
         check(gs_err <= 1e-4, f"grid_sample form off the plain version by "
                               f"{gs_err}")
-        del v16, l16, w16
+        del v16, loc, w16
     print(f"K5 ms_deform_attn over one DINO-4scale bf16 b{DINO_BATCH} "
           f"800x1333 forward's 12 calls: kernel {step['ms']:.4f} ms, plain "
           f"{step['plain_ms']:.4f} ms, grid_sample form "
@@ -1742,7 +1744,19 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
     plain version and the composed sub-block timed at the fv0 sites."""
     kernel = cuda_hat_block.hat_block_cuda
     plain = hat_block.hat_block_reference
+    lib = cuda_hat_block.cuda_attention._library()
     gen = torch.Generator(device="cuda").manual_seed(40)
+
+    def plan_of_launch(s, h, c):
+        """The plan K6 just launched with, held against the kernel's own
+        shared-memory figure."""
+        pl = kernel.last_plan
+        smem = lib.hat_block_smem_bytes(s, c, h, pl.windows_per_block,
+                                        int(pl.tensor_cores))
+        check(smem == pl.smem_bytes, f"K6's plan at S={s} H={h} C={c} counts "
+                                     f"{pl.smem_bytes} bytes, the kernel {smem}")
+        return pl
+
     err32_all = err16_all = abs16_all = 0.0
     ms_fwd = plain_fwd = composed_fwd = bound_fwd = 0.0
     per_call = []
@@ -1760,11 +1774,13 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
         for learned in ((True, False) if calls else (True,)):
             x, p, bias = hat_inputs(b, s, h, c, gen, learned=learned)
             got = kernel(x, p, bias, h, scale)
+            plan32 = plan_of_launch(s, h, c)
             want = plain(x, p, bias, h, scale, attn_impl="plain")
             err32 = rel_err(got, want)
             x16, bias16 = x.bfloat16(), bias.bfloat16()
             p16 = {k: v.bfloat16() for k, v in p.items()}
             got16 = kernel(x16, p16, bias16, h, scale)
+            plan16 = plan_of_launch(s, h, c)
             want16 = plain(x16, p16, bias16, h, scale, attn_impl="plain")
             err16 = rel_err(got16, want16)
             abs16 = ((got16.float() - want16.float()).abs().max().item()
@@ -1777,7 +1793,9 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
                   f"{'learned' if learned else 'ones'}: max|err| / max(1, "
                   f"max|plain|) fp32 {err32:.3e} (tol {TOL_K6_FP32}), bf16 "
                   f"{err16:.3e} (tol {TOL_K6_BF16}); two launches "
-                  f"bit-identical: {same}")
+                  f"bit-identical: {same}; plan fp32 {tuple(plan32)}, bf16 "
+                  f"{tuple(plan16)} (windows a block, tensor cores, smem "
+                  "bytes)")
             check(err32 <= TOL_K6_FP32, f"K6 fp32 error {err32} at "
                                         f"{(b, s, h, c)}")
             check(err16 <= TOL_K6_BF16, f"K6 bf16 error {err16} at "
@@ -1790,6 +1808,8 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
             abs16_all = max(abs16_all, abs16)
         if not calls:
             continue
+        check(plan16.tensor_cores, f"K6 bf16 at the fv0 site {(b, s, h, c)} "
+                                   "runs on tensor cores")
         # the serving path's dtypes, in turns; the composed sub-block is
         # the yardstick (no single PyTorch call computes a HAT sub-block)
         hidden, hd = 4 * c, c // h

@@ -113,15 +113,6 @@ __host__ __device__ inline int qkv_stride(int head_dim) {
   return (3 * head_dim) | 1;
 }
 
-inline size_t smem_floats(int seq, int channels, int heads, int wpb) {
-  const size_t rows = size_t(wpb) * seq;
-  return rows * channels                // x32
-         + 2 * kMaxRows                 // mean, rstd
-         + 2 * size_t(channels)         // a LayerNorm's scale and bias
-         + 2 * kKT * kTileStride        // staged A and W tiles
-         + rows * qkv_stride(channels / heads)  // one head's qkv
-         + rows * seq;                  // the head's logits
-}
 
 // The row stride of the scratch's wide part, which holds qkv (3C, tensor
 // cores only) and then h1 (hidden).
@@ -135,6 +126,21 @@ __host__ __device__ inline int wide_stride(int channels, int hidden) {
 __host__ __device__ inline int y16_floats(int rows, int channels) {
   const int bytes = ((rows + 15) / 16 * 16) * (channels + 8) * 2;
   return (bytes + 31) / 32 * 8;
+}
+
+// The block's shared memory, in floats: the layout at the top of
+// hat_block_kernel
+inline size_t smem_floats(int seq, int channels, int heads, int wpb,
+                          bool tc) {
+  const size_t rows = size_t(wpb) * seq;
+  return (tc ? y16_floats(int(rows), channels) : 0)  // y16
+         + rows * channels                // x32
+         + 2 * kMaxRows                   // mean, rstd
+         + 2 * size_t(channels)           // a LayerNorm's scale and bias
+         + (tc ? kTcStageFloats           // the cp.async stage, or
+               : 2 * kKT * kTileStride)   // staged A and W tiles
+         + rows * qkv_stride(channels / heads)  // one head's qkv
+         + rows * seq;                    // the head's logits
 }
 
 __device__ __forceinline__ float load_vec(const void* p, int i, int bf16) {
@@ -575,22 +581,29 @@ extern "C" {
 // has_dp); then the 14 params in PARAM_ORDER of ops/hat_block.py: the
 // matrices qkv_w (3C, C), proj_w (C, C), fc1_w (hidden, C), fc2_w (C,
 // hidden) in x's type, the vectors all f32 (vec_bf16 = 0) or all bf16.
-// Returns the cudaError_t of the launch.
+// wpb: whole windows a block holds, and tc: the bf16 products on tensor
+// cores, both as ops/cuda_hat_block.py::plan chose them; checked here, not
+// chosen. Returns the cudaError_t of the launch.
 int hat_block_forward(const void* const* ptrs, int batch, int seq,
-                      int channels, int hidden, int heads, int x_bf16,
-                      int vec_bf16, int bias_bf16, int has_dp, float scale,
-                      void* stream) {
+                      int channels, int hidden, int heads, int wpb, int tc,
+                      int x_bf16, int vec_bf16, int bias_bf16, int has_dp,
+                      float scale, void* stream) {
   if (batch <= 0 || seq <= 0 || seq > kMaxSeq || heads <= 0 ||
       channels <= 0 || channels % heads != 0 ||
-      channels / heads > kMaxHeadDim || hidden <= 0)
+      channels / heads > kMaxHeadDim || hidden <= 0 || wpb <= 0 ||
+      wpb * seq > kMaxRows)
     return int(cudaErrorInvalidValue);
-  // as many whole windows as fit in kMaxRows tokens, the batch and the
-  // shared memory (windows_per_block in ops/cuda_hat_block.py)
-  int wpb = max(1, min(kMaxRows / seq, batch));
-  while (wpb > 1 &&
-         smem_floats(seq, channels, heads, wpb) * sizeof(float) > kSmemLimit)
-    --wpb;
-  size_t smem = smem_floats(seq, channels, heads, wpb) * sizeof(float);
+  // tensor cores: bf16, widths that are multiples of the step, operands
+  // 32-byte aligned
+  const int operands[] = {2, 3, 7 + kQkvW, 7 + kProjW, 7 + kFc1W, 7 + kFc2W};
+  if (tc) {
+    if (!x_bf16 || channels % kTcK != 0 || hidden % kTcK != 0)
+      return int(cudaErrorInvalidValue);
+    for (int i : operands)
+      if (!aligned32(ptrs[i])) return int(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_floats(seq, channels, heads, wpb, tc) *
+                      sizeof(float);
   const long long blocks = (batch + wpb - 1) / wpb;
   if (smem > size_t(kSmemLimit) || blocks > INT_MAX ||
       (long long)heads * seq * seq > INT_MAX)
@@ -618,22 +631,20 @@ int hat_block_forward(const void* const* ptrs, int batch, int seq,
   if (!x_bf16)
     return has_dp ? int(launch<float, true, false>(a, smem, nb, s))
                   : int(launch<float, false, false>(a, smem, nb, s));
-  // tensor cores where the widths are multiples of 32, the operands are
-  // 32-byte aligned and the bf16 LayerNorm output and the GEMM's double
-  // buffers fit beside the rest
-  const size_t smem_tc =
-      smem + (y16_floats(wpb * seq, channels) + kTcStageFloats
-              - 2 * kKT * kTileStride) * sizeof(float);
-  bool tc = channels % kTcK == 0 && hidden % kTcK == 0 &&
-            smem_tc <= size_t(kSmemLimit);
-  const int operands[] = {2, 3, 7 + kQkvW, 7 + kProjW, 7 + kFc1W, 7 + kFc2W};
-  for (int i : operands) tc = tc && aligned32(ptrs[i]);
   if (tc)
-    return has_dp ? int(launch<__nv_bfloat16, true, true>(a, smem_tc, nb, s))
-                  : int(launch<__nv_bfloat16, false, true>(a, smem_tc, nb,
-                                                           s));
+    return has_dp ? int(launch<__nv_bfloat16, true, true>(a, smem, nb, s))
+                  : int(launch<__nv_bfloat16, false, true>(a, smem, nb, s));
   return has_dp ? int(launch<__nv_bfloat16, true, false>(a, smem, nb, s))
                 : int(launch<__nv_bfloat16, false, false>(a, smem, nb, s));
+}
+
+// The dynamic shared memory, in bytes, of a block that holds wpb windows of
+// seq tokens, with (tc = 1) or without tensor cores: what
+// ops/cuda_hat_block.py::_smem computes, for the card tests to hold it to.
+long long hat_block_smem_bytes(int seq, int channels, int heads, int wpb,
+                               int tc) {
+  return (long long)(smem_floats(seq, channels, heads, wpb, tc) *
+                     sizeof(float));
 }
 
 }  // extern "C"

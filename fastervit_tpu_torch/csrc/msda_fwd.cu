@@ -21,11 +21,12 @@
 // the model holds it, with the levels' (H, W, start) in a small int32 table
 // on the device, as upstream's ms_deformable_im2col_gpu_kernel does.
 //
-// Types: value, loc and weights all f32, all bf16, or value and weights
-// bf16 beside f32 locations, which is what the JAX package's bf16 detector
-// hands its MSDA (f32 reference points plus bf16 offsets,
-// fastervit_tpu/ops/msda.py:496-508): the location type is a template
-// parameter of its own. Geometry, corner weights and sums are f32 (a bf16
+// Types: value and weights f32 or bf16; the locations f32 always, which is
+// what the JAX package's bf16 detector hands its MSDA (f32 reference points
+// plus bf16 offsets, fastervit_tpu/ops/msda.py:496-508): the location type
+// is a template parameter of its own, instantiated as f32 only (the binding
+// widens bf16 locations, which is exact). Geometry, corner weights and sums
+// are f32 (a bf16
 // map widened to f32 is exact, so this is the TPU kernel's f32 upcast,
 // msda_pallas.py:169-178); the output is in value's type.
 //
@@ -39,8 +40,9 @@
 // atomics, so two launches give the same bits.
 //
 // Bound on this card: bytes. At the served encoder shape (N 2, Q = S =
-// 22,223, M 8, D 32, L 4, P 4, bf16) a call must read value (22.8 MB), loc
-// (22.8 MB) and weights (11.4 MB) and write 22.8 MB: about 80 MB, 0.024 ms
+// 22,223, M 8, D 32, L 4, P 4, bf16 beside f32 locations) a call must read
+// value (22.8 MB), loc (45.5 MB) and weights (11.4 MB) and write 22.8 MB:
+// about 103 MB, 0.031 ms
 // at 3.35 TB/s; its 5.7 M samples need about 1.5 GFLOP of f32 arithmetic,
 // about 0.02 ms at 67 TFLOP/s. But the corner reads are 5.7 M × 4 × 64 B =
 // 1.46 GB of gathered traffic, mostly L2 hits (a level-0 map of one head is
@@ -164,28 +166,22 @@ extern "C" {
 // of (H, W, first token) on the device, Σ H·W = seq; loc: (batch, queries,
 // heads, num_levels, points, 2); weights: (batch, queries, heads,
 // num_levels, points); out: (batch, queries, heads·channels). value,
-// weights and out f32 (bf16 = 0) or bf16 (bf16 = 1); loc f32 (loc_bf16 =
-// 0) or, beside bf16 values only, bf16 (loc_bf16 = 1). Returns the
+// weights and out f32 (bf16 = 0) or bf16 (bf16 = 1); loc f32. Returns the
 // cudaError_t of the launch.
 int msda_forward(const void* value, const void* levels, const void* loc,
                  const void* weights, void* out, int batch, int queries,
                  int seq, int heads, int channels, int num_levels,
-                 int points, int bf16, int loc_bf16, void* stream) {
+                 int points, int bf16, void* stream) {
   const long long rows = (long long)batch * queries * heads;
   if (batch <= 0 || queries <= 0 || seq <= 0 || heads <= 0 ||
       channels <= 0 || channels > kMaxChannels || num_levels <= 0 ||
-      points <= 0 || (rows + kWarps - 1) / kWarps > INT_MAX ||
-      (loc_bf16 && !bf16))
+      points <= 0 || (rows + kWarps - 1) / kWarps > INT_MAX)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16)
     return int(launch<float, float>(value, levels, loc, weights, out, rows,
                                     queries, seq, heads, channels,
                                     num_levels, points, s));
-  if (loc_bf16)
-    return int(launch<__nv_bfloat16, __nv_bfloat16>(
-        value, levels, loc, weights, out, rows, queries, seq, heads,
-        channels, num_levels, points, s));
   return int(launch<__nv_bfloat16, float>(value, levels, loc, weights, out,
                                           rows, queries, seq, heads,
                                           channels, num_levels, points, s));

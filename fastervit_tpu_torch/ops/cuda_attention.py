@@ -122,12 +122,14 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_void_p])
         lib.window_mhsa_long_backward.restype = ctypes.c_int
         lib.msda_forward.argtypes = (  # K5, bound in ops/cuda_msda.py
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
         lib.hat_block_forward.argtypes = (  # K6, in ops/cuda_hat_block.py
-            [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 9
+            [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p])
         lib.hat_block_forward.restype = ctypes.c_int
+        lib.hat_block_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.hat_block_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

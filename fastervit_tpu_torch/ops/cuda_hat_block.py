@@ -10,14 +10,16 @@ dtype or a failed launch raises; nothing falls back to the plain version
 no nvcc and no card.
 
 K6's limits are its own, not the TPU's VMEM: a window of S <= MAX_SEQ
-tokens, a head dim <= MAX_HEAD_DIM, and a shared-memory plan (`smem_bytes`:
-the f32 residual of the block's windows, one head's qkv and logits, two
-staged GEMM tiles) within the 227 KB a block may use.
+tokens, a head dim <= MAX_HEAD_DIM, and a shared-memory plan (`plan`: the
+f32 residual of the block's windows, one head's qkv and logits, two staged
+GEMM tiles) within the 227 KB a block may use. The plan is made here, once:
+the kernel takes the windows a block holds and the choice of tensor cores
+as arguments, and only checks them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -28,6 +30,8 @@ MAX_HEAD_DIM = 64     # kMaxHeadDim
 SMEM_LIMIT = 232448   # kSmemLimit: 227 KB, the most an H100 block may use
 _MAX_ROWS = 64        # kMaxRows: tokens a block holds, whole windows
 _KT, _TILE_STRIDE = 32, 65  # kKT, kTileStride
+_TC_K = 32            # kTcK: the tensor-core path's widths are multiples
+_TC_STAGE_FLOATS = 2 * 2 * 64 * (_TC_K + 8) // 2 + 8 * 256  # kTcStageFloats
 _DTYPES = (torch.float32, torch.bfloat16)
 # The fused block's params, in the order K6 takes them (the JAX package's
 # _PARAM_ORDER), and the four matrices among them
@@ -37,27 +41,40 @@ PARAM_ORDER = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w", "proj_b",
 MATRICES = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
 
 
-def _smem(seq: int, c: int, num_heads: int, wpb: int) -> int:
-    """smem_floats in csrc/hat_block.cu, in bytes."""
+class Plan(NamedTuple):
+    """How K6 runs a shape: whole windows a block holds, whether the bf16
+    products run on tensor cores (wmma) or scalar FMA, and the block's
+    dynamic shared memory in bytes."""
+    windows_per_block: int
+    tensor_cores: bool
+    smem_bytes: int
+
+
+def _smem(seq: int, c: int, num_heads: int, wpb: int,
+          tensor_cores: bool = False) -> int:
+    """hat_block_smem_bytes in csrc/hat_block.cu."""
     rows = wpb * seq
-    qkv_stride = (3 * (c // num_heads)) | 1
-    return 4 * (rows * c + 2 * _MAX_ROWS + 2 * c + 2 * _KT * _TILE_STRIDE
-                + rows * qkv_stride + rows * seq)
+    floats = (rows * c + 2 * _MAX_ROWS + 2 * c
+              + rows * ((3 * (c // num_heads)) | 1) + rows * seq)
+    if tensor_cores:  # the bf16 LayerNorm output and the cp.async stage
+        y16_bytes = -(-rows // 16) * 16 * (c + 8) * 2
+        floats += -(-y16_bytes // 32) * 8 + _TC_STAGE_FLOATS
+    else:             # the two staged f32 tiles
+        floats += 2 * _KT * _TILE_STRIDE
+    return 4 * floats
 
 
-def windows_per_block(seq: int, c: int, num_heads: int) -> int:
-    """Whole windows a block holds (for a batch of at least that many): as
-    many as fit in 64 tokens and in SMEM_LIMIT, at least one."""
-    wpb = max(1, _MAX_ROWS // seq)
+def plan(b: int, seq: int, c: int, hidden: int, num_heads: int,
+         bf16: bool) -> Plan:
+    """K6's plan for x (b, seq, c): as many whole windows a block as fit in
+    64 tokens, the batch and SMEM_LIMIT, at least one; tensor cores for bf16
+    where C and hidden are multiples of 32 and their larger plan fits."""
+    wpb = max(1, min(_MAX_ROWS // seq, b))
     while wpb > 1 and _smem(seq, c, num_heads, wpb) > SMEM_LIMIT:
         wpb -= 1
-    return wpb
-
-
-def smem_bytes(seq: int, c: int, num_heads: int) -> int:
-    """K6's dynamic shared memory for windows of `seq` tokens of width c
-    and `num_heads` heads, at its most windows a block."""
-    return _smem(seq, c, num_heads, windows_per_block(seq, c, num_heads))
+    tc = (bf16 and c % _TC_K == 0 and hidden % _TC_K == 0
+          and _smem(seq, c, num_heads, wpb, True) <= SMEM_LIMIT)
+    return Plan(wpb, tc, _smem(seq, c, num_heads, wpb, tc))
 
 
 def unsupported(x_shape: Sequence[int], c: int, hidden: int,
@@ -76,12 +93,12 @@ def unsupported(x_shape: Sequence[int], c: int, hidden: int,
     if c // num_heads > MAX_HEAD_DIM:
         return (f"K6 takes head_dim <= {MAX_HEAD_DIM}, got "
                 f"{c // num_heads}")
-    smem = smem_bytes(s, c, num_heads)
+    smem = _smem(s, c, num_heads, 1)
     if smem > SMEM_LIMIT:
         return (f"K6's shared-memory plan needs {smem} bytes at S={s}, "
                 f"C={c}, H={num_heads}, over the {SMEM_LIMIT} a block may use")
-    if -(-b // windows_per_block(s, c, num_heads)) > 2 ** 31 - 1 or \
-            num_heads * s * s > 2 ** 31 - 1:
+    if -(-b // plan(b, s, c, hidden, num_heads, False).windows_per_block) \
+            > 2 ** 31 - 1 or num_heads * s * s > 2 ** 31 - 1:
         return f"B={b}, S={s}, H={num_heads} exceed the launch grid"
     return None
 
@@ -134,7 +151,8 @@ def hat_block_cuda(x: torch.Tensor, params: Dict[str, torch.Tensor],
     (out, in) in x's dtype, vectors all f32 or all bf16; bias (H, S, S) f32 or
     bf16; dp1, dp2: both None or both (B,) residual-branch scales (the
     HAS_DP instantiation). All contiguous, on one card. Returns (B, S, C)
-    in x's dtype. Counts its launches in `hat_block_cuda.launches`."""
+    in x's dtype. Counts its launches in `hat_block_cuda.launches` and
+    keeps the latest launch's Plan in `hat_block_cuda.last_plan`."""
     c = x.shape[-1]
     check_supported(x.shape, c, params["fc1_w"].shape[0], num_heads)
     _check(x, params, bias, num_heads)
@@ -162,17 +180,26 @@ def hat_block_cuda(x: torch.Tensor, params: Dict[str, torch.Tensor],
             bias.data_ptr(), dp1.data_ptr() if has_dp else 0,
             dp2.data_ptr() if has_dp else 0]
     ptrs += [params[k].data_ptr() for k in PARAM_ORDER]
+    how = plan(b, s, c, hidden, num_heads, x.dtype == torch.bfloat16)
+    # the tensor-core loads need the scratch and the matrices 32-byte aligned
+    operands = [2, 3] + [7 + PARAM_ORDER.index(k) for k in MATRICES]
+    if how.tensor_cores and any(ptrs[i] % 32 for i in operands):
+        how = Plan(how.windows_per_block, False,
+                   _smem(s, c, num_heads, how.windows_per_block))
     lib = cuda_attention._library()
     with torch.cuda.device(x.device):
         err = lib.hat_block_forward(
             (ctypes.c_void_p * len(ptrs))(*ptrs), b, s, c, hidden, num_heads,
+            how.windows_per_block, int(how.tensor_cores),
             int(x.dtype == torch.bfloat16),
             int(params["ln1_scale"].dtype == torch.bfloat16),
             int(bias.dtype == torch.bfloat16), int(has_dp), float(scale),
             torch.cuda.current_stream().cuda_stream)
     cuda_attention._raise_on(err, "hat_block")
     hat_block_cuda.launches += 1
+    hat_block_cuda.last_plan = how
     return out
 
 
 hat_block_cuda.launches = 0
+hat_block_cuda.last_plan = None  # the Plan of the latest launch

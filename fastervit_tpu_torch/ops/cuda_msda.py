@@ -73,9 +73,10 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
                         attention_weights: torch.Tensor) -> torch.Tensor:
     """MSDA forward on the card (K5). value (N, S, M, D), D <= 64;
     spatial_shapes: the levels' (H, W); sampling_locations
-    (N, Q, M, L, P, 2); attention_weights (N, Q, M, L, P); all three f32,
-    all bf16, or value and weights bf16 beside f32 locations (what the bf16
-    detector passes, as the JAX package's does); contiguous, on one card.
+    (N, Q, M, L, P, 2); attention_weights (N, Q, M, L, P); value and
+    weights both f32 or both bf16, the locations f32 (what the bf16 detector
+    passes, as the JAX package's does) or, beside bf16 values, bf16, which
+    is widened to f32 (exactly); contiguous, on one card.
     Returns (N, Q, M·D) in value's dtype. Counts its launches in
     `ms_deform_attn_cuda.launches`.
 
@@ -109,6 +110,7 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     out = torch.empty((n, q, m * d), dtype=value.dtype, device=value.device)
     if n * q == 0:
         return out
+    loc = loc.float()  # the kernel's locations are f32
     levels = _level_table(shapes, value.device)
     lib = cuda_attention._library()
     with torch.cuda.device(value.device):
@@ -116,7 +118,6 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
             value.data_ptr(), levels.data_ptr(), loc.data_ptr(),
             weights.data_ptr(), out.data_ptr(), n, q, s, m, d, len(shapes),
             p, int(value.dtype == torch.bfloat16),
-            int(loc.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     cuda_attention._raise_on(err, "msda_forward")
     ms_deform_attn_cuda.launches += 1

@@ -147,7 +147,7 @@ def fused_block_supported(x_shape: Sequence[int], c: int, hidden: int,
     """Whether K6 takes a sub-block of x (B, S, C) with this MLP width and
     head count, in either dtype: S and head dim within its limits and its
     shared-memory plan within the 227 KB a block may have
-    (`cuda_hat_block.smem_bytes`). Shapes it refuses take the composed path
+    (`cuda_hat_block.plan`). Shapes it refuses take the composed path
     in the model."""
     return cuda_hat_block.unsupported(x_shape, c, hidden, num_heads) is None
 

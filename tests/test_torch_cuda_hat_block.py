@@ -95,12 +95,27 @@ def test_kernel_bf16_matches_plain(cuda, b, s, h, c, learned_gamma):
     b16 = bias.bfloat16()
     scale = (c // h) ** -0.5
     got = cuda_hat_block.hat_block_cuda(x16, p16, b16, h, scale)
+    assert cuda_hat_block.hat_block_cuda.last_plan == cuda_hat_block.plan(
+        b, s, c, 4 * c, h, True)
     want = hb.hat_block_reference(x16, p16, b16, h, scale, attn_impl="plain")
     assert got.dtype == torch.bfloat16
     assert (got.float() - want.float()).abs().max().item() <= bound(
         want, TOL_BF16)
     again = cuda_hat_block.hat_block_cuda(x16, p16, b16, h, scale)
     assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,c", [(s, h, c) for _, s, h, c in CASES]
+                         + [(16, 8, 256), (53, 8, 256), (49, 16, 512)])
+def test_plan_smem_matches_the_kernel(cuda, s, h, c):
+    """The shared memory ops/cuda_hat_block.py plans with, held against the
+    kernel's own figure, at every block size and both product paths."""
+    lib = cuda_attention._library()
+    for wpb in range(1, 64 // s + 1):
+        for tc in (False, True):
+            assert lib.hat_block_smem_bytes(s, c, h, wpb, int(tc)) == \
+                cuda_hat_block._smem(s, c, h, wpb, tc)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from fastervit_tpu.models import layers as jlayers
 from fastervit_tpu.ops import pallas_hat_block as jhb
 import fastervit_tpu_torch as fvt
 from fastervit_tpu_torch.models import layers
+from fastervit_tpu_torch.ops import cuda_hat_block
 from fastervit_tpu_torch.ops import hat_block as hb
 from fastervit_tpu_torch.utils.convert import hat_params_from_jax
 from torch_parity import (few_torch_threads, nchw,  # noqa: F401
@@ -325,3 +326,25 @@ def test_admission_beside_jax(name, monkeypatch):
             for s, hidden, heads, _ in seen]
     counts = (len(seen), sum(ok for *_, ok in seen), sum(port))
     assert counts == ADMITTED[name], (name, counts, seen)
+
+
+# K6's launch plan: (B, S, H, C, bf16) -> (whole windows a block, tensor
+# cores). FasterViT-0's batch-256 sites in bf16 all run on tensor cores; f32
+# and widths that are not multiples of 32 take scalar FMA; a batch smaller
+# than the windows that would fit sets the block's size.
+PLANS = [((256, 16, 8, 256, True), (4, True)),
+         ((1024, 53, 8, 256, True), (1, True)),
+         ((256, 49, 16, 512, True), (1, True)),
+         ((256, 49, 16, 512, False), (1, False)),
+         ((2, 16, 8, 256, True), (2, True)),
+         ((3, 49, 4, 196, True), (1, False))]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_k6_plan(shape, want):
+    b, s, h, c, bf16 = shape
+    plan = cuda_hat_block.plan(b, s, c, 4 * c, h, bf16)
+    assert (plan.windows_per_block, plan.tensor_cores) == want
+    assert plan.smem_bytes == cuda_hat_block._smem(s, c, h, *want)
+    assert plan.smem_bytes <= cuda_hat_block.SMEM_LIMIT
+    assert hb.fused_block_supported((b, s, c), c, 4 * c, h)
