@@ -88,7 +88,15 @@ Phases, each of which raises on failure:
      bit-identical;
  25. fused_hat_block_dp forward and backward at the joint site in bf16 and
      fp32 against autograd through the plain version (output, x, params,
-     bias, dp1, dp2): 1 K6, 1 K1 and 1 K2 launch.
+     bias, dp1, dp2): 1 K6, 1 K1 and 1 K2 launch;
+ 26. the long-window attention probes' kernels: P1 (chunked online
+     softmax, C = 1, 2, 4) and P2 (no bias; on separate q, k, v and on
+     views of a packed qkv) against their plain versions in fp32 and bf16
+     at the probes' call (16 windows, S 2304, 16 heads, hd 49), 21k-768
+     level 3, ragged S, hd 128 and B = 0, two launches bit-identical; kernel, plain version, SDPA and bound timed in turns at
+     the probes' call; then the probes' main path, attn_vpu_probe and
+     attn_online_probe through their main at that call, their JSON printed
+     and kept in the output directory, P1 and P2 launched there.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -110,6 +118,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from fastervit_tpu_torch import probes  # noqa: E402
+from fastervit_tpu_torch.probes import (  # noqa: E402
+    sdpa_backend, sdpa_for, time_ms)
 
 # (B, S, heads, head_dim, calls per FasterViT-0 forward): level-2 joint
 # window + carrier attention, level-2 carrier attention, level 3, at batch
@@ -235,6 +248,25 @@ TOL_K6_BF16 = 1e-2
 # attention's, which K2 keeps in f32)
 TOL_K6_GRAD_FP32 = 1e-4
 TOL_K6_GRAD_BF16 = 5e-2
+# The long-window attention probes' kernels P1 (chunked online softmax) and
+# P2 (no bias), (B, S, heads, head_dim): the probes' call, 21k-768 level 2
+# (timed); 21k-768 level 3; S past one tile and past the probe's S that 4
+# divides and 64 does not (P1), that 2 does not divide (P2); hd 128; an
+# empty batch. P1 runs at every chunk count C that divides S.
+PROBE_SHAPE = (16, 2304, 16, 49)
+P1_SHAPES = [PROBE_SHAPE, (16, 576, 32, 49), (2, 132, 2, 49),
+             (2, 2308, 2, 49), (2, 2304, 2, 128), (0, 2304, 2, 49)]
+P2_SHAPES = [PROBE_SHAPE, (16, 576, 32, 49), (2, 129, 2, 49),
+             (2, 2305, 2, 49), (2, 2304, 2, 128), (0, 2304, 2, 49)]
+PROBE_CHUNKS = (1, 2, 4)
+# P1, P2 against their plain versions on the same inputs: f32 with TF32 off
+# (TOL_FP32: only the order of the sums differs); bf16 outputs from the
+# same roundings, where the order of the f32 sums can move p's or the
+# output's rounding by one bf16 step, at most 2^-7 of the output. So a bf16
+# call is held to TOL_PROBE_BF16_REL of its largest plain output, and never
+# to more than TOL_PROBE_BF16 (one step on outputs up to 2).
+TOL_PROBE_BF16 = 1e-2
+TOL_PROBE_BF16_REL = 2.0 ** -7
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -251,29 +283,12 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of one call, with CUDA events after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def in_turns(plain, kernel, library, iters: int = 30):
     """Times of plain, kernel and library call, taken in turns (plain,
     kernel, library, library, kernel, plain), each averaged over its two.
     A function given as None is not timed, and its time is None."""
-    order = (plain, kernel, library, library, kernel, plain)
-    t = [time_ms(f, iters) if f is not None else None for f in order]
-    return tuple(None if t[i] is None else (t[i] + t[5 - i]) / 2
-                 for i in range(3))
+    return tuple(probes.in_turns({"plain": plain, "kernel": kernel,
+                                  "library": library}, iters).values())
 
 
 def bound_ms(nbytes: float, flops: float) -> float:
@@ -305,17 +320,6 @@ def ptxas_summary(log: str) -> dict:
             out[kernel] = (max(r, int(regs.group(1))) if regs else r,
                            max(sp, int(spill.group(1))) if spill else sp)
     return out
-
-
-def sdpa_backend(fn) -> str:
-    """The aten SDPA ops that one call of fn runs, by name."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if "attention" in e.name and e.name.startswith("aten::_")})
-    return ", ".join(names) or "unknown"
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2055,17 +2059,202 @@ def k6_dp_grad_phase(cuda_attention, cuda_hat_block, hat_block) -> None:
     torch.cuda.empty_cache()
 
 
+def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
+    """P1 and P2 against their plain versions on the card, fp32 and bf16
+    (P1 at C = 1, 2, 4 and with f32 and bf16 bias; P2 on separate q, k, v
+    and on views of one packed qkv, K3's layout), two launches
+    bit-identical; kernel, plain version, SDPA and bound timed at the
+    probes' call in turns; then the probes' main path: attn_vpu_probe and
+    attn_online_probe run through their main at the default geometry, every
+    kernel's count set to 0 just before and read just after."""
+    p1 = cuda_attention.online_attention_cuda
+    p2 = cuda_attention.nobias_attention_cuda
+    plains = {"P1": attention_probes.online_attention_reference,
+              "P2": attention_probes.nobias_attention_reference}
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    errs = {"P1": [0.0, 0.0], "P2": [0.0, 0.0]}  # fp32, bf16 (absolute)
+    for name, kernel, shapes in (("P1", p1, P1_SHAPES), ("P2", p2,
+                                                          P2_SHAPES)):
+        for b, s, h, d in shapes:
+            q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                       for _ in range(3))
+            bias = torch.randn(h, s, s, device="cuda", generator=gen)
+            scale = d ** -0.5
+            calls = []  # (bf16?, arguments after q, k, v)
+            for half in (False, True):
+                if name == "P2":
+                    calls.append((half, (scale,)))
+                    continue
+                for bias_in in ((bias, bias.bfloat16()) if half else (bias,)):
+                    calls += [(half, (bias_in, scale, c)) for c in PROBE_CHUNKS
+                              if s % c == 0]
+            err = [0.0, 0.0]
+            limit = TOL_PROBE_BF16  # the tightest bf16 limit at this shape
+            for half, rest in calls:
+                qkv = [t.bfloat16() for t in (q, k, v)] if half else (q, k, v)
+                want = plains[name](*qkv, *rest)
+                layouts = [qkv]
+                if name == "P2":  # and on views of one packed qkv
+                    layouts.append(attention_probes.qkv_views(
+                        attention_probes.pack_qkv(*qkv), h))
+                for inputs in layouts:
+                    before = kernel.launches
+                    got = kernel(*inputs, *rest)
+                    torch.cuda.synchronize()
+                    # the output keeps the inputs' order of axes: K3's
+                    # (B, S, H·hd) for the packed views
+                    dense = (got if inputs is qkv
+                             else got.transpose(1, 2)).is_contiguous()
+                    check(got.shape == want.shape and got.dtype == want.dtype
+                          and dense, f"{name} output at {(b, s, h, d)}")
+                    if not b:
+                        check(kernel.launches == before,
+                              f"{name} launched on an empty batch")
+                        continue
+                    e = (got.float() - want.float()).abs().max().item()
+                    err[half] = max(err[half], e)
+                    if half:
+                        tol = min(TOL_PROBE_BF16, TOL_PROBE_BF16_REL
+                                  * want.float().abs().max().item())
+                        limit = min(limit, tol)
+                        check(e <= tol, f"{name} bf16 error {e} over {tol} "
+                                        f"at {(b, s, h, d)}, {rest[1:]}")
+                    del got
+                del want, layouts
+            print(f"{name} {kernel.__name__} B={b} S={s} H={h} hd={d}"
+                  + (" (the probes' call)" if (b, s, h, d) == PROBE_SHAPE
+                     else "")
+                  + (f" C in {[c for c in PROBE_CHUNKS if s % c == 0]}"
+                     if name == "P1" else " (B, H, S, hd) and packed qkv")
+                  + f": max|err| fp32 {err[0]:.3e} (tol {TOL_FP32}), bf16"
+                  + (" with f32 and bf16 bias" if name == "P1" else "")
+                  + f" {err[1]:.3e} (tol {TOL_PROBE_BF16_REL:.4g} of each "
+                  f"call's largest output, at most {TOL_PROBE_BF16}; "
+                  f"tightest here {limit:.3e})")
+            check(err[0] <= TOL_FP32, f"{name} fp32 error {err[0]} at "
+                                      f"{(b, s, h, d)}")
+            errs[name] = [max(a, e) for a, e in zip(errs[name], err)]
+            del q, k, v, bias
+
+    # the probes' call in bf16 with a bf16 bias: two launches bit-identical,
+    # then kernel, plain version and SDPA in turns beside the bound
+    b, s, h, d = PROBE_SHAPE
+    q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.randn(h, s, s, device="cuda", generator=gen,
+                       dtype=torch.bfloat16)
+    scale = d ** -0.5
+    for name, call in (("P1", lambda: p1(q, k, v, bias, scale, 2)),
+                       ("P2", lambda: p2(q, k, v, scale))):
+        same = torch.equal(call(), call())
+        print(f"{name} at {PROBE_SHAPE} bf16: two launches bit-identical: "
+              f"{same}")
+        check(same, f"{name}'s two launches differ")
+    flops = 4.0 * b * h * s * s * d
+    nbytes = {"P2": 2 * 4 * q.numel()}
+    nbytes["P1"] = nbytes["P2"] + 2 * bias.numel()
+    timed = {}
+    lib_p1, hd_p1 = sdpa_for(q, k, v, bias[None], scale)
+    lib_p2, hd_p2 = sdpa_for(q, k, v, None, scale)
+    lib_p1_ran = f"{sdpa_backend(lib_p1)}, q, k, v zero-padded to hd {hd_p1}"
+    lib_p2_ran = f"{sdpa_backend(lib_p2)}, q, k, v zero-padded to hd {hd_p2}"
+    for label, (plain, kernel, lib) in {
+            **{f"P1 C={c}": (
+                lambda c=c: plains["P1"](q, k, v, bias, scale, c),
+                lambda c=c: p1(q, k, v, bias, scale, c), lib_p1)
+               for c in PROBE_CHUNKS},
+            "P2": (lambda: plains["P2"](q, k, v, scale),
+                   lambda: p2(q, k, v, scale), lib_p2)}.items():
+        plain_ms, ms, lib_ms = in_turns(plain, kernel, lib, iters=5)
+        name = label.split()[0]
+        bound = bound_ms(nbytes[name], flops)
+        timed[label] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound,
+            "bound_by": ("operations" if flops / BF16_FLOP_PER_S
+                         > nbytes[name] / HBM_BYTES_PER_S else "bytes")}
+        print(f"{label} at {PROBE_SHAPE} bf16"
+              + (", bf16 bias" if name == "P1" else "")
+              + f": kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes[name] / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP) "
+              f"[{card()}]")
+    print(f"SDPA ran: with the bias as a float mask {lib_p1_ran}; with no "
+          f"mask {lib_p2_ran}")
+    del q, k, v, bias, lib_p1, lib_p2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: both probes at the default geometry, through main
+    from fastervit_tpu_torch.ops import cuda_hat_block, cuda_msda
+    counted = (cuda_attention.window_mhsa_cuda,
+               cuda_attention.window_mhsa_backward_cuda,
+               cuda_attention.window_mhsa_long_cuda,
+               cuda_attention.window_mhsa_long_backward_cuda,
+               cuda_msda.ms_deform_attn_cuda, cuda_hat_block.hat_block_cuda,
+               p1, p2)
+    for fn in counted:
+        fn.launches = 0
+    OUT_DIR.mkdir(exist_ok=True)
+    results = [probe.main(["--out", str(OUT_DIR / (
+        probe.__name__.rsplit(".", 1)[-1] + ".json"))])
+        for probe in probe_modules]
+    torch.cuda.synchronize()
+    calls = [fn.launches for fn in counted]
+    print(f"the probes' main path: K1-K6, P1, P2 launches {calls}")
+    check(calls[-2] > 0 and calls[-1] > 0, f"the probes launched P1 "
+                                           f"{calls[-2]} and P2 {calls[-1]} "
+                                           "times")
+    for result in results:
+        rows = {n: r for n, r in result.items()
+                if isinstance(r, dict) and "ms" in r}
+        check(result["device"]["type"] == "cuda" and bool(rows)
+              and all(math.isfinite(r["ms"]) and r["ms"] > 0
+                      for r in rows.values()),
+              f"{result['probe']}: every row timed on the card")
+        for n, r in rows.items():
+            if "maxdiff_vs_shipped" in r:
+                check(r["maxdiff_vs_shipped"] <= TOL_PROBE_BF16,
+                      f"{n} off K3 by {r['maxdiff_vs_shipped']}")
+
+    per = (f"one {PROBE_SHAPE} bf16 call (the long-window attention probes' "
+           "21k-768 level-2 call)")
+    p1_line = {"name": "attn_online", "route": "cuda",
+               "source": "fastervit_tpu_torch/csrc/attn_online.cu",
+               "replaces": "scripts/attn_online_probe.py:79",
+               "launches": calls[-2], "max_abs_err": errs["P1"][1],
+               "max_abs_err_fp32": errs["P1"][0],
+               **timed["P1 C=2"],
+               "library": ("scaled_dot_product_attention with the bias as a "
+                           f"float mask ({lib_p1_ran})"),
+               "per": per + ", bf16 bias, C = 2",
+               "per_chunks": {label: t for label, t in timed.items()
+                              if label.startswith("P1")},
+               "launches_in": "the probes' main path (attn_online_probe)"}
+    p2_line = {"name": "attn_nobias", "route": "cuda",
+               "source": "fastervit_tpu_torch/csrc/window_mhsa_long.cu",
+               "replaces": "scripts/attn_vpu_probe.py:135",
+               "launches": calls[-1], "max_abs_err": errs["P2"][1],
+               "max_abs_err_fp32": errs["P2"][0], **timed["P2"],
+               "library": f"scaled_dot_product_attention ({lib_p2_ran})",
+               "per": per + ", no bias",
+               "launches_in": "the probes' main path (attn_vpu_probe)"}
+    return p1_line, p2_line
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         sys.exit(1)
-    sys.path.insert(0, str(REPO))
     import fastervit_tpu_torch as fvt
     from fastervit_tpu_torch.detection import dino
     from fastervit_tpu_torch.detection import main as detection_cli
     from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
-    from fastervit_tpu_torch.ops import cuda_hat_block, hat_block, msda
+    from fastervit_tpu_torch.ops import attention_probes, cuda_hat_block
+    from fastervit_tpu_torch.ops import hat_block, msda
+    from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
     from fastervit_tpu_torch.train import mixup, schedule, steps
     from fastervit_tpu_torch.train import train as train_cli
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -2235,7 +2424,12 @@ def main() -> None:
     # 25. fused_hat_block_dp forward and backward at the joint site
     k6_dp_grad_phase(cuda_attention, cuda_hat_block, hat_block)
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+    # 26. the long-window attention probes: P1 and P2 against their plain
+    #     versions, timed, then both probes through their main
+    p1, p2 = probe_phase(cuda_attention, attention_probes,
+                         (attn_vpu_probe, attn_online_probe))
+
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2]}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

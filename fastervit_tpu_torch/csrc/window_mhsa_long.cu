@@ -41,70 +41,52 @@
 // p against the final row max; here each tile's p is against the running
 // max and later rescaled, which differs only by rounding.
 //
+// The same kernel without the bias operand is P2: it replaces the kernel
+// `_nobias_kernel` of scripts/attn_vpu_probe.py (called through
+// `flash_nobias`, defined in its `main`), the TPU probe's copy of this
+// attention with the bias taken out, softmax(q kᵀ·scale)·v. Its instance
+// has no bias loads and no bias add, and reads q, k and v through strides:
+// given views of K3's packed qkv it differs from K3 by the bias stream
+// alone, which is what attn_vpu_probe measures; given separate
+// (B, H, S, hd) tensors it is the probe's function on the probe's layout.
+//
 // hd is padded in shared memory only (v's columns to a multiple of 16
-// above hd, as zeros); q, k and v are read element by element, since at
-// hd = 49 the head offsets are not aligned for vector loads. Every offset
-// is computed in 64 bits. Plain C interface, bound with ctypes by
-// fastervit_tpu_torch/ops/cuda_attention.py, which checks device, dtype,
-// shape and contiguity.
+// above hd, as zeros). The tile steps are in attn_tiles.cuh. Plain C
+// interface, bound with ctypes by fastervit_tpu_torch/ops/
+// cuda_attention.py, which checks device, dtype, shape and layout.
 
 #include <cmath>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_tiles.cuh"
 #include "dtype.cuh"
 
 namespace {
 
+using namespace fastervit::attn_tiles;
 using fastervit::from_f32;
 using fastervit::to_f32;
 
-constexpr int kTile = 64;         // q rows per block, keys per K/V tile
-constexpr int kThreads = 256;     // 16 × 16; each thread 4 rows × 4 keys
-constexpr int kMaxHeadDim = 128;  // LONG_MAX_HEAD_DIM in cuda_attention.py
-constexpr int kLd = kTile + 1;    // padded rows: no bank conflicts on the
-                                  // transposed writes and p's two-row reads
-
-// Shared memory, in floats: q and k transposed (hd × kLd each), p
-// (kTile × kLd), v (kTile × hd_pad).
-inline size_t smem_floats(int head_dim, int hd_pad) {
-  return size_t(2 * head_dim + kTile) * kLd + size_t(kTile) * hd_pad;
-}
-
-// NJ = hd_pad / 16: the accumulator columns each thread holds.
-template <typename T, typename TB, int NJ>
+// NJ = hd_pad / 16: the accumulator columns each thread holds. kBias false
+// is P2, whose bias is never read.
+template <typename T, typename TB, bool kBias, int NJ>
 __global__ void __launch_bounds__(kThreads)
-window_mhsa_long_kernel(const T* __restrict__ qkv, const TB* __restrict__ bias,
-                        T* __restrict__ out, int seq, int channels, int heads,
-                        float scale) {
+window_mhsa_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, Strides in,
+                        const TB* __restrict__ bias, T* __restrict__ out,
+                        Strides os, int seq, int head_dim, float scale) {
   constexpr int kHdPad = 16 * NJ;
   extern __shared__ float smem[];
-  const int head_dim = channels / heads;
-  const long long b = blockIdx.x;
+  const Smem sm(smem, head_dim);
   const int q0 = blockIdx.y * kTile;
-  const int h = blockIdx.z;
-  float* qt = smem;                   // [d][row]
-  float* kt = qt + head_dim * kLd;    // [d][key]
-  float* p = kt + head_dim * kLd;     // [row][key]
-  float* v = p + kTile * kLd;         // [key][d]
-  const int tx = threadIdx.x & 15;    // keys tx + 16j, accumulator cols
+  const long long at = slab(in);
+  const int tx = threadIdx.x & 15;    // keys tx + 16j
   const int ty = threadIdx.x >> 4;    // rows ty + 16i
+  const TB* bias_h = kBias ? bias + (long long)blockIdx.z * seq * seq
+                           : nullptr;
 
-  const long long row = 3LL * channels;
-  const T* src = qkv + b * seq * row + (long long)h * head_dim;
-
-  // q tile, transposed; rows past S are zeros. v's padding columns are
-  // zeroed once and never written again.
-  for (int e = threadIdx.x; e < kTile * head_dim; e += kThreads) {
-    const int r = e / head_dim, d = e - r * head_dim;
-    const int s = q0 + r;
-    qt[d * kLd + r] = s < seq ? to_f32(src[s * row + d]) : 0.f;
-  }
-  for (int e = threadIdx.x; e < kTile * (kHdPad - head_dim); e += kThreads) {
-    const int c = e / (kHdPad - head_dim);
-    v[c * kHdPad + head_dim + (e - c * (kHdPad - head_dim))] = 0.f;
-  }
-
+  load_q<T, kHdPad>(q + at, in.token, q0, seq, head_dim, sm);
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -113,76 +95,35 @@ window_mhsa_long_kernel(const T* __restrict__ qkv, const TB* __restrict__ bias,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
-  const TB* bias_h = bias + (long long)h * seq * seq;
 
   for (int k0 = 0; k0 < seq; k0 += kTile) {
     __syncthreads();  // the previous tile's k, v and p are no longer read
     // 1. k (transposed) and v of keys k0 .. k0 + kTile; keys past S are 0.
-    for (int e = threadIdx.x; e < kTile * head_dim; e += kThreads) {
-      const int c = e / head_dim, d = e - c * head_dim;
-      const int s = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (s < seq) {
-        const T* r = src + s * row + d;
-        kv = to_f32(r[channels]);
-        vv = to_f32(r[2 * channels]);
-      }
-      kt[d * kLd + c] = kv;
-      v[c * kHdPad + d] = vv;
-    }
+    load_kv<T, kHdPad, true>(k + at, v + at, in.token, k0, seq, head_dim,
+                             sm);
     __syncthreads();
 
-    // 2. this thread's 4×4 logits: q kᵀ, f32.
+    // 2. this thread's 4×4 logits: q kᵀ·scale (+ bias), f32.
     float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < head_dim; ++d) {
-      float qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = qt[d * kLd + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = kt[d * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qa[i], ka[j], sc[i][j]);
-    }
+    logits<TB, kBias>(sm, bias_h, q0, k0, seq, seq, head_dim, scale, sc);
 
-    // 3. ·scale + bias, online softmax. A row's 64 logits lie with the 16
-    //    threads of one ty, in one half-warp: reduce with xor shuffles 8..1.
+    // 3. online softmax: every tile holds at least one key < S, so mnew
+    //    is finite and alpha is 0 on the first tile.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = min(q0 + ty + 16 * i, seq - 1);  // rows past S: any row
-      const TB* brow = bias_h + (long long)r * seq;
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        sc[i][j] = c < seq ? fmaf(sc[i][j], scale, to_f32(brow[c]))
-                           : -INFINITY;
-        tmax = fmaxf(tmax, sc[i][j]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      // every tile holds at least one key < S, so mnew is finite and
-      // alpha is 0 on the first tile
-      const float mnew = fmaxf(m[i], tmax);
+      for (int j = 0; j < 4; ++j) tmax = fmaxf(tmax, sc[i][j]);
+      const float mnew = fmaxf(m[i], row_max(tmax));
       const float alpha = expf(m[i] - mnew);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float pv = expf(sc[i][j] - mnew);
         psum += pv;
-        p[(ty + 16 * i) * kLd + tx + 16 * j] = to_f32(from_f32<T>(pv));
+        sm.p[(ty + 16 * i) * kLd + tx + 16 * j] = to_f32(from_f32<T>(pv));
       }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l[i] = fmaf(l[i], alpha, psum);
+      l[i] = fmaf(l[i], alpha, row_sum(psum));
       m[i] = mnew;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
@@ -190,102 +131,88 @@ window_mhsa_long_kernel(const T* __restrict__ qkv, const TB* __restrict__ bias,
     __syncthreads();
 
     // 4. acc += p · v over this tile's keys.
-    const int kn = min(kTile, seq - k0);
-#pragma unroll 4
-    for (int c = 0; c < kn; ++c) {
-      float pa[4], va[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = p[(ty + 16 * i) * kLd + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) va[j] = v[c * kHdPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
-    }
+    accumulate_pv<NJ>(sm, min(kTile, seq - k0), acc);
   }
 
   // 5. out = acc / Σp, written as T.
-  T* dst = out + b * seq * channels + (long long)h * head_dim;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= seq) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < head_dim) dst[r * (long long)channels + d] =
-          from_f32<T>(acc[i][j] / l[i]);
-    }
-  }
+  store<T, NJ>(out + slab(os), os.token, q0, seq, head_dim, acc, l);
 }
 
-template <typename T, typename TB, int NJ>
-cudaError_t launch_nj(const void* qkv, const void* bias, void* out, int batch,
-                      int seq, int channels, int heads, float scale,
-                      cudaStream_t stream) {
-  const size_t smem = smem_floats(channels / heads, 16 * NJ) * sizeof(float);
-  auto kernel = window_mhsa_long_kernel<T, TB, NJ>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(unsigned(batch), unsigned((seq + kTile - 1) / kTile),
-                  unsigned(heads));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const TB*>(bias),
-      static_cast<T*>(out), seq, channels, heads, scale);
-  return cudaGetLastError();
-}
-
-// hd_pad: hd rounded up to 32, 64, 96 or 128.
-template <typename T, typename TB>
-cudaError_t launch(const void* qkv, const void* bias, void* out, int batch,
-                   int seq, int channels, int heads, float scale,
-                   cudaStream_t stream) {
-  const int hd = channels / heads;
-  if (hd <= 32)
-    return launch_nj<T, TB, 2>(qkv, bias, out, batch, seq, channels, heads,
-                               scale, stream);
-  if (hd <= 64)
-    return launch_nj<T, TB, 4>(qkv, bias, out, batch, seq, channels, heads,
-                               scale, stream);
-  if (hd <= 96)
-    return launch_nj<T, TB, 6>(qkv, bias, out, batch, seq, channels, heads,
-                               scale, stream);
-  return launch_nj<T, TB, 8>(qkv, bias, out, batch, seq, channels, heads,
-                             scale, stream);
+template <typename T, typename TB, bool kBias>
+cudaError_t launch_typed(const void* q, const void* k, const void* v,
+                         Strides in, const void* bias, void* out, Strides os,
+                         int batch, int heads, int seq, int head_dim,
+                         float scale, cudaStream_t stream) {
+  return with_nj(head_dim, [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    return launch<NJ>(window_mhsa_long_kernel<T, TB, kBias, NJ>, batch, seq,
+                      heads, head_dim, stream, static_cast<const T*>(q),
+                      static_cast<const T*>(k), static_cast<const T*>(v), in,
+                      static_cast<const TB*>(bias), static_cast<T*>(out), os,
+                      seq, head_dim, scale);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// qkv: (batch, seq, 3·channels), out: (batch, seq, channels), both f32
-// (qkv_bf16 = 0) or bf16 (qkv_bf16 = 1); bias: (heads, seq, seq), f32 or
-// bf16 (bias_bf16), read as f32. Returns the cudaError_t of the launch.
+// K3. qkv: (batch, seq, 3·channels), channels (3, heads, hd); out: (batch,
+// seq, channels); both f32 (qkv_bf16 = 0) or bf16 (qkv_bf16 = 1); bias:
+// (heads, seq, seq), f32 or bf16 (bias_bf16), read as f32. Returns the
+// cudaError_t of the launch.
 int window_mhsa_long_forward(const void* qkv, const void* bias, void* out,
                              int batch, int seq, int channels, int heads,
                              int qkv_bf16, int bias_bf16, float scale,
                              void* stream) {
-  if (batch <= 0 || seq <= 0 || heads <= 0 || heads > 65535 ||
-      channels % heads != 0 || channels / heads > kMaxHeadDim ||
-      (seq + kTile - 1) / kTile > 65535)
+  if (heads <= 0 || channels % heads != 0 ||
+      !launchable(batch, seq, heads, channels / heads, 3LL * channels,
+                  channels))
     return int(cudaErrorInvalidValue);
+  const int hd = channels / heads;
+  const Strides in{(long long)seq * 3 * channels, hd, 3 * channels};
+  const Strides os{(long long)seq * channels, hd, channels};
+  const size_t esize = qkv_bf16 ? 2 : 4;
+  const char* q = static_cast<const char*>(qkv);
+  const char* k = q + channels * esize;
+  const char* v = k + channels * esize;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qkv_bf16) {
     return bias_bf16
-        ? int(launch<__nv_bfloat16, __nv_bfloat16>(qkv, bias, out, batch, seq,
-                                                   channels, heads, scale, s))
-        : int(launch<__nv_bfloat16, float>(qkv, bias, out, batch, seq,
-                                           channels, heads, scale, s));
+        ? int(launch_typed<__nv_bfloat16, __nv_bfloat16, true>(
+              q, k, v, in, bias, out, os, batch, heads, seq, hd, scale, s))
+        : int(launch_typed<__nv_bfloat16, float, true>(
+              q, k, v, in, bias, out, os, batch, heads, seq, hd, scale, s));
   }
   return bias_bf16
-      ? int(launch<float, __nv_bfloat16>(qkv, bias, out, batch, seq, channels,
-                                         heads, scale, s))
-      : int(launch<float, float>(qkv, bias, out, batch, seq, channels, heads,
-                                 scale, s));
+      ? int(launch_typed<float, __nv_bfloat16, true>(
+            q, k, v, in, bias, out, os, batch, heads, seq, hd, scale, s))
+      : int(launch_typed<float, float, true>(q, k, v, in, bias, out, os,
+                                             batch, heads, seq, hd, scale,
+                                             s));
+}
+
+// P2. q, k, v: (batch, heads, seq, head_dim) with element strides
+// in_window, in_head, in_token (alike for the three, hd contiguous); out:
+// the same shape with strides out_*; all f32 (bf16 = 0) or all bf16
+// (bf16 = 1). Returns the cudaError_t of the launch.
+int attn_nobias_forward(const void* q, const void* k, const void* v,
+                        void* out, int batch, int heads, int seq,
+                        int head_dim, long long in_window, long long in_head,
+                        long long in_token, long long out_window,
+                        long long out_head, long long out_token, int bf16,
+                        float scale, void* stream) {
+  if (!launchable(batch, seq, heads, head_dim, in_token, out_token))
+    return int(cudaErrorInvalidValue);
+  const Strides in{in_window, in_head, int(in_token)};
+  const Strides os{out_window, out_head, int(out_token)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? int(launch_typed<__nv_bfloat16, float, false>(
+                    q, k, v, in, nullptr, out, os, batch, heads, seq,
+                    head_dim, scale, s))
+              : int(launch_typed<float, float, false>(
+                    q, k, v, in, nullptr, out, os, batch, heads, seq,
+                    head_dim, scale, s));
 }
 
 }  // extern "C"

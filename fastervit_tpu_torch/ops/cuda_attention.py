@@ -6,7 +6,11 @@ csrc/window_mhsa_bwd.cu), and of pallas_flash_attention.py's `_fwd_kernel`
 csrc/window_mhsa_long_bwd.cu). The same library holds K5, the
 multi-scale deformable attention forward (csrc/msda_fwd.cu), which
 `ops/cuda_msda.py` binds, and K6, the fused HAT sub-block
-(csrc/hat_block.cu), which `ops/cuda_hat_block.py` binds.
+(csrc/hat_block.cu), which `ops/cuda_hat_block.py` binds. The long-window
+attention probes' kernels are bound here too: P1, the chunked online-softmax
+attention of scripts/attn_online_probe.py (csrc/attn_online.cu), and P2,
+the bias-free attention of scripts/attn_vpu_probe.py (K3's kernel without
+its bias, csrc/window_mhsa_long.cu), both behind `ops/attention_probes.py`.
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -30,8 +34,10 @@ MAX_SEQ = 128       # kMaxSeq in csrc/window_mhsa.cu
 MAX_HEAD_DIM = 64   # kMaxHeadDim in csrc/window_mhsa.cu
 BWD_MAX_SEQ = 64       # kMaxSeq in csrc/window_mhsa_bwd.cu
 BWD_MAX_HEAD_DIM = 64  # kMaxHeadDim in csrc/window_mhsa_bwd.cu
-LONG_MAX_HEAD_DIM = 128  # kMaxHeadDim in csrc/window_mhsa_long.cu
-_LONG_TILE = 64          # kTile in csrc/window_mhsa_long.cu
+# kMaxHeadDim and kTile in csrc/attn_tiles.cuh, the tile plan of K3, P1
+# and P2: (B, S/64, H) blocks
+LONG_MAX_HEAD_DIM = 128
+_LONG_TILE = 64
 _MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
 # K2 gives each block one head and a run of windows; this many blocks fill
 # an H100's 132 SMs four times over.
@@ -128,6 +134,16 @@ def _library() -> ctypes.CDLL:
             [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p])
         lib.hat_block_forward.restype = ctypes.c_int
+        lib.attn_online_forward.argtypes = (  # P1
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.attn_online_forward.restype = ctypes.c_int
+        lib.attn_nobias_forward.argtypes = (  # P2
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 6 + [ctypes.c_int]
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.attn_nobias_forward.restype = ctypes.c_int
         lib.hat_block_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.hat_block_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -398,3 +414,120 @@ def window_mhsa_long_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 window_mhsa_long_backward_cuda.launches = 0
+
+
+def check_chunks(seq: int, chunks: int) -> None:
+    """Raise unless `chunks` is a positive divisor of S."""
+    if chunks < 1 or seq % chunks:
+        raise ValueError(f"chunks={chunks} must be a positive divisor of "
+                         f"S={seq}: every chunk holds S/chunks keys")
+
+
+def check_supported_probe(q_shape: Sequence[int], k_shape: Sequence[int],
+                          v_shape: Sequence[int],
+                          bias_shape: Optional[Sequence[int]] = None,
+                          chunks: int = 1) -> None:
+    """Raise unless P1 (given a bias) or P2 (without) takes these shapes:
+    q, k and v alike (B, H, S, hd) with hd <= LONG_MAX_HEAD_DIM, bias
+    (H, S, S), chunks a positive divisor of S, and a grid of (B, S/64, H)
+    blocks that CUDA can launch. Every offset is 64-bit."""
+    if len(q_shape) != 4 or tuple(k_shape) != tuple(q_shape) or \
+            tuple(v_shape) != tuple(q_shape):
+        raise ValueError(f"q, k and v must be alike (B, H, S, hd), got "
+                         f"{tuple(q_shape)}, {tuple(k_shape)}, "
+                         f"{tuple(v_shape)}")
+    b, h, s, hd = q_shape
+    if bias_shape is not None and tuple(bias_shape) != (h, s, s):
+        raise ValueError(f"bias must be {(h, s, s)}, got "
+                         f"{tuple(bias_shape)}")
+    check_chunks(s, chunks)
+    if hd > LONG_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the attention probes' kernels (P1, P2) take head_dim <= "
+            f"{LONG_MAX_HEAD_DIM}, got {hd}")
+    if (b > 2 ** 31 - 1 or h > _MAX_GRID_YZ
+            or -(-s // _LONG_TILE) > _MAX_GRID_YZ):
+        raise ValueError(f"B={b}, S={s}, H={h} exceed the launch grid")
+
+
+def _probe_output(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  *bias: torch.Tensor) -> torch.Tensor:
+    """Check a probe kernel's tensors (one CUDA device; q, k and v of one
+    dtype and one layout, hd contiguous, as views of K3's packed qkv or
+    separate (B, H, S, hd) tensors are; the bias contiguous) and allocate
+    its output: q's shape and dtype, dense, its axes in q's order of
+    strides. Empty tensors have no layout to check."""
+    tensors = (q, k, v, *bias)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype not in _DTYPES for t in tensors):
+        raise TypeError(f"inputs must be float32 or bfloat16, got "
+                        f"{[t.dtype for t in tensors]}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k and v must have q's dtype {q.dtype}")
+    if q.numel() and (k.stride() != q.stride() or v.stride() != q.stride()
+                      or q.stride(-1) != 1):
+        raise ValueError(f"q, k and v must have one layout with hd "
+                         f"contiguous, got strides {q.stride()}, "
+                         f"{k.stride()}, {v.stride()}")
+    if not all(t.is_contiguous() for t in bias):
+        raise ValueError("bias must be contiguous")
+    return torch.empty_like(q, memory_format=torch.preserve_format)
+
+
+def online_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor, scale: float,
+                          chunks: int) -> torch.Tensor:
+    """softmax(q kᵀ·scale + bias) v on the card with the key row in
+    `chunks` chunks and a running (max, sum, context) rescaled once a chunk
+    (P1). q, k, v: (B, H, S, hd) f32 or bf16 of one layout, hd <= 128;
+    bias: (H, S, S) f32 or bf16; chunks divides S. Returns (B, H, S, hd) in
+    q's dtype and order of axes. Counts its launches in
+    `online_attention_cuda.launches`."""
+    check_supported_probe(q.shape, k.shape, v.shape, bias.shape, chunks)
+    out = _probe_output(q, k, v, bias)
+    if out.numel() == 0:
+        return out
+    b, h, s, hd = q.shape
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.attn_online_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, s, hd, chunks, *q.stride()[:3],
+            *out.stride()[:3], int(q.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "attn_online")
+    online_attention_cuda.launches += 1
+    return out
+
+
+online_attention_cuda.launches = 0
+
+
+def nobias_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """softmax(q kᵀ·scale) v on the card, with no bias operand (P2, K3's
+    kernel without its bias). q, k, v: (B, H, S, hd) f32 or bf16 of one
+    layout, hd <= 128: views of K3's packed qkv make it K3 less the bias
+    stream. Returns (B, H, S, hd) in q's dtype and order of axes. Counts
+    its launches in `nobias_attention_cuda.launches`."""
+    check_supported_probe(q.shape, k.shape, v.shape)
+    out = _probe_output(q, k, v)
+    if out.numel() == 0:
+        return out
+    b, h, s, hd = q.shape
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.attn_nobias_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s,
+            hd, *q.stride()[:3], *out.stride()[:3],
+            int(q.dtype == torch.bfloat16), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "attn_nobias")
+    nobias_attention_cuda.launches += 1
+    return out
+
+
+nobias_attention_cuda.launches = 0

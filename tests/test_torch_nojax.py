@@ -4,8 +4,9 @@ ops.cuda_hat_block), a long-window attention call, the weights bridge,
 a train step with gradient checkpointing, a checkpoint saved and restored,
 the detection modules (a tiny DINO detector built from a config file, run
 and post-processed, the MSDA and box ops, the evaluator, the weights bridge
-and the CLI) and chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu
-module."""
+and the CLI), the long-window attention probes (ops.attention_probes and
+both probe modules, run with --device cpu) and chip_smoke.py load no jax,
+jaxlib, flax or fastervit_tpu module."""
 import os
 import subprocess
 import sys
@@ -72,6 +73,14 @@ with torch.no_grad():
 assert post["boxes"].shape == (1, 5, 4)
 assert boxes.box_iou(post["boxes"][0], post["boxes"][0])[0].shape == (5, 5)
 assert detection_cli.parse_args(["--config", "c.py", "--eval"]).eval
+from fastervit_tpu_torch.ops import attention_probes
+from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
+q = torch.zeros(1, 2, 32, 8)
+assert attention_probes.online_attention(q, q, q, torch.zeros(2, 32, 32), 0.1,
+                                         4).shape == q.shape
+tiny = ["--device", "cpu", "--batch", "2", "--seq", "32", "--heads", "2"]
+assert attn_online_probe.main(tiny)["online_c2"]["maxdiff_vs_shipped"] < 1e-2
+assert attn_vpu_probe.main(tiny)["flash_nobias"]["ms"] is None
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
