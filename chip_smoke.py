@@ -96,7 +96,19 @@ Phases, each of which raises on failure:
      level 3, ragged S, hd 128 and B = 0, two launches bit-identical; kernel, plain version, SDPA and bound timed in turns at
      the probes' call; then the probes' main path, attn_vpu_probe and
      attn_online_probe through their main at that call, their JSON printed
-     and kept in the output directory, P1 and P2 launched there.
+     and kept in the output directory, P1 and P2 launched there;
+ 27. the MSDA gather probes' kernels: P3a (fused_gather), P3b
+     (fused_gather_p4, P = 1, 2, 4), P3c (fused_gather_per_head) and P4a
+     (packed_gather on f32 and bf16 corner-packed maps, P = 1, 2, 4)
+     against their plain versions at MOTR's four padded levels at the
+     probes' QP 408,000 and at odd shapes (a 3x3 map, QP 4 and 4,004, one
+     head, D 64, QP 0), each also with out-of-range samples, which must
+     give NaN at the plain versions' places; two launches bit-identical;
+     kernel, plain version, the grid_sample form and bound timed in turns
+     at levels 0 and 3; then the probes' main path, msda_pallas_probe
+     (the levels, then K5's encoder call) and msda_packed_probe through
+     their main, their JSON printed and kept in the output directory, the
+     four kernels and K5 launched there.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -122,7 +134,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from fastervit_tpu_torch import probes  # noqa: E402
 from fastervit_tpu_torch.probes import (  # noqa: E402
-    sdpa_backend, sdpa_for, time_ms)
+    HBM_BYTES_PER_S, gather_bytes, gather_grid, gather_grid_sample,
+    msda_grid_sample, sdpa_backend, sdpa_for, time_ms)
 
 # (B, S, heads, head_dim, calls per FasterViT-0 forward): level-2 joint
 # window + carrier attention, level-2 carrier attention, level 3, at batch
@@ -194,9 +207,9 @@ TOL_STEP_GRAD = 1e-3
 TOL_STEM_GRAD = 2e-2
 BATCH = 256
 TRAIN_BATCH = 128
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
-BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak, same source
-F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores, same source
+# H100 SXM, NVIDIA's data sheet: HBM_BYTES_PER_S (probes), and
+BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores
 # DINO-4scale at 800x1333: the transformer's four levels, and the encoder
 # (Q = S) and decoder calls of K5 at batch 2, with 8 heads of 32 channels
 # and 4 points: (N, Q, M, D, P, levels, calls per forward)
@@ -267,6 +280,21 @@ PROBE_CHUNKS = (1, 2, 4)
 # to more than TOL_PROBE_BF16 (one step on outputs up to 2).
 TOL_PROBE_BF16 = 1e-2
 TOL_PROBE_BF16_REL = 2.0 ** -7
+# The MSDA gather probes' kernels P3a-c and P4a, (Hp, Wp, QP, M, D):
+# MOTR's padded levels at the probes' full QP (levels 0 and 3 timed), then
+# a 3x3 map, QP 4 and 4,004, one head, D 64, and QP 0; each at P 1, 2, 4
+# (P3b, P4a) and with some of its samples out of range.
+GATHER_LEVELS = ((202, 386), (102, 194), (52, 98), (27, 50))
+GATHER_SHAPES = ([(hp, wp, 408_000, 8, 32) for hp, wp in GATHER_LEVELS]
+                 + [(3, 3, 4_004, 8, 32), (27, 50, 4, 8, 32),
+                    (27, 50, 4_004, 1, 32), (52, 98, 4_004, 2, 64),
+                    (27, 50, 0, 8, 32)])
+GATHER_TIMED = (0, 3)   # the indices of the timed levels
+GATHER_POINTS = (1, 2, 4)
+# The kernels repeat their plain versions' f32 roundings in the same order
+# (every product and sum rounded alone, a bf16 map widened exactly): held
+# to TOL_GATHER, and NaN at the same places
+TOL_GATHER = 1e-6
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -1325,26 +1353,6 @@ def msda_inputs(n, q, m, d, p, shapes, gen, timing=False):
     return value, loc.contiguous(), w.contiguous()
 
 
-def msda_grid_sample(value, shapes, loc, weights):
-    """Upstream's plain MSDA, ms_deform_attn_core_pytorch (dino/models/dino/
-    ops/functions/ms_deform_attn_func.py:41-61): F.grid_sample per level
-    (zero padding, align_corners=False), then the weighted sum. Timed as
-    the yardstick of K5; the port never calls it."""
-    n, s, m, d = value.shape
-    _, q, _, nl, p, _ = loc.shape
-    values = value.split([h * w for h, w in shapes], dim=1)
-    grids = (2 * loc - 1).to(value.dtype)  # grid_sample takes one dtype
-    sampled = []
-    for lid, (h, w) in enumerate(shapes):
-        v = values[lid].flatten(2).transpose(1, 2).reshape(n * m, d, h, w)
-        g = grids[:, :, :, lid].transpose(1, 2).flatten(0, 1)
-        sampled.append(torch.nn.functional.grid_sample(
-            v, g, mode="bilinear", padding_mode="zeros", align_corners=False))
-    weights = weights.transpose(1, 2).reshape(n * m, 1, q, nl * p)
-    out = (torch.stack(sampled, dim=-2).flatten(-2) * weights).sum(-1)
-    return out.view(n, m * d, q).transpose(1, 2).contiguous()
-
-
 def k5_phase(cuda_msda, msda) -> dict:
     """K5 against its plain version at the served and odd shapes, then
     kernel, plain version and the grid_sample form timed in bf16 at the
@@ -2243,6 +2251,202 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
     return p1_line, p2_line
 
 
+def gather_out_of_range(t: torch.Tensor, edge: int,
+                        gen: torch.Generator) -> torch.Tensor:
+    """A copy of an int32 (M, QP) index tensor with about a thirty-second
+    of its entries, and its first column, out of range: -1, `edge` (one
+    past the last valid index), -2^31 or 2^31 - 1."""
+    values = t.new_tensor([-1, edge, -2 ** 31, 2 ** 31 - 1])
+    pick = torch.rand(t.shape, device="cuda", generator=gen) < 1 / 32
+    pick[:, :1] = True  # so that every case has some
+    which = torch.randint(0, len(values), t.shape, device="cuda",
+                          generator=gen)
+    return torch.where(pick, values[which], t)
+
+
+def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
+    """P3a, P3b, P3c and P4a against their plain versions on the card at
+    GATHER_SHAPES, at P 1, 2, 4 (P3b, P4a), P4a on f32 and bf16 packed
+    maps, each case also with out-of-range samples (NaN at the same
+    places); two launches bit-identical; kernel, plain version, the
+    grid_sample form and the bound timed in turns at levels 0 and 3; then
+    the probes' main path: msda_pallas_probe and msda_packed_probe through
+    their main at the default geometry, every kernel's count set to 0 just
+    before and read just after. Returns the four kernels' lines and K5's
+    launches on that path (the encoder call)."""
+    kernels = {"P3a": cuda_msda.fused_gather_cuda,
+               "P3b": cuda_msda.fused_gather_p4_cuda,
+               "P3c": cuda_msda.fused_gather_per_head_cuda,
+               "P4a": cuda_msda.packed_gather_cuda}
+    plains = {"P3a": msda_probes.gather_reference,
+              "P3b": msda_probes.gather_p4_reference,
+              "P3c": msda_probes.gather_reference,
+              "P4a": msda_probes.packed_gather_reference}
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    errs = dict.fromkeys(kernels, 0.0)
+    timed = {name: {} for name in ("P3a", "P3b", "P3c", "P4a", "P4a bf16")}
+    for index, (hp, wp, qp, m, d) in enumerate(GATHER_SHAPES):
+        case = list(msda_probes.sample_case(hp, wp, qp, m, d, gen, "cuda"))
+        pm = msda_probes.pack_corners(case[0])
+        fl = case[1] * (wp - 1) + case[2]
+        broken = [case[0], gather_out_of_range(case[1], hp - 1, gen),
+                  gather_out_of_range(case[2], wp - 1, gen), *case[3:]]
+        broken_fl = gather_out_of_range(fl, pm.shape[1], gen)
+        for p3, p4_fl, label in ((case, fl, "in range"),
+                                 (broken, broken_fl, "out of range")):
+            runs = [("P3a", p3), ("P3c", p3)]
+            runs += [("P3b", p3 + [p]) for p in GATHER_POINTS if qp % p == 0]
+            runs += [("P4a", [packed, p4_fl, *p3[3:], p])
+                     for packed in (pm, pm.bfloat16())
+                     for p in GATHER_POINTS if qp % p == 0]
+            worst = dict.fromkeys(kernels, 0.0)
+            for name, args in runs:
+                kernel = kernels[name]
+                before = kernel.launches
+                got, want = kernel(*args), plains[name](*args)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape and got.dtype == torch.float32,
+                      f"{name} output {tuple(got.shape)} at {hp}x{wp}")
+                if not qp:
+                    check(kernel.launches == before,
+                          f"{name} launched on QP 0")
+                    continue
+                nan = torch.isnan(want)
+                check(torch.equal(torch.isnan(got), nan),
+                      f"{name} NaN elsewhere than its plain version's at "
+                      f"{(hp, wp, qp, m, d)} {label}")
+                check(bool(nan.any()) == (label == "out of range"),
+                      f"{name} NaN only for out-of-range samples")
+                err = ((got - want)[~nan].abs().max().item()
+                       if bool((~nan).any()) else 0.0)
+                check(err <= TOL_GATHER, f"{name} off its plain version by "
+                                         f"{err} at {(hp, wp, qp, m, d)}")
+                worst[name] = max(worst[name], err)
+                del got, want
+            print(f"P3a-c, P4a msda_probe Hp={hp} Wp={wp} QP={qp} M={m} D={d}"
+                  f" {label} (P3b, P4a at P {GATHER_POINTS}, P4a f32 and "
+                  f"bf16 map): max|err| {worst} (tol {TOL_GATHER}), NaN at "
+                  "the plain versions' places")
+            errs = {n: max(errs[n], worst[n]) for n in errs}
+        del broken, broken_fl
+        if index not in GATHER_TIMED:
+            continue
+
+        # a timed level: two launches bit-identical, then kernel, plain
+        # version and the grid_sample form in turns, beside the bound
+        vm, iy, ix, fy, fx, w = case
+        pm16 = pm.bfloat16()
+        vm_nchw = vm.permute(0, 3, 1, 2).contiguous()
+        grid = gather_grid(iy, ix, fy, fx, hp, wp)
+        level = f"{hp - 2}x{wp - 2}"
+        rows = {  # label: (kernel's name, arguments, P, map bytes, scalars)
+            "P3a": ("P3a", case, 1, vm.numel() * 4, 5),
+            "P3b": ("P3b", case + [4], 4, vm.numel() * 4, 5),
+            "P3c": ("P3c", case, 1, vm.numel() * 4, 5),
+            "P4a": ("P4a", [pm, fl, fy, fx, w, 4], 4, pm.numel() * 4, 4),
+            "P4a bf16": ("P4a", [pm16, fl, fy, fx, w, 4], 4,
+                         pm16.numel() * 2, 4)}
+        for label, (name, args, p, map_bytes, scalars) in rows.items():
+            kernel, plain = kernels[name], plains[name]
+            same = torch.equal(kernel(*args), kernel(*args))
+            check(same, f"{label}'s two launches differ at {level}")
+            plain_ms, ms, lib_ms = in_turns(
+                lambda: plain(*args), lambda: kernel(*args),
+                lambda: gather_grid_sample(vm_nchw, grid, w, p), iters=10)
+            nbytes = gather_bytes(map_bytes, m, qp, d, p, scalars)
+            # per sample: P3 1 - fx, 1 - fy and 10 ops a channel; P4a those
+            # two, 6 corner-weight products and 7 ops a channel; then the
+            # P sum
+            per_sample = 2 + 10 * d if name != "P4a" else 8 + 7 * d
+            flops = m * qp * per_sample + m * (qp // p) * (p - 1) * d
+            by = ("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes")
+            bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                              flops / F32_FLOP_PER_S)
+            timed[label][level] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by,
+                "ns_per_sample": ms * 1e6 / (m * qp)}
+            print(f"{label} at {level} (M {m}, QP {qp}, D {d}, P {p}): "
+                  f"two launches bit-identical; kernel {ms:.4f} ms "
+                  f"({ms * 1e6 / (m * qp):.4f} ns a sample), plain "
+                  f"{plain_ms:.4f} ms, grid_sample form {lib_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP f32, {by}) [{card()}]")
+        del case, pm, pm16, fl, vm, iy, ix, fy, fx, w, vm_nchw, grid, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the main path: both probes at the default geometry, through main
+    from fastervit_tpu_torch.ops import cuda_attention, cuda_hat_block
+    counted = {"K1": cuda_attention.window_mhsa_cuda,
+               "K2": cuda_attention.window_mhsa_backward_cuda,
+               "K3": cuda_attention.window_mhsa_long_cuda,
+               "K4": cuda_attention.window_mhsa_long_backward_cuda,
+               "K5": cuda_msda.ms_deform_attn_cuda,
+               "K6": cuda_hat_block.hat_block_cuda,
+               "P1": cuda_attention.online_attention_cuda,
+               "P2": cuda_attention.nobias_attention_cuda, **kernels}
+    for fn in counted.values():
+        fn.launches = 0
+    OUT_DIR.mkdir(exist_ok=True)
+    results = [probe.main(["--out", str(OUT_DIR / (
+        probe.__name__.rsplit(".", 1)[-1] + ".json"))])
+        for probe in probe_modules]
+    torch.cuda.synchronize()
+    calls = {name: fn.launches for name, fn in counted.items()}
+    print(f"the MSDA probes' main path: launches {calls}")
+    check(all(calls[name] > 0 for name in ("K5", *kernels)),
+          f"the MSDA probes launched K5, P3a-c and P4a {calls}")
+    for result in results:
+        levels = result["levels"]
+        rows = [r for level in levels for r in level.values()
+                if isinstance(r, dict)]
+        check(result["device"]["type"] == "cuda" and len(levels) == 4
+              and all(math.isfinite(r["ms"]) and r["ms"] > 0
+                      and r["bound_ms"] > 0 for r in rows),
+              f"{result['probe']}: every row of every level timed")
+        check(all(e <= 1e-4 for e in result["correctness_max_err"].values()),
+              f"{result['probe']} correctness {result['correctness_max_err']}")
+        if "encoder_call" in result:
+            enc = result["encoder_call"]
+            check(enc["parity_max_abs_diff"] <= TOL_K5_FP32
+                  and enc["ms_k5"] > 0,
+                  f"the encoder call: K5 off its plain version by "
+                  f"{enc['parity_max_abs_diff']}")
+
+    per = ("one MOTR level-0 call (202x386 padded, M 8, QP 408,000, D 32, "
+           "f32; P 4 for P3b and P4a)")
+    library = ("F.grid_sample (bilinear, zeros, align_corners=True) of the "
+               "padded map at the same samples, times w{}: one grid_sample "
+               "and one or two elementwise passes, output left (M, D, QP/P)")
+    lines = []
+    for name, fn_name, replaces, extra in (
+            ("P3a", "fused_gather", "scripts/msda_pallas_probe.py:102", {}),
+            ("P3b", "fused_gather_p4", "scripts/msda_pallas_probe.py:165",
+             {"launches_in": "the MSDA probes' main path (msda_pallas_probe "
+                             "and msda_packed_probe's pair_p4)"}),
+            ("P3c", "fused_gather_per_head",
+             "scripts/msda_pallas_probe.py:221",
+             {"per": per + "; M launches a call"}),
+            ("P4a", "packed_gather", "scripts/msda_packed_probe.py:94",
+             {"per": per + ", f32 packed map",
+              "per_level_bf16_map": timed["P4a bf16"],
+              "launches_in": "the MSDA probes' main path "
+                             "(msda_packed_probe)"})):
+        lines.append({
+            "name": fn_name, "route": "cuda",
+            "source": "fastervit_tpu_torch/csrc/msda_probe.cu",
+            "replaces": replaces, "launches": calls[name],
+            "max_abs_err": errs[name], **timed[name]["200x384"],
+            "library": library.format(", summed over P" if name in (
+                "P3b", "P4a") else ""),
+            "per": per, "per_level": timed[name],
+            "launches_in": "the MSDA probes' main path (msda_pallas_probe)",
+            **extra})
+    return lines, calls["K5"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -2253,8 +2457,9 @@ def main() -> None:
     from fastervit_tpu_torch.detection import main as detection_cli
     from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
     from fastervit_tpu_torch.ops import attention_probes, cuda_hat_block
-    from fastervit_tpu_torch.ops import hat_block, msda
+    from fastervit_tpu_torch.ops import hat_block, msda, msda_probes
     from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
+    from fastervit_tpu_torch.probes import msda_packed_probe, msda_pallas_probe
     from fastervit_tpu_torch.train import mixup, schedule, steps
     from fastervit_tpu_torch.train import train as train_cli
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -2429,7 +2634,15 @@ def main() -> None:
     p1, p2 = probe_phase(cuda_attention, attention_probes,
                          (attn_vpu_probe, attn_online_probe))
 
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2]}))
+    # 27. the MSDA gather probes: P3a-c and P4a against their plain
+    #     versions, timed, then both probes through their main
+    gathers, k5["launches_msda_probes"] = msda_probe_phase(
+        cuda_msda, msda_probes, (msda_pallas_probe, msda_packed_probe))
+    k5["launches_msda_probes_in"] = (
+        "the MSDA probes' main path (msda_pallas_probe's encoder call)")
+
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
+                                  *gathers]}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

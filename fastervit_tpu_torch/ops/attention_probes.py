@@ -76,7 +76,7 @@ def nobias_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return ctx.div_(p.sum(-1, keepdim=True)).to(q.dtype)
 
 
-def _device(what: str, *tensors: torch.Tensor) -> str:
+def input_device(what: str, *tensors: torch.Tensor) -> str:
     """The one device type of the tensors; raise on a gradient or on
     tensors spread over devices."""
     if any(t.requires_grad for t in tensors):
@@ -95,7 +95,7 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ·scale + bias) v with the key row taken in `chunks`
     chunks (P1). q, k, v: (B, H, S, hd) f32 or bf16; bias (H, S, S) f32 or
     bf16; chunks divides S. Returns (B, H, S, hd) in q's dtype."""
-    device = _device("online_attention", q, k, v, bias)
+    device = input_device("online_attention", q, k, v, bias)
     if device == "cpu":
         return online_attention_reference(q, k, v, bias, scale, chunks)
     if device == "cuda":
@@ -109,7 +109,7 @@ def nobias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float) -> torch.Tensor:
     """softmax(q kᵀ·scale) v with no bias (P2). q, k, v: (B, H, S, hd) f32
     or bf16. Returns (B, H, S, hd) in q's dtype."""
-    device = _device("nobias_attention", q, k, v)
+    device = input_device("nobias_attention", q, k, v)
     if device == "cpu":
         return nobias_attention_reference(q, k, v, scale)
     if device == "cuda":

@@ -1,22 +1,31 @@
-"""Probes of the long-window attention at FasterViT-4-21k's 768² level-2
-call (16 windows of S = 2304 tokens, 16 heads, head dim 49, bf16): the
-port's counterparts of scripts/attn_online_probe.py and
-scripts/attn_vpu_probe.py, under the same names.
+"""The port's probes, counterparts of the JAX package's probe scripts
+under the same names:
+
+- the long-window attention at FasterViT-4-21k's 768² level-2 call (16
+  windows of S = 2304 tokens, 16 heads, head dim 49, bf16):
+  attn_vpu_probe and attn_online_probe (scripts/attn_vpu_probe.py,
+  scripts/attn_online_probe.py);
+- MSDA's bilinear gather at MOTR's streaming levels (8 heads, D 32, P 4,
+  408,000 samples a head and level): msda_pallas_probe and
+  msda_packed_probe (scripts/msda_pallas_probe.py,
+  scripts/msda_packed_probe.py).
 
     python -m fastervit_tpu_torch.probes.attn_vpu_probe [--out PATH]
-    python -m fastervit_tpu_torch.probes.attn_online_probe [--out PATH]
     python -m fastervit_tpu_torch.probes.attn_online_probe --device cpu \\
         --batch 2 --seq 64 --heads 2
+    python -m fastervit_tpu_torch.probes.msda_pallas_probe [--e2e-only]
+    python -m fastervit_tpu_torch.probes.msda_packed_probe --device cpu
 
-Each prints one JSON object to stdout and writes a file only at --out. On
-the card (the default) it times each row with CUDA events after a warm-up,
-the rows in turns (in order, then in reverse, each averaged over its two).
-With --device cpu it runs the plain versions once each, at the size given,
-and times nothing; without a card and without --device cpu it exits
-non-zero. Inputs are torch.randn from a seeded torch.Generator.
+Each prints one JSON object to stdout and writes a file only at --out,
+never over the JAX package's TPU records at the repo root. On the card
+(the default) it times each row with CUDA events after a warm-up, the rows
+in turns (in order, then in reverse, each averaged over its two). With
+--device cpu it runs the plain versions once each, at a small size, and
+times nothing; without a card and without --device cpu it exits non-zero.
+Inputs come from a seeded torch.Generator.
 
-This module holds what both probes share, and the timing and SDPA helpers
-that chip_smoke.py uses too.
+This module holds what the probes share, and the timing, SDPA and
+grid_sample helpers that chip_smoke.py uses too.
 """
 from __future__ import annotations
 
@@ -31,32 +40,47 @@ import torch
 import torch.nn.functional as F
 
 ITERS = 10  # timed calls a row and turn, as the JAX probes' ITERS
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 # the JAX package's TPU records, which these probes must never overwrite
 _TPU_RECORDS = tuple(Path(__file__).resolve().parents[2] / name for name in
-                     ("ATTN_ONLINE_PROBE.json", "ATTN_VPU_PROBE.json"))
+                     ("ATTN_ONLINE_PROBE.json", "ATTN_VPU_PROBE.json",
+                      "MSDA_PALLAS_PROBE.json", "MSDA_PACKED_PROBE.json"))
 
 
-def parse_args(description: str, argv: Optional[Sequence[str]]
-               ) -> argparse.Namespace:
-    """The probes' common flags: device, geometry, seed, output."""
+def probe_parser(description: str) -> argparse.ArgumentParser:
+    """The flags every probe takes: device, seed, output."""
     ap = argparse.ArgumentParser(
         description=description,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; exits non-zero without a card) or "
                          "cpu (the plain versions, untimed)")
-    ap.add_argument("--batch", type=int, default=16, help="windows B")
-    ap.add_argument("--seq", type=int, default=2304, help="tokens S")
-    ap.add_argument("--heads", type=int, default=16, help="heads H")
-    ap.add_argument("--head-dim", type=int, default=49, help="head dim hd")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the JSON here (no file otherwise)")
+    return ap
+
+
+def parse_probe_args(ap: argparse.ArgumentParser,
+                     argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    """Parse; refuse an --out that is one of the JAX package's TPU
+    records."""
     args = ap.parse_args(argv)
     if args.out is not None and Path(args.out).resolve() in _TPU_RECORDS:
         ap.error(f"--out {args.out} is a TPU record of the JAX package; "
                  "choose another path")
     return args
+
+
+def parse_args(description: str, argv: Optional[Sequence[str]]
+               ) -> argparse.Namespace:
+    """The attention probes' flags: device, geometry, seed, output."""
+    ap = probe_parser(description)
+    ap.add_argument("--batch", type=int, default=16, help="windows B")
+    ap.add_argument("--seq", type=int, default=2304, help="tokens S")
+    ap.add_argument("--heads", type=int, default=16, help="heads H")
+    ap.add_argument("--head-dim", type=int, default=49, help="head dim hd")
+    return parse_probe_args(ap, argv)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -138,6 +162,64 @@ def sdpa_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
     return (lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale)[..., :d]), d + pad
+
+
+def msda_grid_sample(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+                     loc: torch.Tensor, weights: torch.Tensor
+                     ) -> torch.Tensor:
+    """Upstream's plain MSDA, ms_deform_attn_core_pytorch (dino/models/dino/
+    ops/functions/ms_deform_attn_func.py:41-61): F.grid_sample per level
+    (zero padding, align_corners=False), then the weighted sum. value
+    (N, S, M, D), loc (N, Q, M, L, P, 2), weights (N, Q, M, L, P); returns
+    (N, Q, M·D). Timed as the yardstick of K5; the port never calls it."""
+    n, s, m, d = value.shape
+    _, q, _, nl, p, _ = loc.shape
+    values = value.split([h * w for h, w in shapes], dim=1)
+    grids = (2 * loc - 1).to(value.dtype)  # grid_sample takes one dtype
+    sampled = []
+    for lid, (h, w) in enumerate(shapes):
+        v = values[lid].flatten(2).transpose(1, 2).reshape(n * m, d, h, w)
+        g = grids[:, :, :, lid].transpose(1, 2).flatten(0, 1)
+        sampled.append(F.grid_sample(v, g, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False))
+    weights = weights.transpose(1, 2).reshape(n * m, 1, q, nl * p)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * weights).sum(-1)
+    return out.view(n, m * d, q).transpose(1, 2).contiguous()
+
+
+def gather_grid(iy: torch.Tensor, ix: torch.Tensor, fy: torch.Tensor,
+                fx: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """The MSDA gather probes' samples as a grid_sample grid (M, 1, QP, 2)
+    over the padded (Hp, Wp) map with align_corners=True: x = 2(ix + fx) /
+    (Wp − 1) − 1, y likewise."""
+    x = 2 * (ix + fx) / (wp - 1) - 1
+    y = 2 * (iy + fy) / (hp - 1) - 1
+    return torch.stack((x, y), -1)[:, None]
+
+
+def gather_grid_sample(vm_nchw: torch.Tensor, grid: torch.Tensor,
+                       w: torch.Tensor, p: int) -> torch.Tensor:
+    """The library yardstick of the MSDA gather probes: F.grid_sample
+    (bilinear, zero padding, align_corners=True) of the padded map
+    (M, D, Hp, Wp) at `gather_grid`'s samples, times w (M, QP), summed over
+    each query's P samples when P > 1. Returns (M, D, QP/P), the probes'
+    output transposed (left so: the transpose is no part of the gather).
+    Timed beside P3a-c and P4a; the port never calls it."""
+    out = F.grid_sample(vm_nchw, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)[:, :, 0] * w[:, None]
+    if p > 1:
+        m, d, qp = out.shape
+        out = out.view(m, d, qp // p, p).sum(-1)
+    return out
+
+
+def gather_bytes(map_bytes: int, m: int, qp: int, d: int, p: int,
+                 scalars: int) -> int:
+    """Bytes an MSDA gather probe must move: the map, `scalars` 4-byte
+    values a sample (P3: iy, ix, fy, fx, w; P4a: fl, fy, fx, w) and the f32
+    output (M, QP/P, D), each once."""
+    return map_bytes + 4 * scalars * m * qp + 4 * m * (qp // p) * d
 
 
 def report(result: dict, out: Optional[str]) -> dict:

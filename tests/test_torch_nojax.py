@@ -5,8 +5,10 @@ a train step with gradient checkpointing, a checkpoint saved and restored,
 the detection modules (a tiny DINO detector built from a config file, run
 and post-processed, the MSDA and box ops, the evaluator, the weights bridge
 and the CLI), the long-window attention probes (ops.attention_probes and
-both probe modules, run with --device cpu) and chip_smoke.py load no jax,
-jaxlib, flax or fastervit_tpu module."""
+both probe modules, run with --device cpu), the MSDA gather probes
+(ops.msda_probes, msda_pallas_probe and msda_packed_probe, run with
+--device cpu) and chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu
+module."""
 import os
 import subprocess
 import sys
@@ -81,6 +83,13 @@ assert attention_probes.online_attention(q, q, q, torch.zeros(2, 32, 32), 0.1,
 tiny = ["--device", "cpu", "--batch", "2", "--seq", "32", "--heads", "2"]
 assert attn_online_probe.main(tiny)["online_c2"]["maxdiff_vs_shipped"] < 1e-2
 assert attn_vpu_probe.main(tiny)["flash_nobias"]["ms"] is None
+from fastervit_tpu_torch.ops import msda_probes
+from fastervit_tpu_torch.probes import msda_packed_probe, msda_pallas_probe
+case = msda_probes.sample_case(5, 6, 8, 2, 4, torch.Generator(), "cpu")
+assert msda_probes.fused_gather_p4(*case, 4).shape == (2, 2, 4)
+for probe in (msda_pallas_probe, msda_packed_probe):
+    assert max(probe.main(["--device", "cpu"])[
+        "correctness_max_err"].values()) < 1e-4
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
