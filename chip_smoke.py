@@ -108,7 +108,19 @@ Phases, each of which raises on failure:
      at levels 0 and 3; then the probes' main path, msda_pallas_probe
      (the levels, then K5's encoder call) and msda_packed_probe through
      their main, their JSON printed and kept in the output directory, the
-     four kernels and K5 launched there.
+     four kernels and K5 launched there;
+ 28. the second MSDA gather probe's kernels: P4b (pair_staticr), P4c
+     (packed_coeff) and P4d (packed_wide) against their plain versions at
+     every shape of phase 27, P 1, 2, 4, on f32 and bf16 maps, P4c and P4d
+     on the weights of coeff_scalars / coeff_wide and on random ones, each
+     also with out-of-range samples (NaN at the plain versions' places);
+     P4b on an f32 map equal to P3b and P4c on coeff_scalars equal to P4a
+     bit for bit, P4d's groups summed within the order bound of P4a; two
+     launches bit-identical; kernel, plain version, the grid_sample form
+     and bound timed in turns at levels 0 and 3, f32 and bf16 maps; then
+     the probe's main path, msda_packed_probe2 through its main at all
+     four levels, its JSON printed and kept in the output directory, the
+     three kernels (and P3b, P4a) launched there.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -2201,6 +2213,10 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
                cuda_attention.window_mhsa_long_cuda,
                cuda_attention.window_mhsa_long_backward_cuda,
                cuda_msda.ms_deform_attn_cuda, cuda_hat_block.hat_block_cuda,
+               cuda_msda.fused_gather_cuda, cuda_msda.fused_gather_p4_cuda,
+               cuda_msda.fused_gather_per_head_cuda,
+               cuda_msda.packed_gather_cuda, cuda_msda.pair_staticr_cuda,
+               cuda_msda.packed_coeff_cuda, cuda_msda.packed_wide_cuda,
                p1, p2)
     for fn in counted:
         fn.launches = 0
@@ -2210,7 +2226,8 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
         for probe in probe_modules]
     torch.cuda.synchronize()
     calls = [fn.launches for fn in counted]
-    print(f"the probes' main path: K1-K6, P1, P2 launches {calls}")
+    print(f"the probes' main path: K1-K6, P3a-c, P4a-d, P1, P2 launches "
+          f"{calls}")
     check(calls[-2] > 0 and calls[-1] > 0, f"the probes launched P1 "
                                            f"{calls[-2]} and P2 {calls[-1]} "
                                            "times")
@@ -2386,7 +2403,10 @@ def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
                "K5": cuda_msda.ms_deform_attn_cuda,
                "K6": cuda_hat_block.hat_block_cuda,
                "P1": cuda_attention.online_attention_cuda,
-               "P2": cuda_attention.nobias_attention_cuda, **kernels}
+               "P2": cuda_attention.nobias_attention_cuda, **kernels,
+               "P4b": cuda_msda.pair_staticr_cuda,
+               "P4c": cuda_msda.packed_coeff_cuda,
+               "P4d": cuda_msda.packed_wide_cuda}
     for fn in counted.values():
         fn.launches = 0
     OUT_DIR.mkdir(exist_ok=True)
@@ -2447,6 +2467,249 @@ def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
     return lines, calls["K5"]
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same f32 bits, NaN's too."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
+    """P4b, P4c and P4d against their plain versions on the card at
+    GATHER_SHAPES, at P 1, 2, 4, on f32 and bf16 maps, P4c and P4d on the
+    weights of coeff_scalars / coeff_wide and on random ones (uniform in
+    [-1/4, 1/4), which no coeff_* gives), each case also with out-of-range
+    samples (NaN at the same places); P4b on an f32 map against P3b and P4c
+    on coeff_scalars against P4a, bit for bit, and P4d on coeff_wide, its
+    groups summed, against P4a within the order bound of the same 4P
+    products' sums; two launches bit-identical; kernel, plain version, the
+    grid_sample form and the bound timed in turns at levels 0 and 3 (f32
+    and bf16 maps); then the probe's main path: msda_packed_probe2 through
+    its main at all four levels, every kernel's count set to 0 just before
+    and read just after. Returns the three kernels' lines."""
+    kernels = {"P4b": cuda_msda.pair_staticr_cuda,
+               "P4c": cuda_msda.packed_coeff_cuda,
+               "P4d": cuda_msda.packed_wide_cuda}
+    plains = {"P4b": msda_probes.pair_staticr_reference,
+              "P4c": msda_probes.packed_coeff_reference,
+              "P4d": msda_probes.packed_wide_reference}
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    errs = dict.fromkeys(kernels, 0.0)
+    grouped_err = 0.0   # P4d's groups summed against P4a
+    timed = {name + kind: {} for name in kernels for kind in ("", " bf16")}
+    for index, (hp, wp, qp, m, d) in enumerate(GATHER_SHAPES):
+        case = list(msda_probes.sample_case(hp, wp, qp, m, d, gen, "cuda"))
+        fy, fx, w = case[3:]
+        pm = msda_probes.pack_corners(case[0])
+        fl = case[1] * (wp - 1) + case[2]
+        cs = msda_probes.coeff_scalars(fy, fx, w)
+        cw = msda_probes.coeff_wide(fy, fx, w, d)
+        rand_cs = [torch.rand(m, qp, device="cuda", generator=gen) * 0.5
+                   - 0.25 for _ in range(4)]
+        rand_cf = (torch.rand(m, qp, 4 * d, device="cuda", generator=gen)
+                   * 0.5 - 0.25)
+        broken = [case[0], gather_out_of_range(case[1], hp - 1, gen),
+                  gather_out_of_range(case[2], wp - 1, gen), *case[3:]]
+        broken_fl = gather_out_of_range(fl, pm.shape[1], gen)
+        for p3, p4_fl, label in ((case, fl, "in range"),
+                                 (broken, broken_fl, "out of range")):
+            worst = dict.fromkeys(kernels, 0.0)
+            for dtype in (torch.float32, torch.bfloat16):
+                vm_t, pm_t = p3[0].to(dtype), pm.to(dtype)
+                for p in GATHER_POINTS:
+                    if qp % p:
+                        continue
+                    runs = [("P4b", [vm_t, *p3[1:], p]),
+                            ("P4c", [pm_t, p4_fl, *cs, p]),
+                            ("P4c", [pm_t, p4_fl, *rand_cs, p]),
+                            ("P4d", [pm_t, p4_fl, cw, p]),
+                            ("P4d", [pm_t, p4_fl, rand_cf, p])]
+                    first = {}   # each kernel's output on coeff_* weights
+                    for name, args in runs:
+                        kernel = kernels[name]
+                        before = kernel.launches
+                        got, want = kernel(*args), plains[name](*args)
+                        torch.cuda.synchronize()
+                        width = 4 * d if name == "P4d" else d
+                        check(got.shape == want.shape == (m, qp // p, width)
+                              and got.dtype == torch.float32,
+                              f"{name} output {tuple(got.shape)} at "
+                              f"{hp}x{wp}")
+                        if not qp:
+                            check(kernel.launches == before,
+                                  f"{name} launched on QP 0")
+                            continue
+                        nan = torch.isnan(want)
+                        check(torch.equal(torch.isnan(got), nan),
+                              f"{name} NaN elsewhere than its plain "
+                              f"version's at {(hp, wp, qp, m, d)} {label}")
+                        check(bool(nan.any()) == (label == "out of range"),
+                              f"{name} NaN only for out-of-range samples")
+                        err = ((got - want)[~nan].abs().max().item()
+                               if bool((~nan).any()) else 0.0)
+                        check(err <= TOL_GATHER,
+                              f"{name} off its plain version by {err} at "
+                              f"{(hp, wp, qp, m, d)} {dtype} P {p}")
+                        worst[name] = max(worst[name], err)
+                        first.setdefault(name, got)
+                    if not qp:
+                        continue
+                    # the cross-checks, on the coeff_* weights
+                    if dtype == torch.float32:
+                        check(bits_equal(first["P4b"],
+                                         cuda_msda.fused_gather_p4_cuda(
+                                             *p3, p)),
+                              f"P4b on an f32 map is not P3b's bits at "
+                              f"{(hp, wp, qp, m, d)} P {p} {label}")
+                    p4a = cuda_msda.packed_gather_cuda(pm_t, p4_fl, fy, fx,
+                                                       w, p)
+                    check(bits_equal(first["P4c"], p4a),
+                          f"P4c on coeff_scalars is not P4a's bits at "
+                          f"{(hp, wp, qp, m, d)} {dtype} P {p} {label}")
+                    grouped = probe2.group_sum(first["P4d"])
+                    bound = (2 * (4 * p - 1) * 2.0 ** -24
+                             * cuda_msda.packed_coeff_cuda(
+                                 pm_t.abs(), p4_fl, *(c.abs() for c in cs),
+                                 p))
+                    nan = torch.isnan(p4a)
+                    diff = (grouped - p4a).abs()[~nan]
+                    check(torch.equal(torch.isnan(grouped), nan)
+                          and bool((diff <= bound[~nan]
+                                    * (1 + 1e-6)).all()),
+                          f"P4d's groups summed off P4a past the order "
+                          f"bound at {(hp, wp, qp, m, d)} {dtype} P {p}")
+                    if diff.numel():
+                        grouped_err = max(grouped_err, diff.max().item())
+                    del first, p4a, grouped, bound, diff
+            print(f"P4b-d msda_probe Hp={hp} Wp={wp} QP={qp} M={m} D={d} "
+                  f"{label} (P {GATHER_POINTS}, f32 and bf16 maps, P4c/P4d "
+                  f"on coeff_* and random weights): max|err| {worst} (tol "
+                  f"{TOL_GATHER}), NaN at the plain versions' places; P4b "
+                  "(f32) = P3b and P4c = P4a bit for bit, P4d's groups "
+                  "summed within the order bound of P4a")
+            errs = {n: max(errs[n], worst[n]) for n in errs}
+        del broken, broken_fl, rand_cs, rand_cf
+        if index not in GATHER_TIMED:
+            del case, pm, fl, cs, cw
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+
+        # a timed level: two launches bit-identical, then kernel, plain
+        # version and the grid_sample form in turns, beside the bound
+        vm, iy, ix = case[:3]
+        pm16 = pm.bfloat16()
+        vm_nchw = vm.permute(0, 3, 1, 2).contiguous()
+        grid = gather_grid(iy, ix, fy, fx, hp, wp)
+        level = f"{hp - 2}x{wp - 2}"
+        rows = {}  # label: (kernel's name, arguments, map bytes)
+        for suffix, vm_t, pm_t, size in (("", vm, pm, 4),
+                                         (" bf16", vm.bfloat16(), pm16, 2)):
+            rows["P4b" + suffix] = ("P4b", [vm_t, iy, ix, fy, fx, w, 4],
+                                    vm.numel() * size)
+            rows["P4c" + suffix] = ("P4c", [pm_t, fl, *cs, 4],
+                                    pm.numel() * size)
+            rows["P4d" + suffix] = ("P4d", [pm_t, fl, cw, 4],
+                                    pm.numel() * size)
+        for label, (name, args, map_bytes) in rows.items():
+            kernel, plain = kernels[name], plains[name]
+            same = torch.equal(kernel(*args), kernel(*args))
+            check(same, f"{label}'s two launches differ at {level}")
+            plain_ms, ms, lib_ms = in_turns(
+                lambda: plain(*args), lambda: kernel(*args),
+                lambda: gather_grid_sample(vm_nchw, grid, w, 4), iters=10)
+            # 4-byte values a sample, output width, f32 ops a sample: P4b
+            # P3's 2 + 10 a channel; P4c 7 a channel; P4d one product a
+            # lane; then the P sum
+            scalars, width, per_sample = {
+                "P4b": (5, d, 2 + 10 * d), "P4c": (5, d, 7 * d),
+                "P4d": (1 + 4 * d, 4 * d, 4 * d)}[name]
+            nbytes = gather_bytes(map_bytes, m, qp, width, 4, scalars)
+            flops = m * qp * per_sample + m * (qp // 4) * 3 * width
+            by = ("operations" if flops / F32_FLOP_PER_S
+                  > nbytes / HBM_BYTES_PER_S else "bytes")
+            bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                              flops / F32_FLOP_PER_S)
+            timed[label][level] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by,
+                "ns_per_sample": ms * 1e6 / (m * qp)}
+            print(f"{label} at {level} (M {m}, QP {qp}, D {d}, P 4): two "
+                  f"launches bit-identical; kernel {ms:.4f} ms "
+                  f"({ms * 1e6 / (m * qp):.4f} ns a sample), plain "
+                  f"{plain_ms:.4f} ms, grid_sample form {lib_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP f32, {by}) [{card()}]")
+        del case, pm, pm16, fl, cs, cw, vm, iy, ix, fy, fx, w, vm_nchw, grid
+        del rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the main path: the probe at all four levels, through main
+    from fastervit_tpu_torch.ops import cuda_attention, cuda_hat_block
+    counted = {"K1": cuda_attention.window_mhsa_cuda,
+               "K2": cuda_attention.window_mhsa_backward_cuda,
+               "K3": cuda_attention.window_mhsa_long_cuda,
+               "K4": cuda_attention.window_mhsa_long_backward_cuda,
+               "K5": cuda_msda.ms_deform_attn_cuda,
+               "K6": cuda_hat_block.hat_block_cuda,
+               "P1": cuda_attention.online_attention_cuda,
+               "P2": cuda_attention.nobias_attention_cuda,
+               "P3a": cuda_msda.fused_gather_cuda,
+               "P3b": cuda_msda.fused_gather_p4_cuda,
+               "P3c": cuda_msda.fused_gather_per_head_cuda,
+               "P4a": cuda_msda.packed_gather_cuda, **kernels}
+    for fn in counted.values():
+        fn.launches = 0
+    OUT_DIR.mkdir(exist_ok=True)
+    result = probe2.main(["--out", str(OUT_DIR / "msda_packed_probe2.json"),
+                          "--levels", "4"])
+    torch.cuda.synchronize()
+    calls = {name: fn.launches for name, fn in counted.items()}
+    print(f"the second MSDA probe's main path: launches {calls}")
+    check(all(calls[name] > 0 for name in ("P3b", "P4a", *kernels)),
+          f"msda_packed_probe2 launched P4b-d, P3b and P4a {calls}")
+    levels = result["levels"]
+    rows = [r for level in levels for r in level.values()
+            if isinstance(r, dict)]
+    check(result["device"]["type"] == "cuda" and len(levels) == 4
+          and all(len([r for r in level.values() if isinstance(r, dict)])
+                  == 7 for level in levels)
+          and all(math.isfinite(r["ms"]) and r["ms"] > 0
+                  and r["bound_ms"] > 0 for r in rows),
+          "msda_packed_probe2: every row of every level timed")
+    check(all(e <= probe2.TOL_CHECK
+              for e in result["correctness_max_err"].values()),
+          f"msda_packed_probe2 correctness {result['correctness_max_err']}")
+
+    per = ("one MOTR level-0 call (202x386 padded, M 8, QP 408,000, D 32, "
+           "P 4, f32 map)")
+    library = ("F.grid_sample (bilinear, zeros, align_corners=True) of the "
+               "padded map at the same samples, times w, summed over P: one "
+               "grid_sample and two elementwise passes, output left "
+               "(M, D, QP/P){}")
+    lines = []
+    for name, fn_name, replaces, extra in (
+            ("P4b", "pair_staticr", "scripts/msda_packed_probe2.py:86", {}),
+            ("P4c", "packed_coeff", "scripts/msda_packed_probe2.py:141",
+             {"per": per + ", packed, the weights of coeff_scalars"}),
+            ("P4d", "packed_wide", "scripts/msda_packed_probe2.py:194",
+             {"per": per + ", packed, cf = coeff_wide (1.67 GB)",
+              "max_abs_err_groups_vs_packed_gather": grouped_err})):
+        lines.append({
+            "name": fn_name, "route": "cuda",
+            "source": "fastervit_tpu_torch/csrc/msda_probe.cu",
+            "replaces": replaces, "launches": calls[name],
+            "max_abs_err": errs[name], **timed[name]["200x384"],
+            "library": library.format(
+                "; P4d's function group-summed, for cf = coeff_wide"
+                if name == "P4d" else ""),
+            "per": per, "per_level": timed[name],
+            "per_level_bf16_map": timed[name + " bf16"],
+            "launches_in": "the second MSDA probe's main path "
+                           "(msda_packed_probe2 --levels 4)",
+            **extra})
+    return lines
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -2460,6 +2723,7 @@ def main() -> None:
     from fastervit_tpu_torch.ops import hat_block, msda, msda_probes
     from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
     from fastervit_tpu_torch.probes import msda_packed_probe, msda_pallas_probe
+    from fastervit_tpu_torch.probes import msda_packed_probe2
     from fastervit_tpu_torch.train import mixup, schedule, steps
     from fastervit_tpu_torch.train import train as train_cli
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -2640,6 +2904,10 @@ def main() -> None:
         cuda_msda, msda_probes, (msda_pallas_probe, msda_packed_probe))
     k5["launches_msda_probes_in"] = (
         "the MSDA probes' main path (msda_pallas_probe's encoder call)")
+
+    # 28. the second MSDA gather probe: P4b-d against their plain versions,
+    #     timed, then the probe through its main
+    gathers += msda_probe2_phase(cuda_msda, msda_probes, msda_packed_probe2)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers]}))

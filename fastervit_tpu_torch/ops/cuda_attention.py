@@ -5,7 +5,7 @@ csrc/window_mhsa_bwd.cu), and of pallas_flash_attention.py's `_fwd_kernel`
 (K3, csrc/window_mhsa_long.cu) and `_flash_backward` (K4,
 csrc/window_mhsa_long_bwd.cu). The same library holds K5, the
 multi-scale deformable attention forward (csrc/msda_fwd.cu), and the MSDA
-gather probes' kernels P3a-c and P4a (csrc/msda_probe.cu), which
+gather probes' kernels P3a-c and P4a-d (csrc/msda_probe.cu), which
 `ops/cuda_msda.py` binds, and K6, the fused HAT sub-block
 (csrc/hat_block.cu), which `ops/cuda_hat_block.py` binds. The long-window
 attention probes' kernels are bound here too: P1, the chunked online-softmax
@@ -131,12 +131,18 @@ def _library() -> ctypes.CDLL:
         lib.msda_forward.argtypes = (  # K5, bound in ops/cuda_msda.py
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
-        lib.msda_probe_gather.argtypes = (  # P3a-c, in ops/cuda_msda.py
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.msda_probe_gather.restype = ctypes.c_int
         lib.msda_probe_packed.argtypes = (  # P4a, in ops/cuda_msda.py
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.msda_probe_packed.restype = ctypes.c_int
+        lib.msda_probe_pair.argtypes = (  # P3a-c, P4b, in ops/cuda_msda.py
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.msda_probe_pair.restype = ctypes.c_int
+        lib.msda_probe_coeff.argtypes = (  # P4c, in ops/cuda_msda.py
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.msda_probe_coeff.restype = ctypes.c_int
+        lib.msda_probe_wide.argtypes = (  # P4d, in ops/cuda_msda.py
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.msda_probe_wide.restype = ctypes.c_int
         lib.hat_block_forward.argtypes = (  # K6, in ops/cuda_hat_block.py
             [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p])

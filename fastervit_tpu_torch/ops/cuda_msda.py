@@ -2,9 +2,11 @@
 attention forward (csrc/msda_fwd.cu), the Hopper counterpart of
 fastervit_tpu/ops/msda_pallas.py::fused_bilinear_gather, and of the MSDA
 gather probes' kernels (csrc/msda_probe.cu): P3a `fused_gather_cuda`, P3b
-`fused_gather_p4_cuda`, P3c `fused_gather_per_head_cuda` and P4a
-`packed_gather_cuda`, the counterparts of scripts/msda_pallas_probe.py's
-and scripts/msda_packed_probe.py's Pallas kernels.
+`fused_gather_p4_cuda`, P3c `fused_gather_per_head_cuda`, P4a
+`packed_gather_cuda`, P4b `pair_staticr_cuda`, P4c `packed_coeff_cuda` and
+P4d `packed_wide_cuda`, the counterparts of scripts/msda_pallas_probe.py's,
+scripts/msda_packed_probe.py's and scripts/msda_packed_probe2.py's Pallas
+kernels.
 
 The kernels are built with K1-K4 into one library by
 `cuda_attention.build()` and loaded by its `_library()`. A failed build, an
@@ -132,7 +134,7 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
 ms_deform_attn_cuda.launches = 0
 
 
-# The MSDA gather probes' kernels, P3a-c and P4a (csrc/msda_probe.cu)
+# The MSDA gather probes' kernels, P3a-c and P4a-d (csrc/msda_probe.cu)
 PROBE_MAX_CHANNELS = 64       # kMaxChannels in csrc/msda_probe.cu
 PROBE_POINTS = (1, 2, 4)      # the instantiations of its P
 _MAX_HEADS = 65535            # kMaxGridY: one grid row a head
@@ -140,21 +142,24 @@ _INT32_MAX = 2 ** 31 - 1      # its offsets are 32-bit
 
 
 def _check_scalars(what: str, heads: int, indices: Sequence[torch.Tensor],
-                   floats: Sequence[torch.Tensor]) -> int:
-    """Raise unless the index tensors are int32 and the fractions and
-    weights f32, all (M, QP); returns QP."""
+                   floats: Sequence[torch.Tensor],
+                   floats_are: str = "fractions and weights") -> int:
+    """Raise unless the index tensors are int32 and the float streams
+    (fractions and weights, or corner weights) f32, all (M, QP); returns
+    QP."""
     tensors = (*indices, *floats)
     if indices[0].dim() != 2 or indices[0].shape[0] != heads or any(
             t.shape != indices[0].shape for t in tensors):
-        raise ValueError(f"{what}: indices, fractions and weights must all "
-                         f"be (M, QP) with M = {heads}, got "
+        names = f"indices, {floats_are}" if floats else "indices"
+        raise ValueError(f"{what}: {names} must all be (M, QP) with "
+                         f"M = {heads}, got "
                          f"{[tuple(t.shape) for t in tensors]}")
     if any(t.dtype != torch.int32 for t in indices):
         raise TypeError(f"{what}: indices must be int32, got "
                         f"{[t.dtype for t in indices]}")
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"{what}: fractions and weights must be float32, "
-                        f"got {[t.dtype for t in floats]}")
+        raise TypeError(f"{what}: {floats_are} must be float32, got "
+                        f"{[t.dtype for t in floats]}")
     return indices[0].shape[1]
 
 
@@ -178,6 +183,26 @@ def _check_sizes(what: str, heads: int, d: int, *numels: int) -> None:
                          f"{_INT32_MAX}) past the kernel's 32-bit offsets")
 
 
+def _check_unpacked(what: str, vm: torch.Tensor,
+                    scalars: Sequence[torch.Tensor], points: int,
+                    dtypes: Tuple[torch.dtype, ...], takes: str) -> None:
+    """Raise unless vm (M, Hp, Wp, D) in `dtypes` (`takes` says which) and
+    the samples' iy, ix, fy, fx, w fit a pair-mode kernel (P3a-c, P4b)."""
+    if vm.dim() != 4:
+        raise ValueError(f"{what}: vm must be (M, Hp, Wp, D), got "
+                         f"{tuple(vm.shape)}")
+    if vm.dtype not in dtypes:
+        raise TypeError(f"{what} takes {takes}, got {vm.dtype}")
+    m, hp, wp, d = vm.shape
+    if hp < 2 or wp < 2:
+        raise ValueError(f"{what}: the padded map must be at least 2x2, got "
+                         f"{hp}x{wp}")
+    iy, ix, fy, fx, w = scalars
+    qp = _check_scalars(what, m, (iy, ix), (fy, fx, w))
+    _check_points(what, qp, points)
+    _check_sizes(what, m, d, vm.numel(), iy.numel(), m * (qp // points) * d)
+
+
 def check_gather(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
                  fy: torch.Tensor, fx: torch.Tensor, w: torch.Tensor,
                  points: int = 1, what: str = "fused_gather") -> None:
@@ -187,29 +212,23 @@ def check_gather(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     and every tensor, the output (M, QP/P, D) too, under 2^31 elements.
     The JAX probes take an f32 map only (a bf16 one fails at their store),
     and so do these."""
-    if vm.dim() != 4:
-        raise ValueError(f"{what}: vm must be (M, Hp, Wp, D), got "
-                         f"{tuple(vm.shape)}")
-    if vm.dtype != torch.float32:
-        raise TypeError(f"{what} takes a float32 map, as the JAX probe "
-                        f"does, got {vm.dtype}")
-    m, hp, wp, d = vm.shape
-    if hp < 2 or wp < 2:
-        raise ValueError(f"{what}: the padded map must be at least 2x2, got "
-                         f"{hp}x{wp}")
-    qp = _check_scalars(what, m, (iy, ix), (fy, fx, w))
-    _check_points(what, qp, points)
-    _check_sizes(what, m, d, vm.numel(), iy.numel(), m * (qp // points) * d)
+    _check_unpacked(what, vm, (iy, ix, fy, fx, w), points,
+                    (torch.float32,), "a float32 map, as the JAX probe does")
 
 
-def check_packed(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
-                 fx: torch.Tensor, w: torch.Tensor, points: int) -> None:
-    """Raise unless P4a takes these inputs: pm (M, cells, 4D) float32 or
-    bfloat16 with cells >= 1 and 1 <= D <= PROBE_MAX_CHANNELS; fl (M, QP)
-    int32; fy, fx, w (M, QP) float32; P in PROBE_POINTS dividing QP;
-    M <= 65535 and every tensor, the output (M, QP/P, D) too, under 2^31
-    elements."""
-    what = "packed_gather"
+def check_pair(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+               fy: torch.Tensor, fx: torch.Tensor, w: torch.Tensor,
+               points: int) -> None:
+    """Raise unless P4b takes these inputs: those of `check_gather`, but the
+    map float32 or bfloat16, as the JAX `pair_staticr` widens its patch
+    (msda_packed_probe2.py:54)."""
+    _check_unpacked("pair_staticr", vm, (iy, ix, fy, fx, w), points,
+                    _DTYPES, "a float32 or bfloat16 map")
+
+
+def _check_packed_map(what: str, pm: torch.Tensor) -> Tuple[int, int]:
+    """Raise unless pm is (M, cells, 4D) float32 or bfloat16 with cells >= 1;
+    returns (M, D)."""
     if pm.dim() != 3 or pm.shape[2] % 4:
         raise ValueError(f"{what}: pm must be (M, cells, 4D), got "
                          f"{tuple(pm.shape)}")
@@ -220,17 +239,62 @@ def check_packed(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
     if cells < 1:
         raise ValueError(f"{what}: pm holds no cell (a map of at least 2x2 "
                          "packs into one)")
+    return m, d4 // 4
+
+
+def check_packed(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
+                 fx: torch.Tensor, w: torch.Tensor, points: int) -> None:
+    """Raise unless P4a takes these inputs: pm (M, cells, 4D) float32 or
+    bfloat16 with cells >= 1 and 1 <= D <= PROBE_MAX_CHANNELS; fl (M, QP)
+    int32; fy, fx, w (M, QP) float32; P in PROBE_POINTS dividing QP;
+    M <= 65535 and every tensor, the output (M, QP/P, D) too, under 2^31
+    elements."""
+    what = "packed_gather"
+    m, d = _check_packed_map(what, pm)
     qp = _check_scalars(what, m, (fl,), (fy, fx, w))
     _check_points(what, qp, points)
-    _check_sizes(what, m, d4 // 4, pm.numel(), fl.numel(),
-                 m * (qp // points) * (d4 // 4))
+    _check_sizes(what, m, d, pm.numel(), fl.numel(), m * (qp // points) * d)
+
+
+def check_coeff(pm: torch.Tensor, fl: torch.Tensor, c00: torch.Tensor,
+                c01: torch.Tensor, c10: torch.Tensor, c11: torch.Tensor,
+                points: int) -> None:
+    """Raise unless P4c takes these inputs: those of `check_packed`, with
+    the four corner weights c00, c01, c10, c11 (M, QP) float32 in place of
+    fy, fx, w."""
+    what = "packed_coeff"
+    m, d = _check_packed_map(what, pm)
+    qp = _check_scalars(what, m, (fl,), (c00, c01, c10, c11),
+                        "corner weights")
+    _check_points(what, qp, points)
+    _check_sizes(what, m, d, pm.numel(), fl.numel(), m * (qp // points) * d)
+
+
+def check_wide(pm: torch.Tensor, fl: torch.Tensor, cf: torch.Tensor,
+               points: int) -> None:
+    """Raise unless P4d takes these inputs: pm and fl as `check_packed`
+    takes them and cf exactly (M, QP, 4D) float32, a coefficient row a
+    sample; every tensor, cf and the output (M, QP/P, 4D) too, under 2^31
+    elements."""
+    what = "packed_wide"
+    m, d = _check_packed_map(what, pm)
+    qp = _check_scalars(what, m, (fl,), ())
+    if tuple(cf.shape) != (m, qp, 4 * d):
+        raise ValueError(f"{what}: cf must be (M, QP, 4D) = "
+                         f"{(m, qp, 4 * d)}, got {tuple(cf.shape)}")
+    if cf.dtype != torch.float32:
+        raise TypeError(f"{what}: cf must be float32, got {cf.dtype}")
+    _check_points(what, qp, points)
+    _check_sizes(what, m, d, pm.numel(), fl.numel(), cf.numel(),
+                 m * (qp // points) * 4 * d)
 
 
 def _probe_output(what: str, tensors: Sequence[torch.Tensor], d: int,
                   points: int) -> torch.Tensor:
-    """Check that a probe kernel's inputs (the map, then its (M, QP)
-    scalars) lie contiguous on one card and need no gradient, and allocate
-    its f32 output (M, QP/P, D)."""
+    """Check that a probe kernel's inputs (the map, then its per-sample
+    streams, the first (M, QP)) lie contiguous on one card and need no
+    gradient, and allocate its f32 output (M, QP/P, D), D the output
+    row's width."""
     first = tensors[0]
     if first.device.type != "cuda" or any(t.device != first.device
                                           for t in tensors):
@@ -256,16 +320,18 @@ def _gather_output(what: str, vm: torch.Tensor,
 
 def _gather_launch(vm: torch.Tensor, scalars: Sequence[torch.Tensor],
                    out: torch.Tensor, heads: int, points: int) -> None:
-    """One launch of msda_probe_gather over `heads` heads, from the first
-    elements of vm (.., Hp, Wp, D), the scalars (.., QP) and out."""
+    """One launch of msda_probe_pair over `heads` heads, from the first
+    elements of vm (.., Hp, Wp, D), f32 or bf16, the scalars (.., QP) and
+    out."""
     hp, wp, d = vm.shape[-3:]
     lib = cuda_attention._library()
     with torch.cuda.device(vm.device):
-        err = lib.msda_probe_gather(
+        err = lib.msda_probe_pair(
             vm.data_ptr(), *(t.data_ptr() for t in scalars), out.data_ptr(),
             heads, scalars[0].shape[-1], hp, wp, d, points,
+            int(vm.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
-    cuda_attention._raise_on(err, "msda_probe_gather")
+    cuda_attention._raise_on(err, "msda_probe_pair")
 
 
 def fused_gather_cuda(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -322,6 +388,22 @@ def fused_gather_per_head_cuda(vm: torch.Tensor, iy: torch.Tensor,
 fused_gather_per_head_cuda.launches = 0
 
 
+def _packed_launch(entry: str, pm: torch.Tensor,
+                   streams: Sequence[torch.Tensor], out: torch.Tensor,
+                   points: int) -> None:
+    """One launch of the C entry point `entry` (msda_probe_packed,
+    msda_probe_coeff or msda_probe_wide) on the packed map pm (f32 or
+    bf16), fl and its float streams."""
+    lib = cuda_attention._library()
+    with torch.cuda.device(pm.device):
+        err = getattr(lib, entry)(
+            pm.data_ptr(), *(t.data_ptr() for t in streams), out.data_ptr(),
+            pm.shape[0], streams[0].shape[1], pm.shape[1], pm.shape[2] // 4,
+            points, int(pm.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_attention._raise_on(err, entry)
+
+
 def packed_gather_cuda(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
                        fx: torch.Tensor, w: torch.Tensor,
                        p: int = 4) -> torch.Tensor:
@@ -329,19 +411,66 @@ def packed_gather_cuda(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
     (M, QP/P, D) f32 from an f32 or bf16 packed map (see `check_packed`).
     Counts its launches in `packed_gather_cuda.launches`."""
     check_packed(pm, fl, fy, fx, w, p)
-    d = pm.shape[2] // 4
-    out = _probe_output("packed_gather", (pm, fl, fy, fx, w), d, p)
+    streams = (fl, fy, fx, w)
+    out = _probe_output("packed_gather", (pm, *streams), pm.shape[2] // 4, p)
     if out.numel():
-        lib = cuda_attention._library()
-        with torch.cuda.device(pm.device):
-            err = lib.msda_probe_packed(
-                pm.data_ptr(), fl.data_ptr(), fy.data_ptr(), fx.data_ptr(),
-                w.data_ptr(), out.data_ptr(), pm.shape[0], fl.shape[1],
-                pm.shape[1], d, p, int(pm.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
-        cuda_attention._raise_on(err, "msda_probe_packed")
+        _packed_launch("msda_probe_packed", pm, streams, out, p)
         packed_gather_cuda.launches += 1
     return out
 
 
 packed_gather_cuda.launches = 0
+
+
+def pair_staticr_cuda(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                      fy: torch.Tensor, fx: torch.Tensor, w: torch.Tensor,
+                      p: int = 4) -> torch.Tensor:
+    """P4b on the card: P3b's sum over each query's P samples from an f32
+    or bf16 map, (M, QP/P, D) f32 (see `check_pair`). Counts its launches
+    in `pair_staticr_cuda.launches`."""
+    check_pair(vm, iy, ix, fy, fx, w, p)
+    scalars = (iy, ix, fy, fx, w)
+    out = _probe_output("pair_staticr", (vm, *scalars), vm.shape[-1], p)
+    if out.numel():
+        _gather_launch(vm, scalars, out, vm.shape[0], p)
+        pair_staticr_cuda.launches += 1
+    return out
+
+
+pair_staticr_cuda.launches = 0
+
+
+def packed_coeff_cuda(pm: torch.Tensor, fl: torch.Tensor, c00: torch.Tensor,
+                      c01: torch.Tensor, c10: torch.Tensor, c11: torch.Tensor,
+                      p: int = 4) -> torch.Tensor:
+    """P4c on the card: the corner-packed sum over each query's P samples
+    with the corner weights given, (M, QP/P, D) f32 from an f32 or bf16
+    packed map (see `check_coeff`). Counts its launches in
+    `packed_coeff_cuda.launches`."""
+    check_coeff(pm, fl, c00, c01, c10, c11, p)
+    streams = (fl, c00, c01, c10, c11)
+    out = _probe_output("packed_coeff", (pm, *streams), pm.shape[2] // 4, p)
+    if out.numel():
+        _packed_launch("msda_probe_coeff", pm, streams, out, p)
+        packed_coeff_cuda.launches += 1
+    return out
+
+
+packed_coeff_cuda.launches = 0
+
+
+def packed_wide_cuda(pm: torch.Tensor, fl: torch.Tensor, cf: torch.Tensor,
+                     p: int = 4) -> torch.Tensor:
+    """P4d on the card: Σ_p pm[fl]·cf over each query's P samples, lane by
+    lane, (M, QP/P, 4D) f32 with the four corner groups kept, from an f32
+    or bf16 packed map (see `check_wide`). Counts its launches in
+    `packed_wide_cuda.launches`."""
+    check_wide(pm, fl, cf, p)
+    out = _probe_output("packed_wide", (pm, fl, cf), pm.shape[2], p)
+    if out.numel():
+        _packed_launch("msda_probe_wide", pm, (fl, cf), out, p)
+        packed_wide_cuda.launches += 1
+    return out
+
+
+packed_wide_cuda.launches = 0

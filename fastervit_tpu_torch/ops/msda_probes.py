@@ -1,7 +1,9 @@
 """The MSDA gather probes' functions, with their dispatch: the PyTorch
 counterparts of the Pallas kernels of scripts/msda_pallas_probe.py (P3a
-`fused_gather`, P3b `fused_gather_p4`, P3c `fused_gather_per_head`) and
-scripts/msda_packed_probe.py (P4a `packed_gather`).
+`fused_gather`, P3b `fused_gather_p4`, P3c `fused_gather_per_head`),
+scripts/msda_packed_probe.py (P4a `packed_gather`) and
+scripts/msda_packed_probe2.py (P4b `pair_staticr`, P4c `packed_coeff`,
+P4d `packed_wide`).
 
 Each is multi-scale deformable attention's bilinear gather for one level,
 handed each sample's precomputed patch corner and fractions, on MOTR's
@@ -19,19 +21,28 @@ map vm (M, Hp, Wp, D):
 - `packed_gather` (P4a) is P3b over `pack_corners(vm)`, where one row of
   4·D holds a sample's four corners, fl = iy·(Wp−1) + ix, with the corner
   weights w·gy·gx, w·gy·fx, w·fy·gx and w·fy·fx (gy = 1−fy, gx = 1−fx);
-  the map f32 or bf16, the output f32.
+  the map f32 or bf16, the output f32;
+- `pair_staticr` (P4b) is P3b over an f32 or bf16 map (the JAX kernel's
+  static row index has no counterpart on the card);
+- `packed_coeff` (P4c) is P4a with the four corner weights c00, c01, c10,
+  c11 given as (M, QP) f32 streams (`coeff_scalars` makes P4a's);
+- `packed_wide` (P4d) takes a coefficient row cf (M, QP, 4D) f32 a sample
+  (`coeff_wide` broadcasts P4a's weights to one) and returns
+  Σ_p pm[fl]·cf lane by lane, (M, QP/P, 4D) with the four corner groups
+  kept; the caller adds them.
 
 P3a–c take an f32 map only, as the JAX functions do (a bf16 map fails at
-their store). iy, ix and fl are int32; fy, fx and w f32, all (M, QP). QP is
-any count for P3a and P3c and a multiple of P for P3b and P4a; P is 1, 2
-or 4. The TPU functions' tiling knobs (chunk, unroll, vmem_cap, the
-(8, chunk/8) SMEM tiling, the chunk padding) have no counterpart.
+their store). iy, ix and fl are int32; fy, fx, w and the corner weights
+f32, all (M, QP). QP is any count for P3a and P3c and a multiple of P for
+P3b and P4a–d; P is 1, 2 or 4. The TPU functions' tiling knobs (chunk,
+unroll, vmem_cap, the (8, chunk/8) SMEM tiling, the chunk padding, P4b's
+static row index) have no counterpart.
 
 Out of range: a sample with iy outside [0, Hp−2] or ix outside [0, Wp−2]
-(for P4a, fl outside [0, (Hp−1)(Wp−1))) gives NaN, and so does its query's
-sum; nothing outside the map is read. The JAX functions define nothing
-there (their `_reference` wraps a column past the right edge into the next
-row).
+(for P4a, P4c and P4d, fl outside [0, (Hp−1)(Wp−1))) gives NaN, on every
+output lane, and so does its query's sum; nothing outside the map is read.
+The JAX functions define nothing there (their `_reference` wraps a column
+past the right edge into the next row).
 
 A tensor on the CPU takes the plain version here; a CUDA tensor the
 hand-written kernel in `cuda_msda` (csrc/msda_probe.cu) or raises. There
@@ -40,13 +51,40 @@ require one raise.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 
 from fastervit_tpu_torch.ops import cuda_msda
 from fastervit_tpu_torch.ops.attention_probes import input_device
-from fastervit_tpu_torch.ops.cuda_msda import check_gather, check_packed
+from fastervit_tpu_torch.ops.cuda_msda import (check_coeff, check_gather,
+                                               check_packed, check_pair,
+                                               check_wide)
+
+Coeffs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _bilinear(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+              fy: torch.Tensor, fx: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """w·bilinear(vm, sample) a sample, (M, QP, D) f32, the corners widened
+    to f32 (exact for bf16; nothing for f32); NaN rows where a sample is out
+    of range. Holds four (M, QP, D) corner gathers."""
+    m, hp, wp, d = vm.shape
+    valid = (iy >= 0) & (iy <= hp - 2) & (ix >= 0) & (ix <= wp - 2)
+    lin = torch.where(valid, iy.long() * wp + ix.long(), 0)
+    flat = vm.reshape(m, hp * wp, d)
+
+    def corner(offset: int) -> torch.Tensor:
+        return torch.gather(flat, 1, (lin + offset)[..., None].expand(
+            -1, -1, d)).float()
+
+    gx, gy = (1 - fx)[..., None], (1 - fy)[..., None]
+    fx, fy = fx[..., None], fy[..., None]
+    top = corner(0) * gx + corner(1) * fx
+    bot = corner(wp) * gx + corner(wp + 1) * fx
+    out = w[..., None] * (top * gy + bot * fy)
+    return out.masked_fill_(~valid[..., None], float("nan"))
 
 
 def gather_reference(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -58,21 +96,7 @@ def gather_reference(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     Returns (M, QP, D); NaN rows where a sample is out of range. Holds four
     (M, QP, D) corner gathers."""
     check_gather(vm, iy, ix, fy, fx, w)
-    m, hp, wp, d = vm.shape
-    valid = (iy >= 0) & (iy <= hp - 2) & (ix >= 0) & (ix <= wp - 2)
-    lin = torch.where(valid, iy.long() * wp + ix.long(), 0)
-    flat = vm.reshape(m, hp * wp, d)
-
-    def corner(offset: int) -> torch.Tensor:
-        return torch.gather(flat, 1, (lin + offset)[..., None].expand(
-            -1, -1, d))
-
-    gx, gy = (1 - fx)[..., None], (1 - fy)[..., None]
-    fx, fy = fx[..., None], fy[..., None]
-    top = corner(0) * gx + corner(1) * fx
-    bot = corner(wp) * gx + corner(wp + 1) * fx
-    out = w[..., None] * (top * gy + bot * fy)
-    return out.masked_fill_(~valid[..., None], float("nan"))
+    return _bilinear(vm, iy, ix, fy, fx, w)
 
 
 def _sum_points(v: torch.Tensor, p: int) -> torch.Tensor:
@@ -107,6 +131,58 @@ def pack_corners(vm: torch.Tensor) -> torch.Tensor:
     return pm.reshape(m, (hp - 1) * (wp - 1), 4 * d)
 
 
+def pair_staticr_reference(vm: torch.Tensor, iy: torch.Tensor,
+                           ix: torch.Tensor, fy: torch.Tensor,
+                           fx: torch.Tensor, w: torch.Tensor,
+                           p: int = 4) -> torch.Tensor:
+    """Plain version of P4b, in the order of roundings of
+    scripts/msda_packed_probe2.py::_pair_staticr_kernel (:43-68): the patch
+    widened to f32, then P3b's products and sums. On an f32 map it is
+    `gather_p4_reference`, bit for bit. Returns (M, QP/P, D) f32."""
+    check_pair(vm, iy, ix, fy, fx, w, p)
+    return _sum_points(_bilinear(vm, iy, ix, fy, fx, w), p)
+
+
+def coeff_scalars(fy: torch.Tensor, fx: torch.Tensor,
+                  w: torch.Tensor) -> Coeffs:
+    """The corner weights of scripts/msda_packed_probe2.py::coeff_scalars
+    (:211-213): with gy = 1−fy, gx = 1−fx, (w·gy)·gx, (w·gy)·fx,
+    (w·fy)·gx and (w·fy)·fx, each product rounded left to right."""
+    gy, gx = 1 - fy, 1 - fx
+    return w * gy * gx, w * gy * fx, w * fy * gx, w * fy * fx
+
+
+def coeff_wide(fy: torch.Tensor, fx: torch.Tensor, w: torch.Tensor,
+               d: int) -> torch.Tensor:
+    """The coefficient rows of scripts/msda_packed_probe2.py::coeff_wide
+    (:216-219): each corner weight of `coeff_scalars` repeated over its
+    D-wide group, (M, QP, 4D) f32."""
+    return torch.cat([c[..., None].expand(*c.shape, d)
+                      for c in coeff_scalars(fy, fx, w)], dim=-1)
+
+
+def _packed_rows(pm: torch.Tensor, fl: torch.Tensor):
+    """(each sample's packed row widened to f32 (M, QP, 4D), the in-range
+    mask (M, QP)); an out-of-range sample reads row 0."""
+    valid = (fl >= 0) & (fl < pm.shape[1])
+    index = torch.where(valid, fl.long(), 0)[..., None].expand(
+        -1, -1, pm.shape[2])
+    return torch.gather(pm, 1, index).float(), valid
+
+
+def _packed_sum(pm: torch.Tensor, fl: torch.Tensor, coeffs: Coeffs,
+                p: int) -> torch.Tensor:
+    """Each sample's four D-wide groups times its corner weights, added
+    left to right, then each query's P samples in order; NaN for an
+    out-of-range sample. Returns (M, QP/P, D) f32."""
+    d = pm.shape[2] // 4
+    rows, valid = _packed_rows(pm, fl)
+    v = rows[..., :d] * coeffs[0][..., None]
+    for k in range(1, 4):
+        v = v + rows[..., k * d:(k + 1) * d] * coeffs[k][..., None]
+    return _sum_points(v.masked_fill_(~valid[..., None], float("nan")), p)
+
+
 def packed_gather_reference(pm: torch.Tensor, fl: torch.Tensor,
                             fy: torch.Tensor, fx: torch.Tensor,
                             w: torch.Tensor, p: int = 4) -> torch.Tensor:
@@ -117,18 +193,34 @@ def packed_gather_reference(pm: torch.Tensor, fl: torch.Tensor,
     groups added left to right; then each query's P samples in order.
     Returns (M, QP/P, D) f32."""
     check_packed(pm, fl, fy, fx, w, p)
-    m, cells, d4 = pm.shape
-    d = d4 // 4
-    valid = (fl >= 0) & (fl < cells)
-    index = torch.where(valid, fl.long(), 0)[..., None].expand(-1, -1, d4)
-    rows = torch.gather(pm, 1, index).float()
-    gy, gx = 1 - fy, 1 - fx
-    wgy, wfy = w * gy, w * fy
-    coeffs = (wgy * gx, wgy * fx, wfy * gx, wfy * fx)
-    v = rows[..., :d] * coeffs[0][..., None]
-    for k in range(1, 4):
-        v = v + rows[..., k * d:(k + 1) * d] * coeffs[k][..., None]
-    return _sum_points(v.masked_fill_(~valid[..., None], float("nan")), p)
+    return _packed_sum(pm, fl, coeff_scalars(fy, fx, w), p)
+
+
+def packed_coeff_reference(pm: torch.Tensor, fl: torch.Tensor,
+                           c00: torch.Tensor, c01: torch.Tensor,
+                           c10: torch.Tensor, c11: torch.Tensor,
+                           p: int = 4) -> torch.Tensor:
+    """Plain version of P4c, in the order of roundings of
+    scripts/msda_packed_probe2.py::_packed_coeff_kernel (:102-124): the
+    map row widened to f32, row[0:D]·c00 + row[D:2D]·c01 + row[2D:3D]·c10
+    + row[3D:4D]·c11 added left to right, then each query's P samples in
+    order. On `coeff_scalars(fy, fx, w)` it is `packed_gather_reference`,
+    bit for bit. Returns (M, QP/P, D) f32."""
+    check_coeff(pm, fl, c00, c01, c10, c11, p)
+    return _packed_sum(pm, fl, (c00, c01, c10, c11), p)
+
+
+def packed_wide_reference(pm: torch.Tensor, fl: torch.Tensor,
+                          cf: torch.Tensor, p: int = 4) -> torch.Tensor:
+    """Plain version of P4d, as scripts/msda_packed_probe2.py::
+    _packed_wide_kernel (:157-179) rounds: the map row widened to f32 times
+    the sample's cf row, lane by lane, then each query's P samples in
+    order. Returns (M, QP/P, 4D) f32, the four corner groups kept; NaN on
+    every lane of an out-of-range sample's query."""
+    check_wide(pm, fl, cf, p)
+    rows, valid = _packed_rows(pm, fl)
+    v = (rows * cf).masked_fill_(~valid[..., None], float("nan"))
+    return _sum_points(v, p)
 
 
 def sample_case(hp: int, wp: int, qp: int, m: int, d: int,
@@ -190,3 +282,32 @@ def packed_gather(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
     (M, QP/P, D) f32 from an f32 or bf16 packed map."""
     return _dispatch("packed_gather", packed_gather_reference,
                      cuda_msda.packed_gather_cuda, (pm, fl, fy, fx, w), p)
+
+
+def pair_staticr(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                 fy: torch.Tensor, fx: torch.Tensor, w: torch.Tensor,
+                 p: int = 4) -> torch.Tensor:
+    """P4b: P3b's sum over each query's P samples from an f32 or bf16 map,
+    (M, QP/P, D) f32."""
+    return _dispatch("pair_staticr", pair_staticr_reference,
+                     cuda_msda.pair_staticr_cuda, (vm, iy, ix, fy, fx, w), p)
+
+
+def packed_coeff(pm: torch.Tensor, fl: torch.Tensor, c00: torch.Tensor,
+                 c01: torch.Tensor, c10: torch.Tensor, c11: torch.Tensor,
+                 p: int = 4) -> torch.Tensor:
+    """P4c: the corner-packed sum over each query's P samples with the
+    corner weights given, (M, QP/P, D) f32 from an f32 or bf16 packed
+    map."""
+    return _dispatch("packed_coeff", packed_coeff_reference,
+                     cuda_msda.packed_coeff_cuda,
+                     (pm, fl, c00, c01, c10, c11), p)
+
+
+def packed_wide(pm: torch.Tensor, fl: torch.Tensor, cf: torch.Tensor,
+                p: int = 4) -> torch.Tensor:
+    """P4d: Σ_p pm[fl]·cf lane by lane over each query's P samples,
+    (M, QP/P, 4D) f32 with the four corner groups kept, from an f32 or bf16
+    packed map."""
+    return _dispatch("packed_wide", packed_wide_reference,
+                     cuda_msda.packed_wide_cuda, (pm, fl, cf), p)

@@ -6,15 +6,16 @@ under the same names:
   attn_vpu_probe and attn_online_probe (scripts/attn_vpu_probe.py,
   scripts/attn_online_probe.py);
 - MSDA's bilinear gather at MOTR's streaming levels (8 heads, D 32, P 4,
-  408,000 samples a head and level): msda_pallas_probe and
-  msda_packed_probe (scripts/msda_pallas_probe.py,
-  scripts/msda_packed_probe.py).
+  408,000 samples a head and level): msda_pallas_probe,
+  msda_packed_probe and msda_packed_probe2 (scripts/msda_pallas_probe.py,
+  scripts/msda_packed_probe.py, scripts/msda_packed_probe2.py).
 
     python -m fastervit_tpu_torch.probes.attn_vpu_probe [--out PATH]
     python -m fastervit_tpu_torch.probes.attn_online_probe --device cpu \\
         --batch 2 --seq 64 --heads 2
     python -m fastervit_tpu_torch.probes.msda_pallas_probe [--e2e-only]
     python -m fastervit_tpu_torch.probes.msda_packed_probe --device cpu
+    python -m fastervit_tpu_torch.probes.msda_packed_probe2 --device cpu
 
 Each prints one JSON object to stdout and writes a file only at --out,
 never over the JAX package's TPU records at the repo root. On the card
@@ -44,7 +45,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 # the JAX package's TPU records, which these probes must never overwrite
 _TPU_RECORDS = tuple(Path(__file__).resolve().parents[2] / name for name in
                      ("ATTN_ONLINE_PROBE.json", "ATTN_VPU_PROBE.json",
-                      "MSDA_PALLAS_PROBE.json", "MSDA_PACKED_PROBE.json"))
+                      "MSDA_PALLAS_PROBE.json", "MSDA_PACKED_PROBE.json",
+                      "MSDA_PACKED_PROBE2.json"))
 
 
 def probe_parser(description: str) -> argparse.ArgumentParser:
@@ -217,8 +219,9 @@ def gather_grid_sample(vm_nchw: torch.Tensor, grid: torch.Tensor,
 def gather_bytes(map_bytes: int, m: int, qp: int, d: int, p: int,
                  scalars: int) -> int:
     """Bytes an MSDA gather probe must move: the map, `scalars` 4-byte
-    values a sample (P3: iy, ix, fy, fx, w; P4a: fl, fy, fx, w) and the f32
-    output (M, QP/P, D), each once."""
+    values a sample (P3, P4b: iy, ix, fy, fx, w; P4a: fl, fy, fx, w; P4c:
+    fl, c00, c01, c10, c11; P4d: fl and its cf row, 1 + 4D) and the f32
+    output (M, QP/P, d), each once (P4d's output is d = 4D wide)."""
     return map_bytes + 4 * scalars * m * qp + 4 * m * (qp // p) * d
 
 

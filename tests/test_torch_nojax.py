@@ -6,9 +6,9 @@ the detection modules (a tiny DINO detector built from a config file, run
 and post-processed, the MSDA and box ops, the evaluator, the weights bridge
 and the CLI), the long-window attention probes (ops.attention_probes and
 both probe modules, run with --device cpu), the MSDA gather probes
-(ops.msda_probes, msda_pallas_probe and msda_packed_probe, run with
---device cpu) and chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu
-module."""
+(ops.msda_probes with P4b-d, msda_pallas_probe, msda_packed_probe and
+msda_packed_probe2, run with --device cpu) and chip_smoke.py load no jax,
+jaxlib, flax or fastervit_tpu module."""
 import os
 import subprocess
 import sys
@@ -87,7 +87,15 @@ from fastervit_tpu_torch.ops import msda_probes
 from fastervit_tpu_torch.probes import msda_packed_probe, msda_pallas_probe
 case = msda_probes.sample_case(5, 6, 8, 2, 4, torch.Generator(), "cpu")
 assert msda_probes.fused_gather_p4(*case, 4).shape == (2, 2, 4)
-for probe in (msda_pallas_probe, msda_packed_probe):
+from fastervit_tpu_torch.probes import msda_packed_probe2
+assert msda_probes.pair_staticr(case[0].bfloat16(), *case[1:], 4).shape == \
+    (2, 2, 4)
+pm, fl = msda_probes.pack_corners(case[0]), case[1] * 5 + case[2]
+assert msda_probes.packed_coeff(pm, fl, *msda_probes.coeff_scalars(
+    *case[3:]), 4).shape == (2, 2, 4)
+assert msda_probes.packed_wide(pm, fl, msda_probes.coeff_wide(*case[3:], 4),
+                               4).shape == (2, 2, 16)
+for probe in (msda_pallas_probe, msda_packed_probe, msda_packed_probe2):
     assert max(probe.main(["--device", "cpu"])[
         "correctness_max_err"].values()) < 1e-4
 bad = sorted(k for k in sys.modules
