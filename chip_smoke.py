@@ -26,9 +26,12 @@ Phases, each of which raises on failure:
      at batch 128: 10 steps on one batch must lower the loss, then 20 steps
      timed, launches counted, and 2 profiled;
   9. K3, the long-window attention kernel, against its plain version in
-     fp32 and bf16 (bias f32 and bf16) at the 21k-768 and 21k-384 shapes,
-     the any-res carrier shape, an fv5 shape (hd 80), ragged S and B = 0;
-     kernel, plain version and SDPA timed at the 21k shapes;
+     fp32 (scalar FMA) and bf16 (the tensor cores, wgmma; bias f32 and
+     bf16) at the 21k-768 and 21k-384 shapes, the any-res carrier shape,
+     an fv5 shape (hd 80), ragged S and B = 0, every call's route and
+     shared memory held to long_plan and the library; ptxas' registers
+     and spills of each tensor-core instance; kernel, plain version and
+     SDPA timed at the 21k shapes, with TFLOP/s;
  10. faster_vit_4_21k_768 in fp32 through create_model, on the card (K3
      path) against the CPU (plain path), batch 1;
  11. the serving path: faster_vit_4_21k_768 in bf16 at batch 16, a live
@@ -91,10 +94,13 @@ Phases, each of which raises on failure:
      bias, dp1, dp2): 1 K6, 1 K1 and 1 K2 launch;
  26. the long-window attention probes' kernels: P1 (chunked online
      softmax, C = 1, 2, 4) and P2 (no bias; on separate q, k, v and on
-     views of a packed qkv) against their plain versions in fp32 and bf16
-     at the probes' call (16 windows, S 2304, 16 heads, hd 49), 21k-768
-     level 3, ragged S, hd 128 and B = 0, two launches bit-identical; kernel, plain version, SDPA and bound timed in turns at
-     the probes' call; then the probes' main path, attn_vpu_probe and
+     views of a packed qkv) against their plain versions in fp32 (scalar
+     FMA) and bf16 (wgmma) at the probes' call (16 windows, S 2304, 16
+     heads, hd 49), 21k-768 level 3, ragged S, hd 128 and B = 0, every
+     call's route held to long_plan, ptxas' registers and spills of each
+     tensor-core instance, two launches bit-identical; kernel, plain
+     version, SDPA and bound timed in turns at the probes' call, with
+     TFLOP/s; then the probes' main path, attn_vpu_probe and
      attn_online_probe through their main at that call, their JSON printed
      and kept in the output directory, P1 and P2 launched there;
  27. the MSDA gather probes' kernels: P3a (fused_gather), P3b
@@ -362,6 +368,73 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+def ptxas_instances(log: str, kernel: str, cuda_attention) -> list:
+    """[{instance, registers, spill_stores, static_smem, plan_smem}] for
+    each instantiation of the kernel template `kernel` (a tensor-core
+    route one: window_mhsa_long_tc_kernel or attn_online_tc_kernel) that
+    nvcc's -Xptxas -v log reports; the instance names its bias type,
+    whether the bias is read, the padded head dim D and the load width.
+    Its dynamic shared memory, which ptxas does not see, is its plan's
+    (long_plan)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = None
+            name = entry.group(1)
+            if kernel + "I" in name:
+                args = name.split(kernel + "I", 1)[1]
+                tb = "bf16" if args.startswith("13__nv_bfloat16") else "f32"
+                ints = re.findall(r"Li(\d+)E", args)
+                read = "Lb0" not in args
+                bias = (torch.bfloat16 if tb == "bf16" else torch.float32
+                        ) if read else None
+                cur = {"instance": (f"bias {tb}" if read else "no bias")
+                       + f", D {ints[0]}, {2 * int(ints[1])}-byte loads",
+                       "registers": 0, "spill_stores": 0, "static_smem": 0,
+                       "plan_smem": cuda_attention.long_plan(
+                           int(ints[0]), torch.bfloat16, bias).smem_bytes}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        smem = re.search(r"(\d+) bytes smem", line)
+        if regs:
+            cur["registers"] = int(regs.group(1))
+        if spill:
+            cur["spill_stores"] = int(spill.group(1))
+        if smem:
+            cur["static_smem"] = int(smem.group(1))
+    return out
+
+
+def print_instances(what: str, instances: list) -> None:
+    for i in instances:
+        print(f"  ptxas: {what} <{i['instance']}>: {i['registers']} "
+              f"registers, {i['spill_stores']} bytes of spill stores, "
+              f"{i['static_smem']} bytes of static shared memory; "
+              f"{i['plan_smem']} bytes of dynamic shared memory (its plan)")
+
+
+def check_plan(kernel, cuda_attention, bf16: bool, head_dim: int,
+               bias_dtype=None, what: str = "") -> None:
+    """The wrapper's latest launch took the route its dtype names (bf16:
+    the tensor cores, f32: scalar FMA), by long_plan, whose shared memory
+    is the library's own figure."""
+    plan = kernel.last_plan
+    want = "wgmma" if bf16 else "scalar"
+    check(plan is not None and plan.route == want,
+          f"{what} ran route {plan and plan.route}, expected {want}")
+    bias_bytes = 0 if bias_dtype is None else bias_dtype.itemsize
+    lib = cuda_attention._library().long_attention_smem_bytes(
+        head_dim, int(bf16), bias_bytes)
+    check(plan.smem_bytes == lib, f"{what}: the plan's {plan.smem_bytes} "
+                                  f"bytes of shared memory, the library's "
+                                  f"{lib}")
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max().clamp(min=1.0)).item()
@@ -501,8 +574,12 @@ def k2_phase(cuda_attention, attention) -> dict:
             "per": f"one fv0 bf16 b{TRAIN_BATCH} train step (17 calls)"}
 
 
-def k3_phase(cuda_attention, attention) -> dict:
+def k3_phase(cuda_attention, attention, ptx_log: str) -> dict:
     kernel = cuda_attention.window_mhsa_long_cuda
+    instances = [i for i in ptxas_instances(
+        ptx_log, "window_mhsa_long_tc_kernel", cuda_attention)
+                 if i["instance"].startswith("bias")]
+    print_instances("K3 window_mhsa_long_tc_kernel", instances)
     plain = attention.window_mhsa_long_reference
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -520,6 +597,8 @@ def k3_phase(cuda_attention, attention) -> dict:
         if b:
             err32 = (kernel(qkv, bias, h, scale)
                      - plain(qkv, bias, h, scale)).abs().max().item()
+            check_plan(kernel, cuda_attention, False, d, bias.dtype,
+                       f"K3 fp32 at {(b, s, h, d)}")
         q16 = qkv.bfloat16()
         err16 = 0.0
         for bias_in in (bias, bias.bfloat16()):
@@ -527,6 +606,8 @@ def k3_phase(cuda_attention, attention) -> dict:
                 err16 = max(err16, (kernel(q16, bias_in, h, scale).float()
                                     - plain(q16.float(), bias_in.float(), h,
                                             scale)).abs().max().item())
+                check_plan(kernel, cuda_attention, True, d, bias_in.dtype,
+                           f"K3 bf16 at {(b, s, h, d)}")
             else:
                 check(kernel(q16, bias_in, h, scale).shape == (0, s, h * d),
                       "K3 output of an empty batch")
@@ -534,8 +615,9 @@ def k3_phase(cuda_attention, attention) -> dict:
         if not b:
             check(kernel.launches == before, "K3 launched on an empty batch")
         print(f"K3 window_mhsa_long B={b} S={s} H={h} hd={d}: max|err| fp32 "
-              f"{err32:.3e} (tol {TOL_FP32}), bf16 with f32 and bf16 bias "
-              f"{err16:.3e} (tol {TOL_BF16})")
+              f"{err32:.3e} (tol {TOL_FP32}, scalar FMA), bf16 with f32 and "
+              f"bf16 bias {err16:.3e} (tol {TOL_BF16}, wgmma, D "
+              f"{cuda_attention.long_plan(d, torch.bfloat16).qk_depth})")
         check(err32 <= TOL_FP32, f"K3 fp32 error {err32} at {(b, s, h, d)}")
         check(err16 <= TOL_BF16, f"K3 bf16 error {err16} at {(b, s, h, d)}")
         err32_all, err16_all = max(err32_all, err32), max(err16_all, err16)
@@ -567,11 +649,14 @@ def k3_phase(cuda_attention, attention) -> dict:
         nbytes = 2 * (q16.numel() + b * s * h * d + b16.numel())
         flops = 4.0 * b * h * s * s * d
         bound = bound_ms(nbytes, flops)
+        check_plan(kernel, cuda_attention, True, d, b16.dtype,
+                   f"K3 timed at {(b, s, h, d)}")
         per_call[f"({b},{s},{h},{d})"] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound, "bound_by": ("operations" if flops
                                             / BF16_FLOP_PER_S > nbytes
-                                            / HBM_BYTES_PER_S else "bytes")}
+                                            / HBM_BYTES_PER_S else "bytes"),
+            "tflop_s": flops / ms / 1e9, "route": kernel.last_plan.route}
         if calls:
             ms_fwd += calls * ms
             plain_fwd += calls * plain_ms
@@ -592,6 +677,8 @@ def k3_phase(cuda_attention, attention) -> dict:
             "replaces": "fastervit_tpu/ops/pallas_flash_attention.py:199",
             "launches": None, "max_abs_err": err16_all,
             "max_abs_err_fp32": err32_all,
+            "kernel_route": {"bf16": "wgmma", "f32": "scalar"},
+            "ptxas": instances,
             "ms": ms_fwd, "plain_ms": plain_fwd, "bound_ms": bound_fwd,
             "bound_by": "operations", "library_ms": lib_fwd,
             "library": f"scaled_dot_product_attention ({backend})",
@@ -932,6 +1019,8 @@ def serving_phase(fvt, model, cuda_attention) -> dict:
           f"to live: {same}; max|bf16 - fp32 logits| {gap:.4f} (tol "
           f"{TOL_MODEL_BF16})")
     check(calls == (0, 0, 34, 0), f"launches {calls}, expected 34 K3 only")
+    check(cuda_attention.window_mhsa_long_cuda.last_plan.route == "wgmma",
+          "the bf16 serving path's K3 left the tensor cores")
     check(same, "baked and live bf16 logits differ")
     check(live.shape == (SERVE_BATCH, 1000)
           and bool(torch.isfinite(live).all()),
@@ -2079,7 +2168,8 @@ def k6_dp_grad_phase(cuda_attention, cuda_hat_block, hat_block) -> None:
     torch.cuda.empty_cache()
 
 
-def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
+def probe_phase(cuda_attention, attention_probes, probe_modules,
+                ptx_log: str) -> tuple:
     """P1 and P2 against their plain versions on the card, fp32 and bf16
     (P1 at C = 1, 2, 4 and with f32 and bf16 bias; P2 on separate q, k, v
     and on views of one packed qkv, K3's layout), two launches
@@ -2091,6 +2181,15 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
     p2 = cuda_attention.nobias_attention_cuda
     plains = {"P1": attention_probes.online_attention_reference,
               "P2": attention_probes.nobias_attention_reference}
+    instances = {
+        "P1": ptxas_instances(ptx_log, "attn_online_tc_kernel",
+                              cuda_attention),
+        "P2": [i for i in ptxas_instances(ptx_log,
+                                          "window_mhsa_long_tc_kernel",
+                                          cuda_attention)
+               if i["instance"].startswith("no bias")]}
+    print_instances("P1 attn_online_tc_kernel", instances["P1"])
+    print_instances("P2 window_mhsa_long_tc_kernel", instances["P2"])
     gen = torch.Generator(device="cuda").manual_seed(50)
     errs = {"P1": [0.0, 0.0], "P2": [0.0, 0.0]}  # fp32, bf16 (absolute)
     for name, kernel, shapes in (("P1", p1, P1_SHAPES), ("P2", p2,
@@ -2121,6 +2220,11 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
                     before = kernel.launches
                     got = kernel(*inputs, *rest)
                     torch.cuda.synchronize()
+                    if b:
+                        check_plan(kernel, cuda_attention, half, d,
+                                   rest[0].dtype if name == "P1" else None,
+                                   f"{name} at {(b, s, h, d)}, "
+                                   f"{'bf16' if half else 'fp32'}")
                     # the output keeps the inputs' order of axes: K3's
                     # (B, S, H·hd) for the packed views
                     dense = (got if inputs is qkv
@@ -2146,7 +2250,9 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
                      else "")
                   + (f" C in {[c for c in PROBE_CHUNKS if s % c == 0]}"
                      if name == "P1" else " (B, H, S, hd) and packed qkv")
-                  + f": max|err| fp32 {err[0]:.3e} (tol {TOL_FP32}), bf16"
+                  + f": max|err| fp32 {err[0]:.3e} (tol {TOL_FP32}, scalar "
+                  f"FMA), bf16 (wgmma, D "
+                  f"{cuda_attention.long_plan(d, torch.bfloat16).qk_depth})"
                   + (" with f32 and bf16 bias" if name == "P1" else "")
                   + f" {err[1]:.3e} (tol {TOL_PROBE_BF16_REL:.4g} of each "
                   f"call's largest output, at most {TOL_PROBE_BF16}; "
@@ -2187,12 +2293,16 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
                    lambda: p2(q, k, v, scale), lib_p2)}.items():
         plain_ms, ms, lib_ms = in_turns(plain, kernel, lib, iters=5)
         name = label.split()[0]
+        check_plan(p1 if name == "P1" else p2, cuda_attention, True, d,
+                   bias.dtype if name == "P1" else None,
+                   f"{label} at {PROBE_SHAPE}")
         bound = bound_ms(nbytes[name], flops)
         timed[label] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound,
             "bound_by": ("operations" if flops / BF16_FLOP_PER_S
-                         > nbytes[name] / HBM_BYTES_PER_S else "bytes")}
+                         > nbytes[name] / HBM_BYTES_PER_S else "bytes"),
+            "tflop_s": flops / ms / 1e9}
         print(f"{label} at {PROBE_SHAPE} bf16"
               + (", bf16 bias" if name == "P1" else "")
               + f": kernel {ms:.4f} ms "
@@ -2250,6 +2360,8 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
                "replaces": "scripts/attn_online_probe.py:79",
                "launches": calls[-2], "max_abs_err": errs["P1"][1],
                "max_abs_err_fp32": errs["P1"][0],
+               "kernel_route": {"bf16": "wgmma", "f32": "scalar"},
+               "ptxas": instances["P1"],
                **timed["P1 C=2"],
                "library": ("scaled_dot_product_attention with the bias as a "
                            f"float mask ({lib_p1_ran})"),
@@ -2261,7 +2373,9 @@ def probe_phase(cuda_attention, attention_probes, probe_modules) -> tuple:
                "source": "fastervit_tpu_torch/csrc/window_mhsa_long.cu",
                "replaces": "scripts/attn_vpu_probe.py:135",
                "launches": calls[-1], "max_abs_err": errs["P2"][1],
-               "max_abs_err_fp32": errs["P2"][0], **timed["P2"],
+               "max_abs_err_fp32": errs["P2"][0],
+               "kernel_route": {"bf16": "wgmma", "f32": "scalar"},
+               "ptxas": instances["P2"], **timed["P2"],
                "library": f"scaled_dot_product_attention ({lib_p2_ran})",
                "per": per + ", no bias",
                "launches_in": "the probes' main path (attn_vpu_probe)"}
@@ -2742,8 +2856,8 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = cuda_attention.build()
     print(f"build: {time.perf_counter() - t0:.2f} s ({lib.name})")
-    for kernel, (regs, spill) in ptxas_summary(
-            lib.with_suffix(".log").read_text()).items():
+    ptx_log = lib.with_suffix(".log").read_text()
+    for kernel, (regs, spill) in ptxas_summary(ptx_log).items():
         print(f"  ptxas: {kernel}: at most {regs} registers, {spill} bytes "
               "of spill stores (over its instantiations)")
 
@@ -2820,7 +2934,7 @@ def main() -> None:
     k1["launches_inference"] = k1_inference
 
     # 9. K3 against its plain version
-    k3 = k3_phase(cuda_attention, attention)
+    k3 = k3_phase(cuda_attention, attention, ptx_log)
 
     # 10. 21k-768 fp32: K3 path on the card against the plain path on the CPU
     model = long_fp32_phase(fvt, cuda_attention)
@@ -2896,7 +3010,7 @@ def main() -> None:
     # 26. the long-window attention probes: P1 and P2 against their plain
     #     versions, timed, then both probes through their main
     p1, p2 = probe_phase(cuda_attention, attention_probes,
-                         (attn_vpu_probe, attn_online_probe))
+                         (attn_vpu_probe, attn_online_probe), ptx_log)
 
     # 27. the MSDA gather probes: P3a-c and P4a against their plain
     #     versions, timed, then both probes through their main

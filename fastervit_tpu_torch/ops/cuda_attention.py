@@ -12,6 +12,8 @@ attention probes' kernels are bound here too: P1, the chunked online-softmax
 attention of scripts/attn_online_probe.py (csrc/attn_online.cu), and P2,
 the bias-free attention of scripts/attn_vpu_probe.py (K3's kernel without
 its bias, csrc/window_mhsa_long.cu), both behind `ops/attention_probes.py`.
+K3, P1 and P2 take bf16 on Hopper's tensor cores (wgmma) and f32 on scalar
+FMA, by the plan `long_plan` makes here and the kernels check.
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -27,7 +29,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,10 +37,11 @@ MAX_SEQ = 128       # kMaxSeq in csrc/window_mhsa.cu
 MAX_HEAD_DIM = 64   # kMaxHeadDim in csrc/window_mhsa.cu
 BWD_MAX_SEQ = 64       # kMaxSeq in csrc/window_mhsa_bwd.cu
 BWD_MAX_HEAD_DIM = 64  # kMaxHeadDim in csrc/window_mhsa_bwd.cu
-# kMaxHeadDim and kTile in csrc/attn_tiles.cuh, the tile plan of K3, P1
-# and P2: (B, S/64, H) blocks
+# kMaxHeadDim and kTile in csrc/attn_tiles.cuh, the tile plans of K3, P1
+# and P2: (B, S/64, H) blocks at most (`long_plan`)
 LONG_MAX_HEAD_DIM = 128
 _LONG_TILE = 64
+SMEM_LIMIT = 232448  # the most shared memory an H100 block may use
 _MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
 # K2 gives each block one head and a run of windows; this many blocks fill
 # an H100's 132 SMs four times over.
@@ -56,6 +59,55 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class LongPlan(NamedTuple):
+    """How K3, P1 and P2 run one head dim and dtype (csrc/attn_tiles.cuh):
+    the route ("wgmma": bf16 on the tensor cores; "scalar": f32 on scalar
+    FMA), q rows a block, the q·kᵀ depth and p·v width (hd padded with
+    zeros in shared memory), K/V tiles in shared memory, and a block's
+    dynamic shared memory in bytes. The C entry points check it against
+    their own (`long_attention_smem_bytes` gives theirs)."""
+    route: str
+    rows_per_block: int
+    qk_depth: int
+    pv_width: int
+    stages: int
+    smem_bytes: int
+
+    def as_c(self):
+        """The six ints the C entry points take (attn_tiles.cuh::Plan)."""
+        return (ctypes.c_int * 6)(int(self.route == "wgmma"),
+                                  self.rows_per_block, self.qk_depth,
+                                  self.pv_width, self.stages,
+                                  self.smem_bytes)
+
+
+def long_plan(head_dim: int, dtype: torch.dtype,
+              bias_dtype: Optional[torch.dtype] = None) -> LongPlan:
+    """The plan of K3, P1 (a bias of bias_dtype) and P2 (no bias) for this
+    hd and operand dtype. bf16 takes the tensor cores: 128 q rows a block
+    (two warpgroups of 64), hd padded to 32, 64, 80 or 128 for both
+    products, two stages of K/V (and bias) tiles. f32 keeps scalar FMA
+    (TF32 would move the logits by ~1e-3): 64 rows a block, q·kᵀ over hd
+    itself, p·v over hd rounded up to 32, 64, 96 or 128."""
+    if not 1 <= head_dim <= LONG_MAX_HEAD_DIM:
+        raise NotImplementedError(f"the long-window attention kernels (K3, "
+                                  f"P1, P2) take head_dim <= "
+                                  f"{LONG_MAX_HEAD_DIM}, got {head_dim}")
+    if dtype not in _DTYPES or bias_dtype not in (None, *_DTYPES):
+        raise TypeError(f"float32 or bfloat16 operands, got {dtype} and "
+                        f"bias {bias_dtype}")
+    if dtype == torch.bfloat16:
+        d = next(w for w in (32, 64, 80, 128) if head_dim <= w)
+        bias = 0 if bias_dtype is None else bias_dtype.itemsize
+        # q, 2 stages of k and vᵀ (bf16), 2 of bias (128 rows of 64 + 8)
+        smem = 2 * d * (128 + 2 * 2 * 64) + 2 * 128 * 72 * bias
+        return LongPlan("wgmma", 128, d, d, 2, smem)
+    width = 32 * -(-head_dim // 32)
+    smem = 4 * ((2 * head_dim + _LONG_TILE) * (_LONG_TILE + 1)
+                + _LONG_TILE * width)
+    return LongPlan("scalar", _LONG_TILE, head_dim, width, 1, smem)
 
 
 def _nvcc() -> str:
@@ -122,7 +174,7 @@ def _library() -> ctypes.CDLL:
         lib.window_mhsa_backward.restype = ctypes.c_int
         lib.window_mhsa_long_forward.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.window_mhsa_long_forward.restype = ctypes.c_int
         lib.window_mhsa_long_backward.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
@@ -150,13 +202,15 @@ def _library() -> ctypes.CDLL:
         lib.attn_online_forward.argtypes = (  # P1
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 6 + [ctypes.c_int] * 2
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.attn_online_forward.restype = ctypes.c_int
         lib.attn_nobias_forward.argtypes = (  # P2
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 6 + [ctypes.c_int]
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.attn_nobias_forward.restype = ctypes.c_int
+        lib.long_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.long_attention_smem_bytes.restype = ctypes.c_longlong
         lib.hat_block_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.hat_block_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -306,27 +360,32 @@ def window_mhsa_long_cuda(qkv: torch.Tensor, bias: torch.Tensor,
                           num_heads: int, scale: float) -> torch.Tensor:
     """softmax(q kᵀ·scale + bias) v per window and head, on the card, for
     any S (K3). qkv: (B, S, 3C) f32 or bf16, channels (3, H, hd), hd <= 128;
-    bias: (H, S, S) f32 or bf16. Returns (B, S, C) in qkv's dtype. Counts
-    its launches in `window_mhsa_long_cuda.launches`."""
+    bias: (H, S, S) f32 or bf16. Returns (B, S, C) in qkv's dtype. bf16
+    runs on the tensor cores, f32 on scalar FMA (`long_plan`). Counts its
+    launches in `window_mhsa_long_cuda.launches` and keeps the latest
+    launch's LongPlan in `window_mhsa_long_cuda.last_plan`."""
     check_supported_long(qkv.shape, bias.shape, num_heads)
     _check_inputs(qkv, bias)
     b, s, c3 = qkv.shape
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out
+    how = long_plan(c3 // 3 // num_heads, qkv.dtype, bias.dtype)
     lib = _library()
     with torch.cuda.device(qkv.device):
         err = lib.window_mhsa_long_forward(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, c3 // 3,
             num_heads, int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), float(scale),
+            int(bias.dtype == torch.bfloat16), float(scale), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "window_mhsa_long")
     window_mhsa_long_cuda.launches += 1
+    window_mhsa_long_cuda.last_plan = how
     return out
 
 
 window_mhsa_long_cuda.launches = 0
+window_mhsa_long_cuda.last_plan = None  # the LongPlan of the latest launch
 
 
 def backward_grid(batch: int, num_heads: int) -> Tuple[int, int]:
@@ -496,27 +555,32 @@ def online_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `chunks` chunks and a running (max, sum, context) rescaled once a chunk
     (P1). q, k, v: (B, H, S, hd) f32 or bf16 of one layout, hd <= 128;
     bias: (H, S, S) f32 or bf16; chunks divides S. Returns (B, H, S, hd) in
-    q's dtype and order of axes. Counts its launches in
-    `online_attention_cuda.launches`."""
+    q's dtype and order of axes. bf16 runs on the tensor cores, f32 on
+    scalar FMA (`long_plan`). Counts its launches in
+    `online_attention_cuda.launches` and keeps the latest launch's
+    LongPlan in `online_attention_cuda.last_plan`."""
     check_supported_probe(q.shape, k.shape, v.shape, bias.shape, chunks)
     out = _probe_output(q, k, v, bias)
     if out.numel() == 0:
         return out
     b, h, s, hd = q.shape
+    how = long_plan(hd, q.dtype, bias.dtype)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.attn_online_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, h, s, hd, chunks, *q.stride()[:3],
             *out.stride()[:3], int(q.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), float(scale),
+            int(bias.dtype == torch.bfloat16), float(scale), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "attn_online")
     online_attention_cuda.launches += 1
+    online_attention_cuda.last_plan = how
     return out
 
 
 online_attention_cuda.launches = 0
+online_attention_cuda.last_plan = None  # the LongPlan of the latest launch
 
 
 def nobias_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -524,23 +588,28 @@ def nobias_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ·scale) v on the card, with no bias operand (P2, K3's
     kernel without its bias). q, k, v: (B, H, S, hd) f32 or bf16 of one
     layout, hd <= 128: views of K3's packed qkv make it K3 less the bias
-    stream. Returns (B, H, S, hd) in q's dtype and order of axes. Counts
-    its launches in `nobias_attention_cuda.launches`."""
+    stream. Returns (B, H, S, hd) in q's dtype and order of axes. bf16
+    runs on the tensor cores, f32 on scalar FMA (`long_plan`). Counts its
+    launches in `nobias_attention_cuda.launches` and keeps the latest
+    launch's LongPlan in `nobias_attention_cuda.last_plan`."""
     check_supported_probe(q.shape, k.shape, v.shape)
     out = _probe_output(q, k, v)
     if out.numel() == 0:
         return out
     b, h, s, hd = q.shape
+    how = long_plan(hd, q.dtype)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.attn_nobias_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, s,
             hd, *q.stride()[:3], *out.stride()[:3],
-            int(q.dtype == torch.bfloat16), float(scale),
+            int(q.dtype == torch.bfloat16), float(scale), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "attn_nobias")
     nobias_attention_cuda.launches += 1
+    nobias_attention_cuda.last_plan = how
     return out
 
 
 nobias_attention_cuda.launches = 0
+nobias_attention_cuda.last_plan = None  # the LongPlan of the latest launch

@@ -28,6 +28,11 @@ CASES = [
     (1, 2305, 2, 128),
     (3, 1, 2, 49),
 ]
+# The tensor-core route's edges: S about one and two 64-key tiles and one
+# 128-row block, S = 1 and past the 21k-768 level-2 S; each hd of a path
+# (32 any-res, 49 the 21k family, 80 faster_vit_5, 128) and hd 64.
+EDGE_SEQS = [1, 63, 64, 65, 127, 128, 129, 2305]
+EDGE_HEAD_DIMS = [32, 49, 64, 80, 128]
 # the narrow 21k-768 geometry of tests/test_torch_family.py
 NARROW = dict(depths=[1, 1, 2, 1], num_heads=[1, 2, 4, 8], dim=49,
               in_dim=16, num_classes=100)
@@ -78,6 +83,52 @@ def test_kernel_bf16_matches_plain_f32(cuda, b, s, h, d, bias_dtype):
     # bf16 output and bf16 probabilities: ~3 significant digits on O(1)
     # values, the bound K1 is held to
     assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", EDGE_HEAD_DIMS)
+@pytest.mark.parametrize("s", EDGE_SEQS)
+def test_tensor_core_route_at_the_plans_edges(cuda, s, d):
+    """bf16 qkv runs on the tensor cores (last_plan names the wgmma route
+    and hd's padding) with an f32 and a bf16 bias, within K3's bf16 bound
+    of the plain version in f32, and two launches give the same bits."""
+    qkv, bias = _make(2, s, 2, d, cuda, seed=3)
+    qkv = qkv.bfloat16()
+    kernel = cuda_attention.window_mhsa_long_cuda
+    for bias_in in (bias, bias.bfloat16()):
+        got = kernel(qkv, bias_in, 2, d ** -0.5)
+        plan = kernel.last_plan
+        assert plan.route == "wgmma" and plan.rows_per_block == 128
+        assert plan == cuda_attention.long_plan(d, torch.bfloat16,
+                                                bias_in.dtype)
+        want = window_mhsa_long_reference(qkv.float(), bias_in.float(), 2,
+                                          d ** -0.5)
+        assert (got.float() - want).abs().max().item() <= 2e-2
+        assert torch.equal(got, kernel(qkv, bias_in, 2, d ** -0.5))
+
+
+@pytest.mark.cuda
+def test_f32_stays_on_scalar_fma(cuda):
+    qkv, bias = _make(2, 129, 2, 49, cuda)
+    kernel = cuda_attention.window_mhsa_long_cuda
+    kernel(qkv, bias, 2, 0.1)
+    assert kernel.last_plan.route == "scalar"
+    assert kernel.last_plan == cuda_attention.long_plan(49, torch.float32,
+                                                        torch.float32)
+
+
+@pytest.mark.cuda
+def test_plan_shared_memory_is_the_librarys(cuda):
+    """long_plan's shared memory is what the built library computes for
+    the same head dim, route and bias."""
+    lib = cuda_attention._library()
+    for d in range(1, 129):
+        for dtype in (torch.float32, torch.bfloat16):
+            for bias in (None, torch.float32, torch.bfloat16):
+                plan = cuda_attention.long_plan(d, dtype, bias)
+                assert plan.smem_bytes == lib.long_attention_smem_bytes(
+                    d, int(dtype == torch.bfloat16),
+                    0 if bias is None else bias.itemsize)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """The long-window attention probes' kernels against their plain PyTorch
 versions on the card: P1 (csrc/attn_online.cu, chunked online softmax) and
 P2 (K3's kernel without its bias, csrc/window_mhsa_long.cu), on separate
-(B, H, S, hd) q, k, v and on views of K3's packed qkv, their launch
-counters and the probe modules' timed runs. Every test here needs a CUDA device and skips without
-one. On a machine with an H100 (which need not have jax, so
-tests/conftest.py is not loaded):
+(B, H, S, hd) q, k, v and on views of K3's packed qkv, their routes (bf16
+on the tensor cores, f32 on scalar FMA) at the tile plan's edges, their
+launch counters and the probe modules' timed runs. Every test here needs
+a CUDA device and skips without one. On a machine with an H100 (which
+need not have jax, so tests/conftest.py is not loaded):
 
     python -m pytest --noconftest -q tests/test_torch_cuda_probes.py
 """
@@ -29,6 +30,11 @@ P1_CASES = [(2, 2304, 4, 49), (4, 576, 8, 49), (2, 132, 2, 49),
 P2_CASES = [(2, 2304, 4, 49), (4, 576, 8, 49), (2, 129, 2, 49),
             (2, 2305, 2, 49), (2, 2304, 2, 128), (3, 197, 2, 32),
             (2, 263, 2, 80), (3, 1, 2, 49)]
+# The tensor-core route's edges: S about one and two 64-key tiles and one
+# 128-row block, S = 1 and past the probe's S; each hd of a path (32, 49,
+# 80, 128) and hd 64. P1 runs there at every chunk count that divides S.
+EDGE_SEQS = [1, 63, 64, 65, 127, 128, 129, 2305]
+EDGE_HEAD_DIMS = [32, 49, 64, 80, 128]
 TOL_FP32 = 2e-5   # f32 throughout, TF32 off: only the order of sums differs
 # bf16 outputs from the same roundings; the f32 sums' order can move p's or
 # the output's rounding by one bf16 step, at most 2^-7 of the output: a call
@@ -98,6 +104,49 @@ def test_nobias_kernel_matches_plain(cuda, b, s, h, d):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert _err(got, want) <= _bf16_limit(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", EDGE_HEAD_DIMS)
+@pytest.mark.parametrize("s", EDGE_SEQS)
+def test_tensor_core_route_at_the_plans_edges(cuda, s, d):
+    """bf16 runs on the tensor cores (last_plan names the wgmma route and
+    hd's padding): P2, and P1 at every C that divides S with an f32 and a
+    bf16 bias, each within its bf16 bound of the plain version and the
+    same bits over two launches."""
+    q, k, v, bias = _make(1, s, 2, d, cuda, seed=4)
+    q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    scale = d ** -0.5
+    p1, p2 = (cuda_attention.online_attention_cuda,
+              cuda_attention.nobias_attention_cuda)
+    got = p2(q16, k16, v16, scale)
+    assert p2.last_plan == cuda_attention.long_plan(d, torch.bfloat16)
+    assert p2.last_plan.route == "wgmma"
+    want = nobias_attention_reference(q16, k16, v16, scale)
+    assert _err(got, want) <= _bf16_limit(want)
+    assert torch.equal(got, p2(q16, k16, v16, scale))
+    for chunks in [c for c in range(1, s + 1) if s % c == 0]:
+        for bias_in in (bias, bias.bfloat16()):
+            got = p1(q16, k16, v16, bias_in, scale, chunks)
+            assert p1.last_plan == cuda_attention.long_plan(
+                d, torch.bfloat16, bias_in.dtype)
+            want = online_attention_reference(q16, k16, v16, bias_in, scale,
+                                              chunks)
+            assert _err(got, want) <= _bf16_limit(want), (chunks,
+                                                          bias_in.dtype)
+            assert torch.equal(got, p1(q16, k16, v16, bias_in, scale,
+                                       chunks))
+
+
+@pytest.mark.cuda
+def test_f32_stays_on_scalar_fma(cuda):
+    q, k, v, bias = _make(2, 132, 2, 49, cuda)
+    cuda_attention.online_attention_cuda(q, k, v, bias, 0.1, 2)
+    cuda_attention.nobias_attention_cuda(q, k, v, 0.1)
+    for kernel in (cuda_attention.online_attention_cuda,
+                   cuda_attention.nobias_attention_cuda):
+        assert kernel.last_plan.route == "scalar"
+        assert kernel.last_plan.rows_per_block == 64
 
 
 @pytest.mark.cuda
