@@ -41,22 +41,28 @@ Phases, each of which raises on failure:
  12. faster_vit_0_any_res (576x960) and faster_vit_5_224 in bf16: their
      K1 and K3 launches, logits against fp32;
  13. K4, the long-window attention backward, against its plain version in
-     fp32 and bf16 (bias f32 and bf16) at the 21k-384 and 21k-768 shapes,
-     21k-224's, fv5's (hd 80), the any-res carriers', a K1-forward window
-     past K2, ragged S and B = 0, dbias bit-identical over two launches;
-     kernel, plain version and SDPA's backward timed at the 21k shapes;
+     fp32 (scalar FMA) and bf16 (the tensor cores, wgmma; bias f32 and
+     bf16) at the 21k-384 and 21k-768 shapes, 21k-224's, fv5's (hd 80),
+     the any-res carriers', a K1-forward window past K2, ragged S and B =
+     0, then bf16 at every padded head dim (32, 49, 64, 80, 128) and S 1,
+     63, 64, 65, 127, 129, 2305; dqkv and dbias bit-identical over two
+     launches; every call's route and shared memory held to long_bwd_plan
+     and the library; ptxas' registers and spills of each tensor-core
+     instance; kernel, plain version and SDPA's backward timed at the 21k
+     shapes, with TFLOP/s;
  14. one faster_vit_4_21k_384 fp32 train step, card against CPU, batch 2:
-     loss and every gradient, 17 K3 and 17 K4 launches;
+     loss and every gradient, 17 K3 and 17 K4 launches, K4 on scalar FMA;
  15. the fine-tuning CLI: a 21841-class faster_vit_4_21k_224 state_dict
      saved as a reference .pth.tar warm-starts faster_vit_4_21k_384 in
      bf16 at batch 32 (3 steps and eval), which writes a checkpoint; the
      same command again auto-resumes from it;
  16. the large-window training path: faster_vit_4_21k_384 with the fine-tune
-     recipe in bf16 at batch 32, 12 steps timed, launches counted, peak
-     memory, one step profiled; then peak memory and step time with
-     gradient checkpointing;
+     recipe in bf16 at batch 32, 12 steps timed, launches counted, K4 on
+     the tensor cores, peak memory, one step profiled; then peak memory
+     and step time with gradient checkpointing;
  17. one bf16 train step of faster_vit_5_224 and of faster_vit_0_any_res
-     (576x960) at batch 8: their K1, K2, K3 and K4 launches;
+     (576x960) at batch 8: their K1, K2, K3 and K4 launches, K4 on the
+     tensor cores;
  18. K5, the multi-scale deformable attention kernel, against its plain
      version in fp32 and bf16 at DINO-4scale's encoder and decoder shapes
      (batch 2, 800x1333) and at odd ones (D 4, 8 and 64, a 1x1 level,
@@ -199,6 +205,11 @@ K4_CHECK_SHAPES = [(32, 576, 16, 49), (32, 144, 32, 49), (2, 2304, 16, 49),
                    (64, 216, 8, 32), (8, 100, 4, 32), (2, 129, 2, 49),
                    (2, 197, 2, 49), (2, 2305, 2, 49), (2, 129, 2, 128),
                    (2, 197, 2, 128), (2, 2305, 2, 128), (0, 576, 4, 49)]
+# ... then bf16 only, on the tensor cores: each padded head dim (49 pads to
+# 64) at S of one key, a key tile less one, one, one more, a block of 128
+# q rows less one, one more, and the 21k-768 level-2 window plus one
+K4_BF16_SHAPES = [(2, s, 2, d) for d in (32, 49, 64, 80, 128)
+                  for s in (1, 63, 64, 65, 127, 129, 2305)]
 # ... and timed, bf16, (B, S, heads, head_dim, calls per 21k-384 b32 train
 # step, timing iterations): 21k-384 at batch 32, then 21k-768 at batch 16
 K4_TIME_SHAPES = [(32, 576, 16, 49, 12, 20), (32, 144, 32, 49, 5, 20),
@@ -368,32 +379,17 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def ptxas_instances(log: str, kernel: str, cuda_attention) -> list:
-    """[{instance, registers, spill_stores, static_smem, plan_smem}] for
-    each instantiation of the kernel template `kernel` (a tensor-core
-    route one: window_mhsa_long_tc_kernel or attn_online_tc_kernel) that
-    nvcc's -Xptxas -v log reports; the instance names its bias type,
-    whether the bias is read, the padded head dim D and the load width.
-    Its dynamic shared memory, which ptxas does not see, is its plan's
-    (long_plan)."""
+def ptxas_entries(log: str, describe) -> list:
+    """[{..., registers, spill_stores, static_smem}] for each entry function
+    of nvcc's -Xptxas -v log that describe(mangled name) returns a dict of
+    its own keys for (and None for the rest)."""
     out, cur = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            cur = None
-            name = entry.group(1)
-            if kernel + "I" in name:
-                args = name.split(kernel + "I", 1)[1]
-                tb = "bf16" if args.startswith("13__nv_bfloat16") else "f32"
-                ints = re.findall(r"Li(\d+)E", args)
-                read = "Lb0" not in args
-                bias = (torch.bfloat16 if tb == "bf16" else torch.float32
-                        ) if read else None
-                cur = {"instance": (f"bias {tb}" if read else "no bias")
-                       + f", D {ints[0]}, {2 * int(ints[1])}-byte loads",
-                       "registers": 0, "spill_stores": 0, "static_smem": 0,
-                       "plan_smem": cuda_attention.long_plan(
-                           int(ints[0]), torch.bfloat16, bias).smem_bytes}
+            cur = describe(entry.group(1))
+            if cur is not None:
+                cur.update(registers=0, spill_stores=0, static_smem=0)
                 out.append(cur)
             continue
         if cur is None:
@@ -408,6 +404,31 @@ def ptxas_instances(log: str, kernel: str, cuda_attention) -> list:
         if smem:
             cur["static_smem"] = int(smem.group(1))
     return out
+
+
+def ptxas_instances(log: str, kernel: str, cuda_attention) -> list:
+    """[{instance, registers, spill_stores, static_smem, plan_smem}] for
+    each instantiation of the kernel template `kernel` (a tensor-core
+    route one: window_mhsa_long_tc_kernel or attn_online_tc_kernel) that
+    nvcc's -Xptxas -v log reports; the instance names its bias type,
+    whether the bias is read, the padded head dim D and the load width.
+    Its dynamic shared memory, which ptxas does not see, is its plan's
+    (long_plan)."""
+    def describe(name):
+        if kernel + "I" not in name:
+            return None
+        args = name.split(kernel + "I", 1)[1]
+        tb = "bf16" if args.startswith("13__nv_bfloat16") else "f32"
+        ints = re.findall(r"Li(\d+)E", args)
+        read = "Lb0" not in args
+        bias = (torch.bfloat16 if tb == "bf16" else torch.float32
+                ) if read else None
+        return {"instance": (f"bias {tb}" if read else "no bias")
+                + f", D {ints[0]}, {2 * int(ints[1])}-byte loads",
+                "plan_smem": cuda_attention.long_plan(
+                    int(ints[0]), torch.bfloat16, bias).smem_bytes}
+
+    return ptxas_entries(log, describe)
 
 
 def print_instances(what: str, instances: list) -> None:
@@ -433,6 +454,56 @@ def check_plan(kernel, cuda_attention, bf16: bool, head_dim: int,
     check(plan.smem_bytes == lib, f"{what}: the plan's {plan.smem_bytes} "
                                   f"bytes of shared memory, the library's "
                                   f"{lib}")
+
+
+def check_bwd_plan(cuda_attention, bf16: bool, head_dim: int,
+                   bias_dtype=None, what: str = "") -> None:
+    """K4's latest launch took the route its dtype names (bf16: the tensor
+    cores, f32: scalar FMA), by long_bwd_plan for its bias dtype (either,
+    where the caller does not know it), each pass's shared memory the
+    library's own figure."""
+    plan = cuda_attention.window_mhsa_long_backward_cuda.last_plan
+    want = "wgmma" if bf16 else "scalar"
+    check(plan is not None and plan.route == want,
+          f"{what}: K4 ran route {plan and plan.route}, expected {want}")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    biases = ([bias_dtype] if bias_dtype is not None
+              else [torch.float32, torch.bfloat16])
+    lib = cuda_attention._library().long_attention_bwd_smem_bytes
+    check(any(plan == cuda_attention.long_bwd_plan(head_dim, dtype, b)
+              and plan.smem_bytes == tuple(
+                  lib(head_dim, int(bf16), b.itemsize, p) for p in range(3))
+              for b in biases),
+          f"{what}: K4's plan {plan} is not long_bwd_plan's for hd "
+          f"{head_dim} with the library's shared memory")
+
+
+def ptxas_k4_instances(log: str, cuda_attention) -> list:
+    """[{instance, registers, spill_stores, static_smem, plan_smem}] for
+    each tensor-core instantiation of K4's three passes
+    (long_bwd_{stats,dq,dkv}_tc_kernel<TB, D, kVec>) that nvcc's -Xptxas
+    -v log reports; plan_smem is the dynamic shared memory long_bwd_plan
+    names for the pass, which ptxas does not see."""
+    passes = ("stats", "dq", "dkv")
+
+    def describe(name):
+        kind = re.search(r"long_bwd_(stats|dq|dkv)_tc_kernelI(.*)", name)
+        if not kind:
+            return None
+        args = kind.group(2)
+        bias = (torch.bfloat16 if args.startswith("13__nv_bfloat16")
+                else torch.float32)
+        d, vec = (int(x) for x in re.findall(r"Li(\d+)E", args)[:2])
+        plan = cuda_attention.long_bwd_plan(d, torch.bfloat16, bias)
+        p = passes.index(kind.group(1))
+        return {"instance": f"{kind.group(1)}, bias "
+                            f"{'bf16' if bias.itemsize == 2 else 'f32'}, "
+                            f"D {d}, {2 * vec}-byte loads, "
+                            f"{plan.stages[p]} stage"
+                            + "s" * (plan.stages[p] > 1),
+                "plan_smem": plan.smem_bytes[p]}
+
+    return ptxas_entries(log, describe)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1104,36 +1175,53 @@ def sdpa_backward(q, k, v, mask, g4, scale):
                                        retain_graph=True)
 
 
-def k4_phase(cuda_attention, attention) -> dict:
+def k4_phase(cuda_attention, attention, ptx_log: str) -> dict:
     kernel = cuda_attention.window_mhsa_long_backward_cuda
     plain = attention.window_mhsa_backward_reference
+    instances = ptxas_k4_instances(ptx_log, cuda_attention)
+    print_instances("K4 long_bwd_*_tc_kernel", instances)
+    check(len(instances) == 3 * 2 * 4 * 2,
+          f"{len(instances)} tensor-core instances of K4 in the build log, "
+          "expected 48 (3 passes, 2 bias types, 4 depths, 2 load widths)")
     gen = torch.Generator(device="cuda").manual_seed(20)
     err32_all = err16_all = 0.0
-    for b, s, h, d in K4_CHECK_SHAPES:
+
+    def same_twice(first, *args):
+        again = kernel(*args)
+        return torch.equal(again[0], first[0]) and torch.equal(again[1],
+                                                                first[1])
+
+    for b, s, h, d, fp32 in ([t + (True,) for t in K4_CHECK_SHAPES]
+                             + [t + (False,) for t in K4_BF16_SHAPES]):
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen)
         bias = torch.randn(h, s, s, device="cuda", generator=gen)
         g = torch.randn(b, s, h * d, device="cuda", generator=gen)
         scale = d ** -0.5
         before = kernel.launches
         err32 = err16 = 0.0
-        if b:
+        if b and fp32:
             got = kernel(qkv, bias, g, h, scale)
+            check_bwd_plan(cuda_attention, False, d, bias.dtype,
+                           f"K4 fp32 at {(b, s, h, d)}")
             want = plain(qkv, bias, g, h, scale)
             err32 = max(rel_to_largest(got[0], want[0]),
                         rel_to_largest(got[1], want[1]))
-            again = kernel(qkv, bias, g, h, scale)
-            check(torch.equal(again[0], got[0])
-                  and torch.equal(again[1], got[1]),
-                  f"K4 differs between two launches at {(b, s, h, d)}")
-            del got, want, again
+            check(same_twice(got, qkv, bias, g, h, scale),
+                  f"K4 fp32 differs between two launches at {(b, s, h, d)}")
+            del got, want
         q16, g16 = qkv.bfloat16(), g.bfloat16()
         for bias_in in (bias, bias.bfloat16()):
             got = kernel(q16, bias_in, g16, h, scale)
             if b:
+                check_bwd_plan(cuda_attention, True, d, bias_in.dtype,
+                               f"K4 bf16 at {(b, s, h, d)}")
                 want = plain(q16.float(), bias_in.float(), g16.float(), h,
                              scale)
                 err16 = max(err16, rel_to_largest(got[0], want[0]),
                             rel_to_largest(got[1], want[1]))
+                check(same_twice(got, q16, bias_in, g16, h, scale),
+                      f"K4 bf16 differs between two launches at "
+                      f"{(b, s, h, d)}, bias {bias_in.dtype}")
                 del want
             else:
                 check(got[0].shape == qkv.shape and not got[1].any(),
@@ -1142,10 +1230,13 @@ def k4_phase(cuda_attention, attention) -> dict:
         torch.cuda.synchronize()
         if not b:
             check(kernel.launches == before, "K4 launched on an empty batch")
+        plan = cuda_attention.long_bwd_plan(d, torch.bfloat16, torch.bfloat16)
         print(f"K4 window_mhsa_long_backward B={b} S={s} H={h} hd={d}: "
-              f"max|err| / max|plain| of dqkv and dbias: fp32 {err32:.3e} "
-              f"(tol {TOL_K4_FP32}), bf16 with f32 and bf16 bias "
-              f"{err16:.3e} (tol {TOL_K4_BF16}); dqkv and dbias "
+              f"max|err| / max|plain| of dqkv and dbias: fp32 "
+              + (f"{err32:.3e} (tol {TOL_K4_FP32}, scalar FMA)" if fp32
+                 else "not checked here")
+              + f", bf16 with f32 and bf16 bias {err16:.3e} (tol "
+              f"{TOL_K4_BF16}, wgmma, D {plan.depth}); dqkv and dbias "
               "bit-identical over two launches")
         check(err32 <= TOL_K4_FP32, f"K4 fp32 error {err32} at "
                                     f"{(b, s, h, d)}")
@@ -1193,6 +1284,8 @@ def k4_phase(cuda_attention, attention) -> dict:
         plain_ms, ms, lib_ms = in_turns(
             (lambda: plain(q16, b16, g16, h, scale)) if fits else None,
             lambda: kernel(q16, b16, g16, h, scale), run_l, iters)
+        check_bwd_plan(cuda_attention, True, d, b16.dtype,
+                       f"K4 timed at {(b, s, h, d)}")
         del q, k, v, g4, run_l
         # qkv and g read, dqkv written, bias read, dbias written (bf16)
         nbytes = 2 * (2 * q16.numel() + g16.numel() + 2 * b16.numel())
@@ -1202,7 +1295,10 @@ def k4_phase(cuda_attention, attention) -> dict:
               > nbytes / HBM_BYTES_PER_S else "bytes")
         per_call[f"({b},{s},{h},{d})"] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by,
+            "tflop_s": flops / ms / 1e9,
+            "library_tflop_s": flops / lib_ms / 1e9,
+            "route": kernel.last_plan.route}
         if calls:
             for key, t in (("ms", ms), ("plain_ms", plain_ms),
                            ("library_ms", lib_ms), ("bound_ms", bound)):
@@ -1211,11 +1307,12 @@ def k4_phase(cuda_attention, attention) -> dict:
             bytes_ms += calls * 1e3 * nbytes / HBM_BYTES_PER_S
         plain_text = (f"{plain_ms:.4f} ms" if plain_ms is not None else
                       "not measured (its f32 tensors do not fit)")
-        print(f"K4 window_mhsa_long_backward B={b} S={s} H={h} hd={d} bf16: "
-              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_text}, SDPA backward {lib_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} "
-              f"GFLOP, {by}) per call; SDPA ran {backend}")
+        print(f"K4 window_mhsa_long_backward B={b} S={s} H={h} hd={d} bf16 "
+              f"(wgmma): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_text}, SDPA backward {lib_ms:.4f} ms "
+              f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP, {by}) per "
+              f"call; SDPA ran {backend}")
         del q16, b16, g16
     print(f"K4 window_mhsa_long_backward over one faster_vit_4_21k_384 bf16 "
           f"b{FINETUNE_BATCH} train step's 17 calls: kernel {step['ms']:.4f} "
@@ -1232,6 +1329,8 @@ def k4_phase(cuda_attention, attention) -> dict:
             "launches": None, "max_abs_err": err16_all,
             "max_abs_err_fp32": err32_all,
             "err_is": "max |err| / max |plain| of dqkv and dbias",
+            "kernel_route": {"bf16": "wgmma", "f32": "scalar"},
+            "ptxas": instances,
             **step,
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
             "library": f"scaled_dot_product_attention backward ({backend})",
@@ -1403,9 +1502,10 @@ def family_train_phase(fvt, cuda_attention, steps, mixup) -> None:
     faster_vit_0_any_res at 576x960, batch 8: their K1, K2, K3 and K4
     launches. fv5's head dim of 80 sends all 29 attention sites to K3 and
     K4; fv0_any_res has 11 sites with S <= 64 (K1 and K2) and 6 carrier
-    sites with S = 216 (K3 and K4)."""
-    for name, want in (("faster_vit_5_224", (0, 0, 29, 29)),
-                       ("faster_vit_0_any_res", (11, 11, 6, 6))):
+    sites with S = 216 (K3 and K4). K4 must have run on the tensor cores.
+    """
+    for name, want, k4_hd in (("faster_vit_5_224", (0, 0, 29, 29), 80),
+                              ("faster_vit_0_any_res", (11, 11, 6, 6), 32)):
         model = fvt.create_model(name,
                                  generator=torch.Generator().manual_seed(21))
         cfg = steps.TrainConfig(mixup=mixup.MixupConfig())
@@ -1423,6 +1523,8 @@ def family_train_phase(fvt, cuda_attention, steps, mixup) -> None:
         check(calls == want, f"{name} train-step launches {calls}, expected "
                              f"{want}")
         check(math.isfinite(loss), f"{name} loss {loss}")
+        check_bwd_plan(cuda_attention, True, k4_hd,
+                       what=f"{name}'s bf16 step")
         del model, state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -2950,17 +3052,19 @@ def main() -> None:
     family_phase(fvt, cuda_attention)
 
     # 13. K4 against its plain version
-    k4 = k4_phase(cuda_attention, attention)
+    k4 = k4_phase(cuda_attention, attention, ptx_log)
 
     # 14. 21k-384 fp32 train step: K3 and K4 on the card against the CPU
     train_parity_phase(fvt, cuda_attention, steps, "faster_vit_4_21k_384",
                        2, (0, 0, 17, 17), stem_tol=TOL_STEM_GRAD)
+    check_bwd_plan(cuda_attention, False, 49, what="phase 14's fp32 step")
 
     # 15. the fine-tuning CLI: warm start, checkpoint, auto-resume
     finetune_cli_phase(fvt, cuda_attention, train_cli)
 
     # 16. the large-window training path: 21k-384, bf16, batch 32
     tuned = long_train_phase(fvt, cuda_attention, steps, schedule, mixup)
+    check_bwd_plan(cuda_attention, True, 49, what="phase 16's bf16 step")
     k3["launches_training"] = tuned["launches"][2]
     k4["launches"] = tuned["launches"][3]
     k4["launches_in"] = k3["launches_training_in"] = (

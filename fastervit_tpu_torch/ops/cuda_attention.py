@@ -13,7 +13,8 @@ attention of scripts/attn_online_probe.py (csrc/attn_online.cu), and P2,
 the bias-free attention of scripts/attn_vpu_probe.py (K3's kernel without
 its bias, csrc/window_mhsa_long.cu), both behind `ops/attention_probes.py`.
 K3, P1 and P2 take bf16 on Hopper's tensor cores (wgmma) and f32 on scalar
-FMA, by the plan `long_plan` makes here and the kernels check.
+FMA, by the plan `long_plan` makes here and the kernels check; K4 the same
+way, by `long_bwd_plan`.
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -45,11 +46,14 @@ SMEM_LIMIT = 232448  # the most shared memory an H100 block may use
 _MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
 # K2 gives each block one head and a run of windows; this many blocks fill
 # an H100's 132 SMs four times over.
-_BWD_TARGET_BLOCKS = 4 * 132
+_SMS = 132
+_BWD_TARGET_BLOCKS = 4 * _SMS
 # K4's dbias pass gives each block a run of windows for one (q-tile, head)
 # and an f32 (H, S, S) slab of partial sums per run: at most this many bytes
-# of slabs (one slab is 340 MB at S = 2304, H = 16)
+# of slabs (one slab is 340 MB at S = 2304, H = 16), and where it can, at
+# least three waves of blocks (one an SM)
 _LONG_BWD_PARTIAL_BYTES = 2 ** 30
+_LONG_BWD_TARGET_BLOCKS = 3 * _SMS
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG_DIR / "csrc"
@@ -108,6 +112,75 @@ def long_plan(head_dim: int, dtype: torch.dtype,
     smem = 4 * ((2 * head_dim + _LONG_TILE) * (_LONG_TILE + 1)
                 + _LONG_TILE * width)
     return LongPlan("scalar", _LONG_TILE, head_dim, width, 1, smem)
+
+
+class LongBwdPlan(NamedTuple):
+    """How K4 runs one head dim, operand dtype and bias dtype
+    (csrc/window_mhsa_long_bwd.cu): the route ("wgmma": bf16 on the tensor
+    cores; "scalar": f32 on scalar FMA), the head dim padded with zeros
+    (the products' depth and width), q rows a block of the statistics and
+    dq passes, keys a block of the dk+dv pass (each streams 64-token tiles
+    of the other side), and for each of the three passes (statistics, dq
+    and dbias, dk and dv) the tile stages in shared memory and a block's
+    dynamic shared memory in bytes. The C entry point checks it against
+    its own (`long_attention_bwd_smem_bytes` gives its shared memory)."""
+    route: str
+    depth: int
+    rows_per_block: int
+    keys_per_block: int
+    stages: Tuple[int, int, int]
+    smem_bytes: Tuple[int, int, int]
+
+    def as_c(self):
+        """The ten ints the C entry point takes (window_mhsa_long_bwd.cu::
+        BwdPlan)."""
+        return (ctypes.c_int * 10)(int(self.route == "wgmma"), self.depth,
+                                   self.rows_per_block, self.keys_per_block,
+                                   *self.stages, *self.smem_bytes)
+
+
+def long_bwd_plan(head_dim: int, dtype: torch.dtype,
+                  bias_dtype: torch.dtype) -> LongBwdPlan:
+    """The plan of K4 for this hd, operand dtype and bias dtype.
+
+    bf16 takes the tensor cores: 128 q rows (statistics, dq) or 128 keys
+    (dk+dv) a block, hd padded to 32, 64, 80 or 128. Each pass keeps two
+    128-row operands and stages 2 (statistics: k, v), 3 (dq: k, v, kᵀ) or
+    4 (dk+dv: q, g, qᵀ, gᵀ) 64-row tiles and a bias tile ((128 rows,
+    64 + 8 keys), or (64 rows, 128 keys + 16 bytes) with the tile's f32 L
+    and D for dk+dv); dq also one f32 (128, 64) buffer of dbias partial
+    sums. Two stages where they fit a block's SMEM_LIMIT, else one (dq at
+    D 128, dk+dv at D 128 with an f32 bias).
+
+    f32 keeps scalar FMA (TF32 would move the logits by ~1e-3): 64 rows or
+    keys a block, hd padded to 32, 64, 96 or 128 for the accumulators, f32
+    tiles with rows of hd_pad + 1."""
+    if not 1 <= head_dim <= LONG_MAX_HEAD_DIM:
+        raise NotImplementedError(f"K4 (window_mhsa_long_backward_cuda) "
+                                  f"takes head_dim <= {LONG_MAX_HEAD_DIM}, "
+                                  f"got {head_dim}")
+    if dtype not in _DTYPES or bias_dtype not in _DTYPES:
+        raise TypeError(f"float32 or bfloat16 operands, got {dtype} and "
+                        f"bias {bias_dtype}")
+    bias = bias_dtype.itemsize
+    if dtype == torch.bfloat16:
+        d = next(w for w in (32, 64, 80, 128) if head_dim <= w)
+        stages, smem = [], []
+        for tiles, bias_stage, slab in (
+                (2, 128 * 72 * bias, 0), (3, 128 * 72 * bias, 128 * 64 * 4),
+                (4, 64 * (128 + 16 // bias) * bias + 2 * 64 * 4, 0)):
+            def size(n):
+                return (2 * d * (2 * 128 + n * tiles * 64) + n * bias_stage
+                        + slab)
+            n = 2 if size(2) <= SMEM_LIMIT else 1
+            stages.append(n)
+            smem.append(size(n))
+        return LongBwdPlan("wgmma", d, 128, 128, tuple(stages), tuple(smem))
+    width = 32 * -(-head_dim // 32)
+    tile = 4 * _LONG_TILE * (width + 1)
+    pl = 4 * _LONG_TILE * (_LONG_TILE + 1)
+    return LongBwdPlan("scalar", width, _LONG_TILE, _LONG_TILE, (1, 1, 1),
+                       (4 * tile, 4 * tile + pl, 4 * tile + 2 * pl))
 
 
 def _nvcc() -> str:
@@ -178,7 +251,7 @@ def _library() -> ctypes.CDLL:
         lib.window_mhsa_long_forward.restype = ctypes.c_int
         lib.window_mhsa_long_backward.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.window_mhsa_long_backward.restype = ctypes.c_int
         lib.msda_forward.argtypes = (  # K5, bound in ops/cuda_msda.py
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -211,6 +284,8 @@ def _library() -> ctypes.CDLL:
         lib.attn_nobias_forward.restype = ctypes.c_int
         lib.long_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.long_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.long_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.long_attention_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.hat_block_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.hat_block_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -432,18 +507,30 @@ def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
 window_mhsa_backward_cuda.launches = 0
 
 
-def long_backward_grid(batch: int, seq: int, num_heads: int
-                       ) -> Tuple[int, int]:
+def long_backward_grid(batch: int, seq: int, num_heads: int,
+                       rows: int) -> Tuple[int, int]:
     """(windows per block, groups) of K4's dq and dbias pass, a grid of
-    (groups, S/64, H) blocks: about _BWD_TARGET_BLOCKS blocks, at most
-    _LONG_BWD_PARTIAL_BYTES of f32 (H, S, S) partial sums, every group
-    non-empty."""
-    tiles = -(-seq // _LONG_TILE) * num_heads
-    slab = 4 * num_heads * seq * seq
-    groups = min(batch, max(1, -(-_BWD_TARGET_BLOCKS // tiles)),
-                 max(1, _LONG_BWD_PARTIAL_BYTES // slab))
-    per_block = -(-batch // groups)
-    return per_block, -(-batch // per_block)
+    (groups, S/rows, H) blocks (`rows`: the plan's q rows a block), every
+    group non-empty, with at most _LONG_BWD_PARTIAL_BYTES of f32 (H, S, S)
+    partial sums. Of those grids it takes one of at least
+    _LONG_BWD_TARGET_BLOCKS blocks where there is one, then the one whose
+    waves of blocks (one an SM) are fullest, to a hundredth, then the one
+    with the most windows a block (the fewest slabs to sum): 4 windows a
+    block at the 21k-384 step's level-2 and level-3 calls, which measured
+    2-3% faster there than 2 or 5 on an H100 (PERF.md)."""
+    tiles = -(-seq // rows) * num_heads
+    most = max(1, _LONG_BWD_PARTIAL_BYTES // (4 * num_heads * seq * seq))
+    best = None
+    for per_block in range(1, batch + 1):
+        groups = -(-batch // per_block)
+        if groups > most or (best and groups == best[2]):
+            continue
+        blocks = groups * tiles
+        fill = blocks / (_SMS * -(-blocks // _SMS))
+        key = (blocks >= _LONG_BWD_TARGET_BLOCKS, round(fill, 2), per_block)
+        if best is None or key > best[0]:
+            best = (key, per_block, groups)
+    return best[1], best[2]
 
 
 def window_mhsa_long_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
@@ -454,9 +541,12 @@ def window_mhsa_long_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     dbias) for the output gradient g (B, S, C), with qkv (B, S, 3C) and bias
     (H, S, S) as the forward took them, hd <= 128. dqkv is in qkv's dtype,
     dbias in bias's; dbias is summed over the windows in f32, in a fixed
-    order. The scratch (row statistics (2, B, H, S) and dbias partial sums
-    (groups, H, S, S), f32) is allocated here. Counts its launches in
-    `window_mhsa_long_backward_cuda.launches`."""
+    order. bf16 runs on the tensor cores, f32 on scalar FMA
+    (`long_bwd_plan`). The scratch (row statistics (2, B, H, S) and dbias
+    partial sums (groups, H, S, S), f32) is allocated here. Counts its
+    launches in `window_mhsa_long_backward_cuda.launches` and keeps the
+    latest launch's LongBwdPlan in
+    `window_mhsa_long_backward_cuda.last_plan`."""
     check_supported_long_backward(qkv.shape, bias.shape, num_heads)
     _check_inputs(qkv, bias, g)
     b, s, c3 = qkv.shape
@@ -465,8 +555,10 @@ def window_mhsa_long_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if b == 0:
         return dqkv, torch.zeros_like(bias)
+    how = long_bwd_plan(c3 // 3 // num_heads, qkv.dtype, bias.dtype)
     dbias = torch.empty_like(bias)
-    per_block, groups = long_backward_grid(b, s, num_heads)
+    per_block, groups = long_backward_grid(b, s, num_heads,
+                                           how.rows_per_block)
     stats = torch.empty((2, b, num_heads, s), dtype=torch.float32,
                         device=qkv.device)
     partial = torch.empty((groups,) + tuple(bias.shape), dtype=torch.float32,
@@ -478,14 +570,17 @@ def window_mhsa_long_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
             dbias.data_ptr(), stats.data_ptr(), partial.data_ptr(), b, s,
             c3 // 3, num_heads, per_block, groups,
             int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), float(scale),
+            int(bias.dtype == torch.bfloat16), float(scale), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "window_mhsa_long_backward")
     window_mhsa_long_backward_cuda.launches += 1
+    window_mhsa_long_backward_cuda.last_plan = how
     return dqkv, dbias
 
 
 window_mhsa_long_backward_cuda.launches = 0
+# the LongBwdPlan of the latest launch
+window_mhsa_long_backward_cuda.last_plan = None
 
 
 def check_chunks(seq: int, chunks: int) -> None:

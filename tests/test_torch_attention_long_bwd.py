@@ -103,11 +103,12 @@ def test_check_supported_long_backward(qkv_shape, bias_shape, heads, exc):
                                                          bias_shape, heads)
 
 
+@pytest.mark.parametrize("rows", [64, 128])  # the scalar and wgmma plans
 @pytest.mark.parametrize("b,s,h", [(32, 576, 16), (32, 144, 32),
                                    (16, 2304, 16), (64, 216, 8), (3, 100, 2),
                                    (1, 1, 1), (1000, 53, 16), (64, 4096, 32)])
-def test_long_backward_grid_covers_every_window_once(b, s, h):
-    per_block, groups = cuda_attention.long_backward_grid(b, s, h)
+def test_long_backward_grid_covers_every_window_once(b, s, h, rows):
+    per_block, groups = cuda_attention.long_backward_grid(b, s, h, rows)
     assert per_block * groups >= b > per_block * (groups - 1)
     # the f32 (groups, H, S, S) partial sums stay within their budget
     # unless one slab alone exceeds it

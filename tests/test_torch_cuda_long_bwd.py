@@ -17,6 +17,11 @@ from fastervit_tpu_torch.ops.attention import (window_mhsa,
 from fastervit_tpu_torch.train.steps import (TrainConfig, create_train_state,
                                              make_train_step)
 
+# bf16 on the tensor cores: every padded head dim (32, 49 -> 64, 64, 80,
+# 128) at S of one key, a tile less one, one, one more, a block of 128 q
+# rows less one, one, one more, and the 21k-768 level-2 window plus one
+BF16_SEQS = [1, 63, 64, 65, 127, 128, 129, 2305]
+BF16_HEAD_DIMS = [32, 49, 64, 80, 128]
 # (B, S, heads, head_dim): faster_vit_4_21k_384 at batch 32 (level 2, level
 # 3), faster_vit_4_21k_768 (level 2 at batch 2, where the plain version's
 # four (B, H, S, S) f32 tensors fit; level 3 at batch 16), 21k-224's level
@@ -36,7 +41,8 @@ CASES = [
 # Relative to the tensor's largest entry.
 TOL_FP32 = 1e-5
 # bf16 inputs on both sides; the kernel rounds dqkv and dbias to bf16 once
-# (2^-8 relative), the plain version here stays f32
+# (2^-8 relative), the plain version here stays f32; on the tensor cores
+# it also rounds P and dl to bf16 before the second products (2^-9)
 TOL_BF16 = 1e-2
 NARROW = dict(depths=[1, 1, 2, 1], num_heads=[1, 2, 4, 8], dim=32,
               in_dim=16, num_classes=10, drop_path_rate=0.0)
@@ -78,6 +84,8 @@ def test_long_backward_fp32_matches_plain(cuda, b, s, h, d):
                                                         d ** -0.5)
     want = window_mhsa_backward_reference(qkv, bias, g, h, d ** -0.5)
     torch.cuda.synchronize()
+    assert cuda_attention.window_mhsa_long_backward_cuda.last_plan.route == \
+        "scalar"
     assert _rel_err(got[0], want[0]) <= TOL_FP32
     assert _rel_err(got[1], want[1]) <= TOL_FP32
 
@@ -91,6 +99,8 @@ def test_long_backward_bf16_matches_plain_f32(cuda, b, s, h, d, bias_dtype):
     dqkv, dbias = cuda_attention.window_mhsa_long_backward_cuda(
         qkv, bias, g, h, d ** -0.5)
     assert dqkv.dtype == torch.bfloat16 and dbias.dtype == bias_dtype
+    assert cuda_attention.window_mhsa_long_backward_cuda.last_plan.route == \
+        "wgmma"
     want = window_mhsa_backward_reference(qkv.float(), bias.float(),
                                           g.float(), h, d ** -0.5)
     assert _rel_err(dqkv, want[0]) <= TOL_BF16
@@ -98,7 +108,51 @@ def test_long_backward_bf16_matches_plain_f32(cuda, b, s, h, d, bias_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,d", [(32, 576, 16, 49), (64, 216, 8, 32)])
+@pytest.mark.parametrize("s", BF16_SEQS)
+@pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_long_backward_tensor_cores_at_every_depth_and_ragged_s(
+        cuda, s, d, bias_dtype):
+    """The tensor-core route at each padded head dim (hd 49 pads to 64,
+    zeros in shared memory) and at S that end a key tile, a q-row block
+    or both raggedly, against the plain f32 version, its plan the
+    library's."""
+    b, h = 2, 2
+    qkv, bias, g = _make(b, s, h, d, cuda, seed=5)
+    qkv, g, bias = qkv.bfloat16(), g.bfloat16(), bias.to(bias_dtype)
+    kernel = cuda_attention.window_mhsa_long_backward_cuda
+    dqkv, dbias = kernel(qkv, bias, g, h, d ** -0.5)
+    assert kernel.last_plan == cuda_attention.long_bwd_plan(
+        d, torch.bfloat16, bias_dtype)
+    assert kernel.last_plan.route == "wgmma"
+    want = window_mhsa_backward_reference(qkv.float(), bias.float(),
+                                          g.float(), h, d ** -0.5)
+    assert torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()
+    assert _rel_err(dqkv, want[0]) <= TOL_BF16
+    assert _rel_err(dbias, want[1]) <= TOL_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tensor_cores", [0, 1])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_plan_shared_memory_is_the_librarys(cuda, tensor_cores, bias_dtype):
+    """long_bwd_plan names, for each pass and every hd, the shared memory
+    the built library computes, so the entry point's check of the plan
+    passes."""
+    lib = cuda_attention._library()
+    dtype = torch.bfloat16 if tensor_cores else torch.float32
+    for hd in range(1, cuda_attention.LONG_MAX_HEAD_DIM + 1):
+        plan = cuda_attention.long_bwd_plan(hd, dtype, bias_dtype)
+        assert plan.smem_bytes == tuple(
+            lib.long_attention_bwd_smem_bytes(hd, tensor_cores,
+                                              bias_dtype.itemsize, p)
+            for p in range(3)), hd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(32, 576, 16, 49), (64, 216, 8, 32),
+                                     (16, 53, 16, 80), (4, 2305, 2, 49),
+                                     (6, 129, 4, 80)])
 def test_long_backward_is_deterministic(cuda, b, s, h, d):
     """dbias is summed in a fixed order, with no atomics: the same bits
     from launch to launch, and dqkv too."""
