@@ -9,22 +9,33 @@ Phases, each of which raises on failure:
      one nvcc per source, all at once;
   3. K1, the window-attention kernel, against its plain PyTorch version on
      the card, at FasterViT-0's batch-256 shapes and an odd shape, in fp32
-     and bf16; kernel, plain version and SDPA timed at the fv0 shapes;
+     (scalar FMA) and bf16 (the tensor cores, wgmma), every call's plan
+     and its shared memory held to short_plan and the library, two bf16
+     launches bit-identical; ptxas' registers and spills of each
+     tensor-core instance; kernel, plain version and SDPA timed at the fv0
+     shapes, with TFLOP/s and GB/s;
   4. K2, the window-attention backward kernel, against its plain version,
-     in fp32 and bf16, at FasterViT-0's batch-128 training shapes, an odd
-     shape and K2's largest shape; kernel, plain version and SDPA's backward
-     timed at the training shapes;
+     in fp32 (scalar FMA) and bf16 (wgmma), at FasterViT-0's batch-128
+     training shapes, an odd shape and K2's largest shape, every call's
+     plan held to short_bwd_plan and the library, dqkv and dbias of two
+     bf16 launches bit-identical; ptxas' registers and spills; kernel,
+     plain version and SDPA's backward timed at the training shapes, with
+     TFLOP/s and GB/s;
   5. faster_vit_0_224 in fp32 through create_model, on the card (kernel
-     path) against the CPU (plain path), batch 4, counting kernel launches;
+     path) against the CPU (plain path), batch 4, counting kernel launches,
+     every K1 call on scalar FMA;
   6. the inference path: faster_vit_0_224 in bf16 at batch 256, its K1
-     launches counted, its logits against fp32 on the same weights, timed;
+     launches counted, each on the tensor cores, its logits against fp32
+     on the same weights, timed;
   7. one fv0 fp32 train step, card against CPU, batch 4, same weights and
-     mixup draws: loss and every gradient, 17 K1 and 17 K2 launches, the
-     attention gradients non-zero;
+     mixup draws: loss and every gradient, 17 K1 and 17 K2 launches, each
+     on scalar FMA, the attention gradients non-zero;
   8. the training path: the train.py CLI on synthetic data (4 steps at
-     batch 128 and eval), then make_train_step with the fv0 recipe in bf16
-     at batch 128: 10 steps on one batch must lower the loss, then 20 steps
-     timed, launches counted, and 2 profiled;
+     batch 128 and eval, in the config's bf16: K1 and K2 on the tensor
+     cores), then
+     make_train_step with the fv0 recipe in bf16 at batch 128: 10 steps on
+     one batch must lower the loss, then 20 steps timed, launches counted,
+     every K1 and K2 call on the tensor cores, and 2 profiled;
   9. K3, the long-window attention kernel, against its plain version in
      fp32 (scalar FMA) and bf16 (the tensor cores, wgmma; bias f32 and
      bf16) at the 21k-768 and 21k-384 shapes, the any-res carrier shape,
@@ -74,7 +85,8 @@ Phases, each of which raises on failure:
      the encoder's proposals, the two-stage selection and every decoder
      layer, and its K1, K3 and K5 launches;
  20. the serving path: that detector in bf16 at batch 2 on an 800x1333
-     canvas: 17 K1, 12 K3 and 12 K5 launches a forward, bf16 against fp32
+     canvas: 17 K1 (each on the tensor cores), 12 K3 and 12 K5 launches
+     a forward, bf16 against fp32
      on the same weights up to the encoder output, 10 timed batches, peak
      memory, one forward profiled;
  21. the detection CLI (--eval --synthetic, the served config, 800x800)
@@ -97,7 +109,8 @@ Phases, each of which raises on failure:
      bit-identical;
  25. fused_hat_block_dp forward and backward at the joint site in bf16 and
      fp32 against autograd through the plain version (output, x, params,
-     bias, dp1, dp2): 1 K6, 1 K1 and 1 K2 launch;
+     bias, dp1, dp2): 1 K6, 1 K1 and 1 K2 launch, K1 and K2 on the tensor
+     cores in bf16 and on scalar FMA in fp32;
  26. the long-window attention probes' kernels: P1 (chunked online
      softmax, C = 1, 2, 4) and P2 (no bias; on separate q, k, v and on
      views of a packed qkv) against their plain versions in fp32 (scalar
@@ -139,6 +152,7 @@ prints no result. It imports no jax.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import csv
 import gc
@@ -172,12 +186,16 @@ TRAIN_SHAPES = [(512, 53, 8, 32, 6), (128, 16, 8, 32, 6),
                 (128, 49, 16, 32, 5)]
 K2_EXTRA_SHAPES = [(3, 53, 4, 49, 0), (5, 64, 2, 64, 0)]
 TOL_FP32 = 2e-5      # f32 throughout, TF32 off: only the order of sums differs
-TOL_BF16 = 2e-2      # bf16 output and probabilities against f32 on bf16 inputs
+# bf16 output and probabilities against f32 on bf16 inputs (K1's tensor-core
+# route rounds the unnormalised p, the plain version the normalised one)
+TOL_BF16 = 2e-2
 # K2, relative to max(1, max |plain|): f32 throughout, TF32 off, sums in
 # another order (dbias sums over up to 512 windows) ...
 TOL_K2_FP32 = 1e-4
 # ... and bf16 inputs on both sides, the kernel's outputs rounded to bf16
-# once (2^-8 relative)
+# once (2^-8 relative), and on the tensor cores P and dl rounded to bf16 for
+# dq = dl·k, dk = dlᵀ·q and dv = Pᵀ·g (2^-9 a term; the JAX kernel and the
+# plain version keep them f32; dbias sums the unrounded dl)
 TOL_K2_BF16 = 1e-2
 # K3 keeps K1's bounds, for the same reasons: f32 throughout with TF32 off
 # (its running max adds rescalings, each exact to an ulp or so), and bf16
@@ -478,6 +496,92 @@ def check_bwd_plan(cuda_attention, bf16: bool, head_dim: int,
           f"{head_dim} with the library's shared memory")
 
 
+class RouteLog:
+    """Inside `with RouteLog(cuda_attention) as routes:`, the routes of the
+    plans K1 and K2 are launched with, counted: routes.k1 and routes.k2
+    are Counters of "wgmma" and "scalar". short_plan and short_bwd_plan
+    are wrapped for the block's duration; each wrapper makes its plan
+    just before its launch, and the C entry point refuses any other."""
+
+    def __init__(self, cuda_attention):
+        self.ca = cuda_attention
+
+    def __enter__(self):
+        self.k1, self.k2 = collections.Counter(), collections.Counter()
+        self.orig = (self.ca.short_plan, self.ca.short_bwd_plan)
+
+        def counted(fn, counter):
+            def plan(*args):
+                how = fn(*args)
+                counter[how.route] += 1
+                return how
+            return plan
+
+        self.ca.short_plan = counted(self.orig[0], self.k1)
+        self.ca.short_bwd_plan = counted(self.orig[1], self.k2)
+        return self
+
+    def __exit__(self, *exc):
+        self.ca.short_plan, self.ca.short_bwd_plan = self.orig
+
+    def check(self, k1: int, k2: int, route: str, what: str) -> None:
+        """k1 K1 and k2 K2 launches, every one on `route`."""
+        want = (collections.Counter({route: k1} if k1 else {}),
+                collections.Counter({route: k2} if k2 else {}))
+        check((self.k1, self.k2) == want,
+              f"{what}: K1 routes {dict(self.k1)}, K2 routes "
+              f"{dict(self.k2)}, expected {k1} and {k2} on {route}")
+        print(f"{what}: K1 {dict(self.k1)}, K2 {dict(self.k2)} launches by "
+              f"route")
+
+
+def check_short_plan(kernel, cuda_attention, bf16: bool, seq: int,
+                     head_dim: int, bias_dtype, backward: bool,
+                     what: str) -> None:
+    """K1's or K2's latest launch took the route its dtype names (bf16: the
+    tensor cores, f32: scalar FMA), by short_plan or short_bwd_plan, whose
+    shared memory is the library's own figure."""
+    plan = kernel.last_plan
+    want = "wgmma" if bf16 else "scalar"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    make = (cuda_attention.short_bwd_plan if backward
+            else cuda_attention.short_plan)
+    check(plan is not None and plan.route == want
+          and plan == make(seq, head_dim, dtype, bias_dtype),
+          f"{what} ran plan {plan}, expected route {want}")
+    lib = cuda_attention._library()
+    smem = (lib.short_attention_bwd_smem_bytes if backward
+            else lib.short_attention_smem_bytes)(seq, head_dim, int(bf16))
+    check(plan.smem_bytes == smem, f"{what}: the plan's {plan.smem_bytes} "
+                                   f"bytes of shared memory, the library's "
+                                   f"{smem}")
+
+
+def ptxas_short_instances(log: str, cuda_attention) -> list:
+    """[{instance, registers, spill_stores, static_smem, plan_smem}] for
+    each tensor-core instantiation of K1 (window_mhsa_tc_kernel<D, key
+    tiles>) and K2 (window_mhsa_bwd_tc_kernel<D>) that nvcc's -Xptxas -v
+    log reports; plan_smem is the dynamic shared memory of its plan, which
+    ptxas does not see."""
+    def describe(name):
+        kind = re.search(r"(window_mhsa_bwd_tc_kernel|window_mhsa_tc_kernel)"
+                         r"I(.*)", name)
+        if not kind:
+            return None
+        ints = [int(x) for x in re.findall(r"Li(\d+)E", kind.group(2))]
+        if kind.group(1) == "window_mhsa_tc_kernel":
+            d, r = ints[:2]
+            plan = cuda_attention.short_plan(64 * r, d, torch.bfloat16,
+                                             torch.float32)
+            return {"instance": f"K1, D {d}, {r} key tile"
+                                + "s" * (r > 1), "plan_smem": plan.smem_bytes}
+        plan = cuda_attention.short_bwd_plan(64, ints[0], torch.bfloat16,
+                                             torch.float32)
+        return {"instance": f"K2, D {ints[0]}", "plan_smem": plan.smem_bytes}
+
+    return ptxas_entries(log, describe)
+
+
 def ptxas_k4_instances(log: str, cuda_attention) -> list:
     """[{instance, registers, spill_stores, static_smem, plan_smem}] for
     each tensor-core instantiation of K4's three passes
@@ -518,30 +622,48 @@ def rel_to_largest(got: torch.Tensor, want: torch.Tensor) -> float:
             / want.float().abs().max().clamp(min=1e-6)).item()
 
 
-def k1_phase(cuda_attention, attention) -> dict:
+def k1_phase(cuda_attention, attention, ptx_log: str) -> dict:
     kernel = cuda_attention.window_mhsa_cuda
+    instances = [i for i in ptxas_short_instances(ptx_log, cuda_attention)
+                 if i["instance"].startswith("K1")]
+    print_instances("K1 window_mhsa_tc_kernel", instances)
+    check(len(instances) == 4, f"K1's tensor-core instances {instances}")
     plain = attention.window_mhsa_reference
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     err32_all, err16_all = 0.0, 0.0
     ms_fwd = plain_ms_fwd = lib_ms_fwd = bound_fwd = 0.0
     backend = ""
+    plans, per_call = {}, {}
     for b, s, h, d, calls in FV0_SHAPES + [ODD_SHAPE]:
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen)
         bias = torch.randn(h, s, s, device="cuda", generator=gen)
         scale = d ** -0.5
+        what = f"K1 window_mhsa B={b} S={s} H={h} hd={d}"
         err32 = (kernel(qkv, bias, h, scale)
                  - plain(qkv, bias, h, scale)).abs().max().item()
+        check_short_plan(kernel, cuda_attention, False, s, d, torch.float32,
+                         False, f"{what} fp32")
+        plan32 = kernel.last_plan
         q16, b16 = qkv.bfloat16(), bias.bfloat16()
-        err16 = (kernel(q16, b16, h, scale).float()
+        got16 = kernel(q16, b16, h, scale)
+        check_short_plan(kernel, cuda_attention, True, s, d, torch.bfloat16,
+                         False, f"{what} bf16")
+        plan16 = kernel.last_plan
+        same = torch.equal(got16, kernel(q16, b16, h, scale))
+        err16 = (got16.float()
                  - plain(q16.float(), b16.float(), h, scale)).abs().max().item()
         torch.cuda.synchronize()
-        print(f"K1 window_mhsa B={b} S={s} H={h} hd={d}: max|err| fp32 "
-              f"{err32:.3e} (tol {TOL_FP32}), bf16 {err16:.3e} "
-              f"(tol {TOL_BF16})")
+        print(f"{what}: max|err| fp32 {err32:.3e} (tol {TOL_FP32}), bf16 "
+              f"{err16:.3e} (tol {TOL_BF16}); two bf16 launches "
+              f"bit-identical: {same}; plans fp32 {tuple(plan32)}, bf16 "
+              f"{tuple(plan16)}")
         check(err32 <= TOL_FP32, f"fp32 kernel error {err32} at {(b, s, h, d)}")
         check(err16 <= TOL_BF16, f"bf16 kernel error {err16} at {(b, s, h, d)}")
+        check(same, f"K1 bf16 launches differ at {(b, s, h, d)}")
         err32_all, err16_all = max(err32_all, err32), max(err16_all, err16)
+        plans[f"({b},{s},{h},{d})"] = {"fp32": plan32._asdict(),
+                                       "bf16": plan16._asdict()}
         if calls:
             # the main path's dtype, in turns
             q, k, v = split_heads(q16, h)
@@ -552,14 +674,19 @@ def k1_phase(cuda_attention, attention) -> dict:
                 lambda: plain(q16, b16, h, scale),
                 lambda: kernel(q16, b16, h, scale), run_l)
             nbytes = 2 * (qkv.numel() + b * s * h * d + bias.numel())
-            bound = bound_ms(nbytes, 4.0 * b * h * s * s * d)
+            flops = 4.0 * b * h * s * s * d
+            bound = bound_ms(nbytes, flops)
             ms_fwd += calls * ms
             plain_ms_fwd += calls * plain_ms
             lib_ms_fwd += calls * lib_ms
             bound_fwd += calls * bound
-            print(f"K1 window_mhsa B={b} S={s} H={h} hd={d} bf16: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
-                  f"ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) per call")
+            per_call[f"({b},{s},{h},{d})"] = {
+                "calls": calls, "ms": ms, "tflop_s": flops / ms / 1e9,
+                "gb_s": nbytes / ms / 1e6, "bound_ms": bound}
+            print(f"{what} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), plain "
+                  f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB) per call")
     print(f"SDPA forward with a float mask ran: {backend}")
     print(f"K1 window_mhsa over one fv0 bf16 b{BATCH} forward's 17 calls: "
           f"kernel {ms_fwd:.4f} ms, plain {plain_ms_fwd:.4f} ms, SDPA "
@@ -574,36 +701,55 @@ def k1_phase(cuda_attention, attention) -> dict:
             "ms": ms_fwd, "plain_ms": plain_ms_fwd, "bound_ms": bound_fwd,
             "bound_by": "bytes", "library_ms": lib_ms_fwd,
             "library": f"scaled_dot_product_attention ({backend})",
-            "per": f"one fv0 bf16 b{BATCH} forward (17 calls)"}
+            "per": f"one fv0 bf16 b{BATCH} forward (17 calls)",
+            "per_call": per_call, "plans": plans, "ptxas": instances}
 
 
-def k2_phase(cuda_attention, attention) -> dict:
+def k2_phase(cuda_attention, attention, ptx_log: str) -> dict:
     kernel = cuda_attention.window_mhsa_backward_cuda
+    instances = [i for i in ptxas_short_instances(ptx_log, cuda_attention)
+                 if i["instance"].startswith("K2")]
+    print_instances("K2 window_mhsa_bwd_tc_kernel", instances)
+    check(len(instances) == 2, f"K2's tensor-core instances {instances}")
     plain = attention.window_mhsa_backward_reference
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
     err32_all = err16_all = 0.0
     ms_step = plain_step = lib_step = bound_step = 0.0
     backend = ""
+    plans, per_call = {}, {}
     for b, s, h, d, calls in TRAIN_SHAPES + K2_EXTRA_SHAPES:
         qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen)
         bias = torch.randn(h, s, s, device="cuda", generator=gen)
         g = torch.randn(b, s, h * d, device="cuda", generator=gen)
         scale = d ** -0.5
+        what = f"K2 window_mhsa_backward B={b} S={s} H={h} hd={d}"
         got = kernel(qkv, bias, g, h, scale)
+        check_short_plan(kernel, cuda_attention, False, s, d, torch.float32,
+                         True, f"{what} fp32")
+        plan32 = kernel.last_plan
         want = plain(qkv, bias, g, h, scale)
         err32 = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
         q16, b16, g16 = qkv.bfloat16(), bias.bfloat16(), g.bfloat16()
         got = kernel(q16, b16, g16, h, scale)
+        check_short_plan(kernel, cuda_attention, True, s, d, torch.bfloat16,
+                         True, f"{what} bf16")
+        plan16 = kernel.last_plan
+        again = kernel(q16, b16, g16, h, scale)
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         want = plain(q16.float(), b16.float(), g16.float(), h, scale)
         err16 = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
         torch.cuda.synchronize()
-        print(f"K2 window_mhsa_backward B={b} S={s} H={h} hd={d}: max|err| "
-              f"/ max(1, max|plain|) of dqkv and dbias: fp32 {err32:.3e} "
-              f"(tol {TOL_K2_FP32}), bf16 {err16:.3e} (tol {TOL_K2_BF16})")
+        print(f"{what}: max|err| / max(1, max|plain|) of dqkv and dbias: fp32 "
+              f"{err32:.3e} (tol {TOL_K2_FP32}), bf16 {err16:.3e} (tol "
+              f"{TOL_K2_BF16}); two bf16 launches bit-identical: {same}; "
+              f"plans fp32 {tuple(plan32)}, bf16 {tuple(plan16)}")
         check(err32 <= TOL_K2_FP32, f"K2 fp32 error {err32} at {(b, s, h, d)}")
         check(err16 <= TOL_K2_BF16, f"K2 bf16 error {err16} at {(b, s, h, d)}")
+        check(same, f"K2 bf16 launches differ at {(b, s, h, d)}")
         err32_all, err16_all = max(err32_all, err32), max(err16_all, err16)
+        plans[f"({b},{s},{h},{d})"] = {"fp32": plan32._asdict(),
+                                       "bf16": plan16._asdict()}
         if calls:
             q, k, v = (t.requires_grad_() for t in split_heads(q16, h))
             mask = b16[None].clone().requires_grad_()
@@ -618,15 +764,19 @@ def k2_phase(cuda_attention, attention) -> dict:
             del out
             # qkv and g read, dqkv written, bias read, dbias written (bf16)
             nbytes = 2 * (2 * qkv.numel() + g.numel() + 2 * bias.numel())
-            bound = bound_ms(nbytes, 10.0 * b * h * s * s * d)
+            flops = 10.0 * b * h * s * s * d
+            bound = bound_ms(nbytes, flops)
             ms_step += calls * ms
             plain_step += calls * plain_ms
             lib_step += calls * lib_ms
             bound_step += calls * bound
-            print(f"K2 window_mhsa_backward B={b} S={s} H={h} hd={d} bf16: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                  f"backward {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({nbytes / 1e6:.1f} MB) per call")
+            per_call[f"({b},{s},{h},{d})"] = {
+                "calls": calls, "ms": ms, "tflop_s": flops / ms / 1e9,
+                "gb_s": nbytes / ms / 1e6, "bound_ms": bound}
+            print(f"{what} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), plain "
+                  f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB) per call")
     print(f"SDPA backward with a float mask that needs its gradient ran: "
           f"{backend}")
     print(f"K2 window_mhsa_backward over one fv0 bf16 b{TRAIN_BATCH} train "
@@ -642,7 +792,8 @@ def k2_phase(cuda_attention, attention) -> dict:
             "ms": ms_step, "plain_ms": plain_step, "bound_ms": bound_step,
             "bound_by": "bytes", "library_ms": lib_step,
             "library": f"scaled_dot_product_attention backward ({backend})",
-            "per": f"one fv0 bf16 b{TRAIN_BATCH} train step (17 calls)"}
+            "per": f"one fv0 bf16 b{TRAIN_BATCH} train step (17 calls)",
+            "per_call": per_call, "plans": plans, "ptxas": instances}
 
 
 def k3_phase(cuda_attention, attention, ptx_log: str) -> dict:
@@ -806,7 +957,8 @@ def train_parity_phase(fvt, cuda_attention, steps,
                        name: str = "faster_vit_0_224", batch_size: int = 4,
                        want=(17, 17, 0, 0), stem_tol: float = 0.0) -> None:
     """One fp32 step of `name`, card against CPU, on the same weights and
-    batch; `want` are its K1, K2, K3 and K4 launches. With stem_tol, and
+    batch; `want` are its K1, K2, K3 and K4 launches, K1's and K2's on
+    scalar FMA. With stem_tol, and
     only if a ReLU input of the stem flipped, the stem's parameters are
     held to stem_tol of their largest entry (see TOL_STEM_GRAD) and the
     others to phase 7's bound."""
@@ -821,11 +973,13 @@ def train_parity_phase(fvt, cuda_attention, steps,
     for m in (model_cpu, model):
         step = steps.make_train_step(cfg, lambda t: 1e-3, seed=5)
         before = launches(cuda_attention)
-        metrics[m] = step(steps.create_train_state(m, cfg), batch)
-        torch.cuda.synchronize()
+        with RouteLog(cuda_attention) as routes:
+            metrics[m] = step(steps.create_train_state(m, cfg), batch)
+            torch.cuda.synchronize()
         calls = tuple(a - b for a, b in zip(launches(cuda_attention), before))
     check(calls == tuple(want), f"{name} K1, K2, K3, K4 launches per step "
                                 f"{calls}, expected {tuple(want)}")
+    routes.check(want[0], want[1], "scalar", f"{name} fp32 train step")
     dloss = abs(metrics[model]["loss"].item()
                 - metrics[model_cpu]["loss"].item())
     grads_cpu = dict(model_cpu.named_parameters())
@@ -871,7 +1025,7 @@ KINDS = [  # (kind, substrings of a kernel's name), first match wins
     ("K4 window_mhsa_long_backward", ("long_bwd", "long_dbias_sum")),
     ("K3 window_mhsa_long", ("window_mhsa_long",)),
     ("K2 window_mhsa_backward", ("window_mhsa_bwd", "dbias_sum")),
-    ("K1 window_mhsa", ("window_mhsa_kernel",)),
+    ("K1 window_mhsa", ("window_mhsa_kernel", "window_mhsa_tc_kernel")),
     ("input copy to the card", ("memcpy htod",)),
     ("layout transposes (cuDNN)", ("nchwtonhwc", "nhwctonchw")),
     ("convolutions (cuDNN)", ("conv", "dgrad", "wgrad", "fprop", "cudnn")),
@@ -954,7 +1108,8 @@ def train_main_phase(fvt, cuda_attention, steps, train_cli, schedule,
     fv0 recipe in bf16 at batch 128."""
     out = {}
     # 1. the CLI: 4 steps at batch 128 and synthetic eval
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            RouteLog(cuda_attention) as cli_routes:
         reset_launches(cuda_attention)
         t0 = time.perf_counter()
         train_cli.main(["--config", str(REPO / "configs"
@@ -973,6 +1128,8 @@ def train_main_phase(fvt, cuda_attention, steps, train_cli, schedule,
     # 4 train steps x 17 K1 and K2; eval: 4 batches x (model + EMA) x 17 K1
     check(cli_calls == (4 * 17 + 8 * 17, 4 * 17, 0, 0),
           f"CLI K1, K2, K3, K4 launches {cli_calls}")
+    # the fv0 config trains in bfloat16: K1 and K2 on the tensor cores
+    cli_routes.check(4 * 17 + 8 * 17, 4 * 17, "wgmma", "CLI (train.py)")
     print(f"CLI (train.py, fv0 recipe, 4 steps b{TRAIN_BATCH} + eval): "
           f"{cli_s:.1f} s; summary.csv {dict(rows[0])}; K1, K2, K3, K4 "
           f"launches {cli_calls}")
@@ -1002,15 +1159,16 @@ def train_main_phase(fvt, cuda_attention, steps, train_cli, schedule,
     step = steps.make_train_step(cfg, sched, torch.bfloat16, seed=9)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(cuda_attention)
-    for _ in range(5):
-        step(state, batch)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(20):
-        metrics = step(state, batch)
-    end.record()
-    end.synchronize()
+    with RouteLog(cuda_attention) as routes:
+        for _ in range(5):
+            step(state, batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            metrics = step(state, batch)
+        end.record()
+        end.synchronize()
     calls = launches(cuda_attention)
     ms = start.elapsed_time(end) / 20
     peak = torch.cuda.max_memory_allocated()
@@ -1019,6 +1177,8 @@ def train_main_phase(fvt, cuda_attention, steps, train_cli, schedule,
     check(calls == (25 * 17, 25 * 17, 0, 0),
           f"K1, K2, K3, K4 launches over 25 steps {calls}, expected 425, "
           "425, 0 and 0")
+    routes.check(25 * 17, 25 * 17, "wgmma",
+                 f"fv0 bf16 b{TRAIN_BATCH} train steps (25)")
     check(math.isfinite(loss), f"loss {loss}")
     print(f"fv0 bf16 b{TRAIN_BATCH} train step (fv0 recipe, eager): "
           f"{ms:.3f} ms a step, {TRAIN_BATCH * 1000 / ms:.1f} img/s; peak "
@@ -1752,8 +1912,11 @@ def dino_serving_phase(cuda_attention, cuda_msda, dino, cfg) -> dict:
         x16 = x.bfloat16()
         del x
         reset_launches(cuda_attention, cuda_msda)
-        out = det16(x16)
-        torch.cuda.synchronize()
+        with RouteLog(cuda_attention) as routes:
+            out = det16(x16)
+            torch.cuda.synchronize()
+        routes.check(17, 0, "wgmma", f"DINO-4scale bf16 b{DINO_BATCH} "
+                                     "forward")
         calls = detection_launches(cuda_attention, cuda_msda)
         post = dino.postprocess(out, torch.tensor([DINO_CANVAS] * DINO_BATCH,
                                                   device="cuda"))
@@ -2244,9 +2407,13 @@ def k6_dp_grad_phase(cuda_attention, cuda_hat_block, hat_block) -> None:
         before = (cuda_hat_block.hat_block_cuda.launches,
                   cuda_attention.window_mhsa_cuda.launches,
                   cuda_attention.window_mhsa_backward_cuda.launches)
-        got = grads(lambda xx, pp, bb, d1, d2: hat_block.fused_hat_block_dp(
-            xx, pp, bb, d1, d2, h, scale))
-        torch.cuda.synchronize()
+        with RouteLog(cuda_attention) as routes:
+            got = grads(lambda xx, pp, bb, d1, d2:
+                        hat_block.fused_hat_block_dp(xx, pp, bb, d1, d2, h,
+                                                     scale))
+            torch.cuda.synchronize()
+        routes.check(1, 1, "wgmma" if dtype == torch.bfloat16 else "scalar",
+                     f"fused_hat_block_dp {dtype}")
         calls = tuple(a - b_ for a, b_ in zip(
             (cuda_hat_block.hat_block_cuda.launches,
              cuda_attention.window_mhsa_cuda.launches,
@@ -2964,8 +3131,8 @@ def main() -> None:
               "of spill stores (over its instantiations)")
 
     # 3, 4. the kernels against their plain versions
-    k1 = k1_phase(cuda_attention, attention)
-    k2 = k2_phase(cuda_attention, attention)
+    k1 = k1_phase(cuda_attention, attention, ptx_log)
+    k2 = k2_phase(cuda_attention, attention, ptx_log)
 
     # 5. fp32: kernel path on the card against the plain path on the CPU
     model_cpu = fvt.create_model("faster_vit_0_224", device="cpu",
@@ -2973,12 +3140,13 @@ def main() -> None:
     model_cpu.eval()
     model = copy.deepcopy(model_cpu).to("cuda")
     x = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():
+    with torch.no_grad(), RouteLog(cuda_attention) as routes:
         want = model_cpu(x)
         before = launches(cuda_attention)
         got = model(x.to("cuda"))
         torch.cuda.synchronize()
         calls = tuple(a - b for a, b in zip(launches(cuda_attention), before))
+    routes.check(17, 0, "scalar", "fv0 fp32 b4 forward")
     err = (got.cpu() - want).abs().max().item()
     print(f"fv0 fp32 b4: card vs CPU max|dlogits| {err:.3e} "
           f"(tol {TOL_MODEL_FP32}); K1, K2, K3, K4 launches per forward "
@@ -3001,8 +3169,10 @@ def main() -> None:
     del xb
     with torch.no_grad():
         reset_launches(cuda_attention)
-        logits = model16(xb16)
-        torch.cuda.synchronize()
+        with RouteLog(cuda_attention) as routes:
+            logits = model16(xb16)
+            torch.cuda.synchronize()
+        routes.check(17, 0, "wgmma", f"fv0 bf16 b{BATCH} forward")
         calls = launches(cuda_attention)
         k1_inference = calls[0]
         gap = (logits.float() - ref).abs().max().item()

@@ -12,9 +12,10 @@ attention probes' kernels are bound here too: P1, the chunked online-softmax
 attention of scripts/attn_online_probe.py (csrc/attn_online.cu), and P2,
 the bias-free attention of scripts/attn_vpu_probe.py (K3's kernel without
 its bias, csrc/window_mhsa_long.cu), both behind `ops/attention_probes.py`.
-K3, P1 and P2 take bf16 on Hopper's tensor cores (wgmma) and f32 on scalar
-FMA, by the plan `long_plan` makes here and the kernels check; K4 the same
-way, by `long_bwd_plan`.
+Every attention kernel takes bf16 on Hopper's tensor cores (wgmma) and f32
+on scalar FMA, by a plan made here and checked by the kernel: K1 by
+`short_plan`, K2 by `short_bwd_plan`, K3, P1 and P2 by `long_plan`, K4 by
+`long_bwd_plan`.
 
 The kernels are compiled by nvcc at first use, from the package's own
 sources, into `fastervit_tpu_torch/_build/` (keyed on a hash of the sources
@@ -26,6 +27,7 @@ the module imports on a machine without either.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -44,10 +46,20 @@ LONG_MAX_HEAD_DIM = 128
 _LONG_TILE = 64
 SMEM_LIMIT = 232448  # the most shared memory an H100 block may use
 _MAX_GRID_YZ = 65535     # CUDA's limit on a grid's y and z
-# K2 gives each block one head and a run of windows; this many blocks fill
-# an H100's 132 SMs four times over.
+# K1's tensor-core route and K2 give each block one head and a run of
+# windows; about this many blocks, two an SM of an H100's 132, measured
+# fastest of 132 to 4,224 at fv0's calls (PERF.md; `probes/short_turns.py
+# --sweep`): fewer windows a block read the bias and zero the padding more
+# often.
 _SMS = 132
-_BWD_TARGET_BLOCKS = 4 * _SMS
+_FWD_TARGET_BLOCKS = 2 * _SMS
+_BWD_TARGET_BLOCKS = 2 * _SMS
+# csrc/short_tiles.cuh: a warpgroup's tile (64 rows, 64 keys), its operand
+# stages, warpgroups a block (K1 at S <= 64 and above, K2)
+_SHORT_TILE = 64
+_SHORT_STAGES = 2
+_SHORT_FWD_WARPGROUPS = (2, 1)
+_SHORT_BWD_WARPGROUPS = 2
 # K4's dbias pass gives each block a run of windows for one (q-tile, head)
 # and an f32 (H, S, S) slab of partial sums per run: at most this many bytes
 # of slabs (one slab is 340 MB at S = 2304, H = 16), and where it can, at
@@ -63,6 +75,91 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class ShortPlan(NamedTuple):
+    """How K1 or K2 runs one window length, head dim and dtype
+    (csrc/short_tiles.cuh): the route ("wgmma": bf16 on the tensor cores;
+    "scalar": f32 on scalar FMA), the head dim padded with zeros (the
+    products' depth and width; hd itself on the scalar route), key tiles
+    (and row slabs) of 64 a window, windows in flight a block (one a
+    warpgroup), operand stages a warpgroup, and a block's dynamic shared
+    memory in bytes. The C entry points check it against their own
+    (`short_attention_smem_bytes`, `short_attention_bwd_smem_bytes` give
+    theirs)."""
+    route: str
+    depth: int
+    key_tiles: int
+    windows: int
+    stages: int
+    smem_bytes: int
+
+    def as_c(self):
+        """The six ints the C entry points take (short_tiles.cuh::Plan)."""
+        return (ctypes.c_int * 6)(int(self.route == "wgmma"), self.depth,
+                                  self.key_tiles, self.windows, self.stages,
+                                  self.smem_bytes)
+
+
+def _short_checks(what: str, seq: int, head_dim: int, max_seq: int,
+                  dtype: torch.dtype, bias_dtype: torch.dtype) -> None:
+    if not (1 <= seq <= max_seq and 1 <= head_dim <= MAX_HEAD_DIM):
+        raise NotImplementedError(f"{what} takes S <= {max_seq} and "
+                                  f"head_dim <= {MAX_HEAD_DIM}, got S={seq}, "
+                                  f"head_dim={head_dim}")
+    if dtype not in _DTYPES or bias_dtype not in _DTYPES:
+        raise TypeError(f"float32 or bfloat16 operands, got {dtype} and "
+                        f"bias {bias_dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def short_plan(seq: int, head_dim: int, dtype: torch.dtype,
+               bias_dtype: torch.dtype) -> ShortPlan:
+    """The plan of K1 for windows of S tokens, this hd, operand dtype and
+    bias dtype.
+
+    bf16 takes the tensor cores: hd padded to 32 or 64; one key tile and
+    two warpgroups a block for S <= 64, two key tiles (and row slabs) and
+    one warpgroup for 64 < S <= 128; the block's bias as f32 (64 × 64 a
+    tile pair, widened from bf16) and each warpgroup's two stages of q, k
+    and v (bf16) in shared memory. f32 keeps scalar FMA (TF32 would move
+    the logits by ~1e-3): a block per window and head, q, k, v and the
+    logits as f32, S·(3·hd + 1 + S) floats."""
+    _short_checks("K1 (window_mhsa_cuda)", seq, head_dim, MAX_SEQ, dtype,
+                  bias_dtype)
+    if dtype == torch.bfloat16:
+        d = 32 if head_dim <= 32 else 64
+        r = 1 if seq <= _SHORT_TILE else 2
+        w = _SHORT_FWD_WARPGROUPS[r - 1]
+        smem = (4 * r * r * _SHORT_TILE ** 2
+                + 2 * w * _SHORT_STAGES * 3 * r * _SHORT_TILE * d)
+        return ShortPlan("wgmma", d, r, w, _SHORT_STAGES, smem)
+    return ShortPlan("scalar", head_dim, 1, 1, 1,
+                     4 * seq * (3 * head_dim + 1 + seq))
+
+
+@functools.lru_cache(maxsize=None)
+def short_bwd_plan(seq: int, head_dim: int, dtype: torch.dtype,
+                   bias_dtype: torch.dtype) -> ShortPlan:
+    """The plan of K2 for windows of S tokens, this hd, operand dtype and
+    bias dtype.
+
+    bf16 takes the tensor cores: hd padded to 32 or 64, one key tile, two
+    warpgroups a block; in shared memory the block's bias as f32 (64 × 64)
+    and each warpgroup's two stages of q, k, v and g and its P and dl tiles
+    (bf16). f32 keeps scalar FMA: q, k, v, g, P, dl and the dbias sum as
+    f32, S·(4·hd + 2 + 3·S) floats."""
+    _short_checks("K2 (window_mhsa_backward_cuda)", seq, head_dim,
+                  BWD_MAX_SEQ, dtype, bias_dtype)
+    if dtype == torch.bfloat16:
+        d = 32 if head_dim <= 32 else 64
+        w = _SHORT_BWD_WARPGROUPS
+        smem = (4 * _SHORT_TILE ** 2
+                + 2 * w * (_SHORT_STAGES * 4 * _SHORT_TILE * d
+                           + 2 * _SHORT_TILE ** 2))
+        return ShortPlan("wgmma", d, 1, w, _SHORT_STAGES, smem)
+    return ShortPlan("scalar", head_dim, 1, 1, 1,
+                     4 * seq * (4 * head_dim + 2 + 3 * seq))
 
 
 class LongPlan(NamedTuple):
@@ -239,11 +336,12 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.window_mhsa_forward.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
         lib.window_mhsa_forward.restype = ctypes.c_int
         lib.window_mhsa_backward.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.window_mhsa_backward.restype = ctypes.c_int
         lib.window_mhsa_long_forward.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -282,6 +380,10 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_longlong] * 6 + [ctypes.c_int]
             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.attn_nobias_forward.restype = ctypes.c_int
+        lib.short_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.short_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.short_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.short_attention_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.long_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.long_attention_smem_bytes.restype = ctypes.c_longlong
         lib.long_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -346,10 +448,11 @@ def check_supported_backward(qkv_shape: Sequence[int],
                              num_heads: int) -> None:
     """Raise unless the backward kernel K2 takes these shapes: qkv
     (B, S, 3C), bias (H, S, S), S <= BWD_MAX_SEQ (64) and
-    hd <= BWD_MAX_HEAD_DIM (64). Its block keeps q, k, v, g, P, dl and the
-    dbias sum of one window and head in shared memory: 115 KB at
-    S = hd = 64, of the 227 KB a block may have. Longer windows and wider
-    heads are K4's (`ops.attention.backward_route`)."""
+    hd <= BWD_MAX_HEAD_DIM (64): a window in one 64-row tile and one
+    64-key tile on the tensor cores, and on the scalar route q, k, v, g, P,
+    dl and the dbias sum of one window and head in shared memory (115 KB at
+    S = hd = 64). Longer windows and wider heads are K4's
+    (`ops.attention.backward_route`)."""
     b, s, hd = _check_shapes(qkv_shape, bias_shape, num_heads)
     if s > BWD_MAX_SEQ or hd > BWD_MAX_HEAD_DIM:
         raise NotImplementedError(
@@ -408,27 +511,33 @@ def window_mhsa_cuda(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
                      scale: float) -> torch.Tensor:
     """softmax(q kᵀ·scale + bias) v per window and head, on the card (K1).
     qkv: (B, S, 3C) f32 or bf16, channels (3, H, hd); bias: (H, S, S) f32 or
-    bf16. Returns (B, S, C) in qkv's dtype. Counts its launches in
-    `window_mhsa_cuda.launches`."""
+    bf16. Returns (B, S, C) in qkv's dtype. bf16 runs on the tensor cores,
+    f32 on scalar FMA (`short_plan`). Counts its launches in
+    `window_mhsa_cuda.launches` and keeps the latest launch's ShortPlan in
+    `window_mhsa_cuda.last_plan`."""
     check_supported(qkv.shape, bias.shape, num_heads)
     _check_inputs(qkv, bias)
     b, s, c3 = qkv.shape
     out = torch.empty((b, s, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out
+    how = short_plan(s, c3 // 3 // num_heads, qkv.dtype, bias.dtype)
+    per_block, groups = forward_grid(b, num_heads)
     lib = _library()
     with torch.cuda.device(qkv.device):
         err = lib.window_mhsa_forward(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, c3 // 3,
             num_heads, int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), float(scale),
-            torch.cuda.current_stream().cuda_stream)
+            int(bias.dtype == torch.bfloat16), float(scale), how.as_c(),
+            per_block, groups, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "window_mhsa")
     window_mhsa_cuda.launches += 1
+    window_mhsa_cuda.last_plan = how
     return out
 
 
 window_mhsa_cuda.launches = 0
+window_mhsa_cuda.last_plan = None  # the ShortPlan of the latest launch
 
 
 def window_mhsa_long_cuda(qkv: torch.Tensor, bias: torch.Tensor,
@@ -463,12 +572,26 @@ window_mhsa_long_cuda.launches = 0
 window_mhsa_long_cuda.last_plan = None  # the LongPlan of the latest launch
 
 
+@functools.lru_cache(maxsize=None)
+def _run_grid(batch: int, num_heads: int, target: int) -> Tuple[int, int]:
+    """(windows per block, groups) of a (heads, groups) grid of about
+    `target` blocks, every group non-empty."""
+    groups = min(batch, max(1, -(-target // num_heads)))
+    per_block = -(-batch // groups)
+    return per_block, -(-batch // per_block)
+
+
+def forward_grid(batch: int, num_heads: int) -> Tuple[int, int]:
+    """(windows per block, groups) of K1's (heads, groups) grid: about
+    _FWD_TARGET_BLOCKS blocks, every group non-empty. (The scalar route
+    runs a block per window and head and only checks it.)"""
+    return _run_grid(batch, num_heads, _FWD_TARGET_BLOCKS)
+
+
 def backward_grid(batch: int, num_heads: int) -> Tuple[int, int]:
     """(windows per block, groups) of K2's (heads, groups) grid: about
     _BWD_TARGET_BLOCKS blocks, every group non-empty."""
-    groups = min(batch, max(1, -(-_BWD_TARGET_BLOCKS // num_heads)))
-    per_block = -(-batch // groups)
-    return per_block, -(-batch // per_block)
+    return _run_grid(batch, num_heads, _BWD_TARGET_BLOCKS)
 
 
 def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
@@ -477,8 +600,10 @@ def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     """Gradients of window attention on the card (K2): (dqkv, dbias) for
     the output gradient g (B, S, C), with qkv (B, S, 3C) and bias (H, S, S)
     as the forward took them. dqkv is in qkv's dtype, dbias in bias's; dbias
-    is summed over the windows in f32, in a fixed order. Counts its launches
-    in `window_mhsa_backward_cuda.launches`."""
+    is summed over the windows in f32, in a fixed order. bf16 runs on the
+    tensor cores, f32 on scalar FMA (`short_bwd_plan`). Counts its launches
+    in `window_mhsa_backward_cuda.launches` and keeps the latest launch's
+    ShortPlan in `window_mhsa_backward_cuda.last_plan`."""
     check_supported_backward(qkv.shape, bias.shape, num_heads)
     _check_inputs(qkv, bias, g)
     b, s, c3 = qkv.shape
@@ -487,6 +612,7 @@ def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if b == 0:
         return dqkv, torch.zeros_like(bias)
+    how = short_bwd_plan(s, c3 // 3 // num_heads, qkv.dtype, bias.dtype)
     dbias = torch.empty_like(bias)
     per_block, groups = backward_grid(b, num_heads)
     partial = torch.empty((groups,) + tuple(bias.shape), dtype=torch.float32,
@@ -497,14 +623,17 @@ def window_mhsa_backward_cuda(qkv: torch.Tensor, bias: torch.Tensor,
             qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             dbias.data_ptr(), partial.data_ptr(), b, s, c3 // 3, num_heads,
             per_block, groups, int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), float(scale),
+            int(bias.dtype == torch.bfloat16), float(scale), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "window_mhsa_backward")
     window_mhsa_backward_cuda.launches += 1
+    window_mhsa_backward_cuda.last_plan = how
     return dqkv, dbias
 
 
 window_mhsa_backward_cuda.launches = 0
+# the ShortPlan of the latest launch
+window_mhsa_backward_cuda.last_plan = None
 
 
 def long_backward_grid(batch: int, seq: int, num_heads: int,

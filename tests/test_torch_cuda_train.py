@@ -1,5 +1,8 @@
 """The window-attention backward kernel (K2) against its plain PyTorch
-version, and the port's training path, on the card. Every test here needs a
+version, and the port's training path, on the card: bf16 on the tensor
+cores (wgmma), f32 on scalar FMA, each call's plan
+(`cuda_attention.short_bwd_plan`) and its shared memory against the
+library's. Every test here needs a
 CUDA device and skips without one. On a machine with an H100 (which need not
 have jax, so tests/conftest.py is not loaded):
 
@@ -31,8 +34,19 @@ CASES = [
 # f32 throughout, TF32 off: only the order of the sums differs
 TOL_FP32 = 1e-4
 # bf16 inputs on both sides; the kernel rounds dqkv and dbias to bf16 once
-# (2^-8 relative), the plain version here stays f32
+# (2^-8 relative), and on the tensor cores also P and dl to bf16 for the
+# products dq = dl·k, dk = dlᵀ·q and dv = Pᵀ·g (2^-9 relative a term; the
+# JAX kernel and the plain version keep them f32, and dbias sums the
+# unrounded dl); the plain version here stays f32
 TOL_BF16 = 1e-2
+# The tensor-core route at every window length that changes its tile (one
+# key, the carrier call's 16, fv0's 49 and 53, a tile less one, one) and
+# every head dim of the family (fv0 32, fv1 40, fv2 48, the fv4 family 49,
+# fv3 64), with 1,100 windows of 2 heads: five windows a block, so each
+# warpgroup's two stages both serve and its dbias sums windows.
+TC_SEQS = [1, 16, 49, 53, 63, 64]
+TC_HEAD_DIMS = [32, 40, 48, 49, 64]
+TC_BATCH, TC_HEADS = 1100, 2
 
 
 @pytest.fixture
@@ -96,11 +110,57 @@ def test_backward_kernel_bf16_matches_plain_f32(cuda, b, s, h, d, qkv_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", TC_SEQS)
+@pytest.mark.parametrize("d", TC_HEAD_DIMS)
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_tensor_core_route_matches_plain(cuda, s, d, bias_dtype):
+    """bf16 takes wgmma by short_bwd_plan, with the library's shared
+    memory; two launches give the same dqkv and dbias bits; both match the
+    plain backward in f32 on the same bf16 inputs."""
+    h = TC_HEADS
+    qkv, bias, g = _make(TC_BATCH, s, h, d, cuda, seed=s * 100 + d)
+    qkv, g, bias = qkv.bfloat16(), g.bfloat16(), bias.to(bias_dtype)
+    kernel = cuda_attention.window_mhsa_backward_cuda
+    dqkv, dbias = kernel(qkv, bias, g, h, d ** -0.5)
+    plan = kernel.last_plan
+    assert plan == cuda_attention.short_bwd_plan(s, d, torch.bfloat16,
+                                                 bias_dtype)
+    assert plan.route == "wgmma" and plan.depth == (32 if d <= 32 else 64)
+    assert plan.smem_bytes == \
+        cuda_attention._library().short_attention_bwd_smem_bytes(s, d, 1)
+    dqkv2, dbias2 = kernel(qkv, bias, g, h, d ** -0.5)
+    want_dqkv, want_dbias = window_mhsa_backward_reference(
+        qkv.float(), bias.float(), g.float(), h, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, dqkv2) and torch.equal(dbias, dbias2)
+    assert dqkv.dtype == torch.bfloat16 and dbias.dtype == bias_dtype
+    assert _rel_err(dqkv, want_dqkv) <= TOL_BF16
+    assert _rel_err(dbias, want_dbias) <= TOL_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(53, 32), (64, 64), (16, 49)])
+def test_fp32_takes_the_scalar_route(cuda, s, d):
+    qkv, bias, g = _make(4, s, 2, d, cuda)
+    cuda_attention.window_mhsa_backward_cuda(qkv, bias.bfloat16(), g, 2,
+                                             d ** -0.5)
+    plan = cuda_attention.window_mhsa_backward_cuda.last_plan
+    assert plan == cuda_attention.short_bwd_plan(s, d, torch.float32,
+                                                 torch.bfloat16)
+    assert plan.route == "scalar"
+    assert plan.smem_bytes == \
+        cuda_attention._library().short_attention_bwd_smem_bytes(s, d, 0)
+
+
+@pytest.mark.cuda
 def test_backward_kernel_is_deterministic(cuda):
     qkv, bias, g = _make(512, 53, 8, 32, cuda, seed=2)
-    a = cuda_attention.window_mhsa_backward_cuda(qkv, bias, g, 8, 0.2)
-    b = cuda_attention.window_mhsa_backward_cuda(qkv, bias, g, 8, 0.2)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (qkv.to(dtype), bias, g.to(dtype), 8, 0.2)
+        a = cuda_attention.window_mhsa_backward_cuda(*args)
+        b = cuda_attention.window_mhsa_backward_cuda(*args)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
