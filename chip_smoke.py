@@ -76,19 +76,24 @@ Phases, each of which raises on failure:
      tensor cores;
  18. K5, the multi-scale deformable attention kernel, against its plain
      version in fp32 and bf16 at DINO-4scale's encoder and decoder shapes
-     (batch 2, 800x1333) and at odd ones (D 4, 8 and 64, a 1x1 level,
-     border and far-outside locations, N = 0, Q = 0), two launches
-     bit-identical; kernel, plain version and upstream's grid_sample form
-     timed at the served shapes;
+     (batch 2, 800x1333) and at odd ones (D 1, 4, 8, 24, 33, 48 and 64, a
+     1x1 level, border and far-outside locations, N = 0, Q = 0), and with
+     a value one element into its storage (scalar loads, the aligned
+     launch's bits), two launches bit-identical; the C entry point's
+     refusal of plans it cannot run; ptxas' registers and spills of every
+     instance, the served ones without spills; kernel, plain version and
+     upstream's grid_sample form timed at the served shapes, and the
+     kernel at the encoder shape with coherent locations (each query's
+     samples near its own token, as the model's);
  19. DINO-4scale on faster_vit_4_21k_224 in fp32, batch 1, 480x640: the
      card (kernel path) against the CPU (plain path), the backbone maps,
      the encoder's proposals, the two-stage selection and every decoder
-     layer, and its K1, K3 and K5 launches;
+     layer, and its K1, K3 and K5 launches, the K5 ones counted by plan;
  20. the serving path: that detector in bf16 at batch 2 on an 800x1333
      canvas: 17 K1 (each on the tensor cores), 12 K3 and 12 K5 launches
-     a forward, bf16 against fp32
-     on the same weights up to the encoder output, 10 timed batches, peak
-     memory, one forward profiled;
+     a forward, each bf16 K5 launch on a vector plan (V > 1), bf16
+     against fp32 on the same weights up to the encoder output, 10 timed
+     batches, peak memory, one forward profiled;
  21. the detection CLI (--eval --synthetic, the served config, 800x800)
      from a reference-layout DINO checkpoint it writes first, then the
      route check of DINO-4scale on faster_vit_0_224 at 800x1333 (11 K1,
@@ -269,9 +274,25 @@ K5_ODD = [(1, 37, 3, 4, 2, ((5, 7), (1, 1), (3, 2)), 0),
           (2, 50, 2, 8, 3, ((9, 4), (1, 1)), 0),
           (1, 64, 4, 64, 4, ((12, 17), (6, 9), (3, 5), (2, 3)), 0),
           (3, 41, 5, 33, 1, ((7, 7),), 0),
+          (2, 29, 3, 24, 3, ((8, 6), (4, 3), (1, 2)), 0),
+          (1, 23, 2, 1, 3, ((5, 4), (2, 2)), 0),
+          (2, 30, 3, 48, 2, ((7, 9), (4, 5)), 0),
           (0, 10, 8, 32, 4, DINO_LEVELS, 0),
           (2, 0, 8, 32, 4, DINO_LEVELS, 0)]
+# ... and with value one element into its storage: the decoder call and an
+# odd one
+K5_OFFSET = [K5_SERVED[1], K5_ODD[4]]
 TOL_K5_FP32 = 1e-5   # f32 throughout; only the order of the sums differs
+# K5 plans its C entry point must refuse at D 32 bf16, each beside whether
+# the value it is handed lies one element into its storage
+K5_WRONG_PLANS = [
+    ((4, 8, 8, 8, 8), True),    # 16-byte loads from a 2-byte-aligned value
+    ((4, 4, 4, 8, 8), False),   # 4 lanes of 4 channels: 16 of D's 32
+    ((2, 8, 16, 16, 8), False),  # two lanes a row: no instance runs it
+    ((4, 8, 8, 8, 9), False),   # nine warps a block, past kMaxWarps
+]
+# the instances msda_plan gives the served calls' f32 and bf16 launches
+K5_SERVED_INSTANCES = ("<bf16, V 8, G 4, NV 1>", "<float, V 4, G 8, NV 1>")
 DINO_CONFIG = "configs/dino/dino_4scale_faster_vit_4_21k_224.py"
 DINO_CANVAS = (800, 1333)
 DINO_BATCH = 2
@@ -449,6 +470,27 @@ def ptxas_instances(log: str, kernel: str, cuda_attention) -> list:
     return ptxas_entries(log, describe)
 
 
+def ptxas_k5_instances(log: str) -> dict:
+    """{instance: {registers, spill_stores, static_smem}} for each
+    msda_fwd_kernel<T, V, G, NV> that nvcc's -Xptxas -v log reports, each
+    printed."""
+    def describe(name):
+        args = re.search(r"msda_fwd_kernelI(f|13__nv_bfloat16)"
+                         r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
+        if args is None:
+            return None
+        return {"instance": f"<{'float' if args[1] == 'f' else 'bf16'}, "
+                            f"V {args[2]}, G {args[3]}, NV {args[4]}>"}
+
+    out = {}
+    for i in ptxas_entries(log, describe):
+        name = i.pop("instance")
+        out[name] = i
+        print(f"  ptxas: msda_fwd_kernel{name}: {i['registers']} registers, "
+              f"{i['spill_stores']} bytes of spill stores")
+    return out
+
+
 def print_instances(what: str, instances: list) -> None:
     for i in instances:
         print(f"  ptxas: {what} <{i['instance']}>: {i['registers']} "
@@ -533,6 +575,58 @@ class RouteLog:
               f"{dict(self.k2)}, expected {k1} and {k2} on {route}")
         print(f"{what}: K1 {dict(self.k1)}, K2 {dict(self.k2)} launches by "
               f"route")
+
+
+class K5Plans:
+    """Inside `with K5Plans(cuda_msda) as plans:`, each K5 launch's plan,
+    read from last_plan just after the launch, is counted in plans.count
+    by (dtype, plan). ms_deform_attn_cuda is wrapped for the block's
+    duration (its launches and last_plan read and written through to it);
+    the model, and the wrapper itself, look it up at each call."""
+
+    def __init__(self, cuda_msda):
+        self.cm = cuda_msda
+
+    def __enter__(self):
+        self.count = collections.Counter()
+        orig, count = self.cm.ms_deform_attn_cuda, self.count
+        self.orig = orig
+
+        class Counted:
+            launches = property(
+                lambda _: orig.launches,
+                lambda _, n: setattr(orig, "launches", n))
+            last_plan = property(
+                lambda _: orig.last_plan,
+                lambda _, plan: setattr(orig, "last_plan", plan))
+
+            def __call__(self, value, *args):
+                before = orig.launches
+                out = orig(value, *args)
+                if orig.launches > before:
+                    count[(str(value.dtype).split(".")[-1],
+                           orig.last_plan)] += 1
+                return out
+
+        self.cm.ms_deform_attn_cuda = Counted()
+        return self
+
+    def __exit__(self, *exc):
+        self.cm.ms_deform_attn_cuda = self.orig
+
+    def check(self, launches: int, what: str, vector: bool = False) -> None:
+        """At least `launches` K5 launches in the block and, where `vector`,
+        every bf16 one on vector loads (V > 1)."""
+        total = sum(self.count.values())
+        scalar = sum(n for (dtype, plan), n in self.count.items()
+                     if dtype == "bfloat16" and plan.vec == 1)
+        print(f"{what}: {total} K5 launches by plan: "
+              + "; ".join(f"{n} {dtype} at {plan._asdict()}"
+                          for (dtype, plan), n in self.count.items()))
+        check(total >= launches, f"{what}: {total} K5 launches, expected "
+                                 f"at least {launches}")
+        check(not (vector and scalar), f"{what}: {scalar} bf16 K5 launches "
+                                       "on scalar loads (V 1)")
 
 
 def check_short_plan(kernel, cuda_attention, bf16: bool, seq: int,
@@ -1716,11 +1810,52 @@ def msda_inputs(n, q, m, d, p, shapes, gen, timing=False):
     return value, loc.contiguous(), w.contiguous()
 
 
-def k5_phase(cuda_msda, msda) -> dict:
-    """K5 against its plain version at the served and odd shapes, then
-    kernel, plain version and the grid_sample form timed in bf16 at the
-    served shapes. The bf16 inputs are what the bf16 detector hands K5:
-    value and weights in bf16, the sampling locations in f32."""
+def at_element_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t one element into its storage, so that its
+    address is aligned to the element alone."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def k5_refuses_wrong_plans(cuda_msda, gen) -> None:
+    """K5's C entry point, handed each plan of K5_WRONG_PLANS in place of
+    msda_plan's, refuses it: the call raises and counts no launch."""
+    kernel = cuda_msda.ms_deform_attn_cuda
+    n, q, m, d, p, shapes, _ = K5_SERVED[1]
+    value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
+    v16, w16 = value.bfloat16(), w.bfloat16()
+    shifted = at_element_offset(v16)
+    make = cuda_msda.msda_plan
+    try:
+        for plan, offset in K5_WRONG_PLANS:
+            cuda_msda.msda_plan = lambda *_: cuda_msda.MsdaPlan(*plan)
+            before = kernel.launches
+            try:
+                kernel(shifted if offset else v16, shapes, loc, w16)
+                refused = False
+            except RuntimeError as err:
+                refused = "msda_forward" in str(err)
+            check(refused and kernel.launches == before,
+                  f"K5 ran plan {plan}, which its C entry point must refuse")
+    finally:
+        cuda_msda.msda_plan = make
+    torch.cuda.synchronize()
+    print(f"K5's C entry point refuses {len(K5_WRONG_PLANS)} wrong plans "
+          f"(misaligned vectors, too few channels, no instance, too many "
+          f"warps), each counting no launch")
+
+
+def k5_phase(cuda_msda, msda, ptx_log: str) -> dict:
+    """K5 against its plain version at the served and odd shapes and on a
+    value one element into its storage, its C entry point's refusal of
+    wrong plans and its instances' registers and spills, then kernel, plain
+    version and the grid_sample form timed in bf16 at the served shapes,
+    and the kernel at the encoder shape with coherent locations. The bf16
+    inputs are what the bf16 detector hands K5: value and weights in bf16,
+    the sampling locations in f32."""
+    from fastervit_tpu_torch.probes import msda_turns
     kernel = cuda_msda.ms_deform_attn_cuda
     plain = msda.msda_reference
     gen = torch.Generator(device="cuda").manual_seed(30)
@@ -1729,10 +1864,12 @@ def k5_phase(cuda_msda, msda) -> dict:
         value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
         v16, w16 = value.bfloat16(), w.bfloat16()
         before = kernel.launches
-        got, got16 = kernel(value, shapes, loc, w), kernel(v16, shapes, loc,
-                                                           w16)
+        got = kernel(value, shapes, loc, w)
+        plans = [kernel.last_plan] if n * q else []
+        got16 = kernel(v16, shapes, loc, w16)
         err32 = err16 = 0.0
         if n * q:
+            plans.append(kernel.last_plan)
             err32 = (got - plain(value, shapes, loc, w)).abs().max().item()
             want = plain(v16.float(), shapes, loc, w16.float())
             err16 = ((got16.float() - want).abs().max()
@@ -1750,17 +1887,51 @@ def k5_phase(cuda_msda, msda) -> dict:
               f"{shapes}: max|err| fp32 {err32:.3e} (tol {TOL_K5_FP32}), "
               f"bf16 max|err| / max(1, max|plain|) {err16:.3e} (tol "
               f"{2 ** -8:.3e}: one bf16 rounding); two launches "
-              "bit-identical")
+              "bit-identical; plans (G, V, channels a lane) "
+              + ", ".join(f"{pl.lanes}, {pl.vec}, {pl.channels}"
+                          for pl in plans))
         check(err32 <= TOL_K5_FP32, f"K5 fp32 error {err32} at "
                                     f"{(n, q, m, d, p)}")
         check(err16 <= 2 ** -8, f"K5 bf16 error {err16} at {(n, q, m, d, p)}")
         err32_all, err16_all = max(err32_all, err32), max(err16_all, err16)
         del value, loc, w, v16, w16, got, got16
 
+    # a value one element into its storage: scalar loads, the same bits
+    for n, q, m, d, p, shapes, _ in K5_OFFSET:
+        value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
+        for dtype, tol in ((torch.float32, TOL_K5_FP32),
+                           (torch.bfloat16, 2 ** -8)):
+            v, wt = value.to(dtype), w.to(dtype)
+            shifted = at_element_offset(v)
+            got = kernel(shifted, shapes, loc, wt)
+            plan = kernel.last_plan
+            same = torch.equal(got, kernel(v, shapes, loc, wt))
+            want = plain(v.float(), shapes, loc, wt.float())
+            err = ((got.float() - want).abs().max().item() if dtype ==
+                   torch.float32 else ((got.float() - want).abs().max()
+                                       / want.abs().max().clamp(min=1.0))
+                   .item())
+            print(f"K5 ms_deform_attn N={n} Q={q} M={m} D={d} {dtype}, value "
+                  f"one element into its storage: plan (G, V) "
+                  f"({plan.lanes}, {plan.vec}), error {err:.3e} (tol "
+                  f"{tol:.3e}), the aligned launch's bits: {same}")
+            check(plan.vec == 1 and same and err <= tol,
+                  f"K5 on an offset value at {(n, q, m, d, p)} {dtype}")
+            del v, wt, shifted, got, want
+        del value, loc, w
+    k5_refuses_wrong_plans(cuda_msda, gen)
+    instances = ptxas_k5_instances(ptx_log)
+    served = {i: instances.get(i) for i in K5_SERVED_INSTANCES}
+    check(all(r is not None and not r["spill_stores"]
+              for r in served.values()),
+          f"K5's served instances in the ptxas log, without spills: "
+          f"{served}")
+
     step = {"ms": 0.0, "plain_ms": 0.0, "grid_sample_ms": 0.0,
             "bound_ms": 0.0}
     per_call = {}
     ops_ms = bytes_ms = 0.0
+    served_plan = None
     for n, q, m, d, p, shapes, calls in K5_SERVED:
         value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen, timing=True)
         gs_err = (msda_grid_sample(value, shapes, loc, w)
@@ -1771,6 +1942,9 @@ def k5_phase(cuda_msda, msda) -> dict:
             lambda: plain(v16, shapes, loc, w16),
             lambda: kernel(v16, shapes, loc, w16),
             lambda: msda_grid_sample(v16, shapes, loc, w16), 20)
+        served_plan = kernel.last_plan
+        check(served_plan.vec > 1, f"K5's served bf16 call on scalar loads: "
+                                   f"{served_plan}")
         # value, locations and weights read, the output written: bf16 but
         # for the f32 locations
         nbytes = (2 * (v16.numel() + w16.numel() + n * q * m * d)
@@ -1782,22 +1956,40 @@ def k5_phase(cuda_msda, msda) -> dict:
         bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
         by = ("operations" if flops / F32_FLOP_PER_S
               > nbytes / HBM_BYTES_PER_S else "bytes")
-        per_call[f"({n},{q},{m},{d},{p})"] = {
-            "ms": ms, "plain_ms": plain_ms, "grid_sample_ms": gs_ms,
-            "bound_ms": bound, "bound_by": by}
+        # the corner rows a call gathers: 4 a sample, D bf16 channels each
+        corner_gb = samples * 4 * d * 2 / 1e9
+        row = {"ms": ms, "plain_ms": plain_ms, "grid_sample_ms": gs_ms,
+               "bound_ms": bound, "bound_by": by,
+               "g_samples_s": samples / ms / 1e6,
+               "corner_gb_s": corner_gb / ms * 1e3}
         for key, t in (("ms", ms), ("plain_ms", plain_ms),
                        ("grid_sample_ms", gs_ms), ("bound_ms", bound)):
             step[key] += calls * t
         ops_ms += calls * 1e3 * flops / F32_FLOP_PER_S
         bytes_ms += calls * 1e3 * nbytes / HBM_BYTES_PER_S
-        print(f"K5 ms_deform_attn N={n} Q={q} bf16: kernel {ms:.4f} ms "
-              f"({samples / ms / 1e6:.1f} G samples/s), plain "
+        print(f"K5 ms_deform_attn N={n} Q={q} bf16, uniform locations: "
+              f"kernel {ms:.4f} ms ({row['g_samples_s']:.1f} G samples/s, "
+              f"{row['corner_gb_s']:.0f} GB/s of corner rows), plain "
               f"{plain_ms:.4f} ms, grid_sample form {gs_ms:.4f} ms (fp32 "
               f"max|err| against plain {gs_err:.3e}), bound {bound:.4f} ms "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32, {by}) "
               "per call")
         check(gs_err <= 1e-4, f"grid_sample form off the plain version by "
                               f"{gs_err}")
+        if q == sum(h * w for h, w in shapes):
+            # the encoder's coherent locations, timed beside the uniform
+            loc_c = msda_turns.locations("coherent", n, q, m, p, shapes, gen)
+            ms_c = time_ms(lambda: kernel(v16, shapes, loc_c, w16), iters=20)
+            row["coherent"] = {"ms": ms_c,
+                               "g_samples_s": samples / ms_c / 1e6,
+                               "corner_gb_s": corner_gb / ms_c * 1e3}
+            print(f"K5 ms_deform_attn N={n} Q={q} bf16, coherent locations "
+                  f"(each query's samples near its own token): kernel "
+                  f"{ms_c:.4f} ms ({row['coherent']['g_samples_s']:.1f} G "
+                  f"samples/s, {row['coherent']['corner_gb_s']:.0f} GB/s of "
+                  "corner rows) per call")
+            del loc_c
+        per_call[f"({n},{q},{m},{d},{p})"] = row
         del v16, loc, w16
     print(f"K5 ms_deform_attn over one DINO-4scale bf16 b{DINO_BATCH} "
           f"800x1333 forward's 12 calls: kernel {step['ms']:.4f} ms, plain "
@@ -1821,9 +2013,11 @@ def k5_phase(cuda_msda, msda) -> dict:
                        "ms_deform_attn_core_pytorch form (4 grid_sample "
                        "calls and a weighted sum) is timed as "
                        "grid_sample_ms",
+            "plan": served_plan._asdict(),
+            "ptxas": served,
             "per": f"one DINO-4scale bf16 b{DINO_BATCH} 800x1333 forward (12 "
                    "calls: 6 in the encoder at Q = 22,223, 6 in the decoder "
-                   "at Q = 900)",
+                   "at Q = 900), uniform locations",
             "per_call": per_call}
 
 
@@ -3245,15 +3439,19 @@ def main() -> None:
     family_train_phase(fvt, cuda_attention, steps, mixup)
 
     # 18. K5 against its plain version
-    k5 = k5_phase(cuda_msda, msda)
+    k5 = k5_phase(cuda_msda, msda, ptx_log)
 
     # 19. DINO fp32: the kernel path on the card against the plain path on
     #     the CPU
     cfg = PyConfig.fromfile(REPO / DINO_CONFIG)
-    dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg)
+    with K5Plans(cuda_msda) as plans:
+        dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg)
+    plans.check(12, "DINO fp32 b1 forward (phase 19)")
 
     # 20. the serving path: DINO-4scale, bf16, batch 2, 800x1333
-    served_det = dino_serving_phase(cuda_attention, cuda_msda, dino, cfg)
+    with K5Plans(cuda_msda) as plans:
+        served_det = dino_serving_phase(cuda_attention, cuda_msda, dino, cfg)
+    plans.check(12, "DINO serving path (phase 20)", vector=True)
     k1["launches_detection"], k3["launches_detection"], k5["launches"] = (
         served_det["launches"])
     k5["launches_in"] = k1["launches_detection_in"] = \

@@ -352,7 +352,8 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.window_mhsa_long_backward.restype = ctypes.c_int
         lib.msda_forward.argtypes = (  # K5, bound in ops/cuda_msda.py
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
         lib.msda_probe_packed.argtypes = (  # P4a, in ops/cuda_msda.py
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

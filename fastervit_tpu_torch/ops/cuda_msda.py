@@ -17,16 +17,72 @@ machine with no nvcc and no card.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from fastervit_tpu_torch.ops import cuda_attention
 
 MAX_CHANNELS = 64   # kMaxChannels in csrc/msda_fwd.cu
-_WARPS_PER_BLOCK = 8  # kWarps in csrc/msda_fwd.cu
+MAX_VECTOR_BYTES = 16  # the widest load a lane makes
+_LANE_GROUPS = (4, 8, 16, 32)  # the group sizes csrc/msda_fwd.cu holds
+_WARPS_PER_BLOCK = 8   # kMaxWarps in csrc/msda_fwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
+_INT32_MAX = 2 ** 31 - 1
+
+
+class MsdaPlan(NamedTuple):
+    """How K5 runs one head width D, dtype and `value` pointer
+    (csrc/msda_fwd.cu): lanes a (n, q, m) row (G), channels a vector load
+    (V), channels a lane holds (a multiple of V), rows a warp (32/G) and
+    warps a block. The C entry point checks it and refuses what no
+    instance of the kernel runs."""
+    lanes: int
+    vec: int
+    channels: int
+    rows_per_warp: int
+    warps: int
+
+    def as_c(self):
+        """The five ints the C entry point takes (msda_fwd.cu::Plan)."""
+        return (ctypes.c_int * 5)(*self)
+
+
+def pointer_alignment(ptr: int) -> int:
+    """The largest power of two, at most MAX_VECTOR_BYTES, that divides
+    the address `ptr`."""
+    return min(MAX_VECTOR_BYTES, ptr & -ptr) if ptr else MAX_VECTOR_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def msda_plan(d: int, dtype: torch.dtype,
+              value_ptr_alignment: int) -> MsdaPlan:
+    """The plan of K5 for heads of D channels in `dtype` (that of value,
+    weights and output) and a `value` whose address is a multiple of
+    value_ptr_alignment bytes.
+
+    V is the widest vector, at most 16 bytes, that divides D and the
+    alignment (bf16 D 32 at 16 bytes: V 8; D 33 or an odd element offset:
+    V 1). G is the power of two, 4 to 32, that D's vectors fill best, one a
+    lane (bf16 D 32: G 4, eight rows a warp; f32 D 32: G 8); past 32
+    vectors (D > 32 with V 1) each of 32 lanes holds two. Eight warps a
+    block."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"K5 takes float32 or bfloat16, got {dtype}")
+    if not 1 <= d <= MAX_CHANNELS:
+        raise NotImplementedError(f"K5 takes 1 to {MAX_CHANNELS} channels a "
+                                  f"head, got {d}")
+    elem = dtype.itemsize
+    vec = MAX_VECTOR_BYTES // elem
+    while vec > 1 and (d % vec or value_ptr_alignment % (vec * elem)):
+        vec //= 2
+    vectors = d // vec
+    lanes = next(g for g in _LANE_GROUPS if g >= vectors or g == 32)
+    per_lane = -(-vectors // lanes)
+    return MsdaPlan(lanes, vec, per_lane * vec, 32 // lanes,
+                    _WARPS_PER_BLOCK)
 
 
 def check_supported(value_shape: Sequence[int], shapes: Tuple,
@@ -35,7 +91,8 @@ def check_supported(value_shape: Sequence[int], shapes: Tuple,
     """Raise unless K5 takes these shapes: value (N, S, M, D) with
     D <= MAX_CHANNELS and S = Σ H·W over `shapes`, loc (N, Q, M, L, P, 2)
     and weights (N, Q, M, L, P) with L = len(shapes), and a grid CUDA can
-    launch (one warp per (n, q, m), eight to a block)."""
+    launch at one row a warp, the fewest rows a block any plan has (the C
+    entry point checks the plan's own grid)."""
     if len(value_shape) != 4:
         raise ValueError(f"value must be (N, S, M, D), got "
                          f"{tuple(value_shape)}")
@@ -59,7 +116,7 @@ def check_supported(value_shape: Sequence[int], shapes: Tuple,
     if d > MAX_CHANNELS or d <= 0:
         raise NotImplementedError(f"K5 (ms_deform_attn_cuda) takes 1 to "
                                   f"{MAX_CHANNELS} channels a head, got {d}")
-    if -(-n * q * m // _WARPS_PER_BLOCK) > 2 ** 31 - 1 or s > 2 ** 31 - 1:
+    if -(-n * q * m // _WARPS_PER_BLOCK) > _INT32_MAX or s > _INT32_MAX:
         raise ValueError(f"N={n}, Q={q}, M={m}, S={s} exceed the launch "
                          "grid")
 
@@ -85,7 +142,9 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     passes, as the JAX package's does) or, beside bf16 values, bf16, which
     is widened to f32 (exactly); contiguous, on one card.
     Returns (N, Q, M·D) in value's dtype. Counts its launches in
-    `ms_deform_attn_cuda.launches`.
+    `ms_deform_attn_cuda.launches` and keeps the latest launch's MsdaPlan
+    (`msda_plan` of D, the dtype and value's address) in
+    `ms_deform_attn_cuda.last_plan`.
 
     Forward only: inputs that need a gradient raise NotImplementedError,
     since the MSDA backward (a col2im kernel) is the detection training
@@ -117,21 +176,26 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     out = torch.empty((n, q, m * d), dtype=value.dtype, device=value.device)
     if n * q == 0:
         return out
-    loc = loc.float()  # the kernel's locations are f32
+    how = msda_plan(d, value.dtype, pointer_alignment(value.data_ptr()))
+    loc = loc.float()  # the kernel's locations are f32, read as float2
+    if loc.data_ptr() % 8:
+        loc = loc.clone()
     levels = _level_table(shapes, value.device)
     lib = cuda_attention._library()
     with torch.cuda.device(value.device):
         err = lib.msda_forward(
             value.data_ptr(), levels.data_ptr(), loc.data_ptr(),
             weights.data_ptr(), out.data_ptr(), n, q, s, m, d, len(shapes),
-            p, int(value.dtype == torch.bfloat16),
+            p, int(value.dtype == torch.bfloat16), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     cuda_attention._raise_on(err, "msda_forward")
     ms_deform_attn_cuda.launches += 1
+    ms_deform_attn_cuda.last_plan = how
     return out
 
 
 ms_deform_attn_cuda.launches = 0
+ms_deform_attn_cuda.last_plan = None  # the MsdaPlan of the latest launch
 
 
 # The MSDA gather probes' kernels, P3a-c and P4a-d (csrc/msda_probe.cu)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from fastervit_tpu_torch.ops import cuda_msda
+from fastervit_tpu_torch.ops.cuda_msda import msda_plan, pointer_alignment
 from fastervit_tpu_torch.ops.msda import (MSDeformAttnModule,
                                           ms_deform_attn, msda_reference)
 
@@ -17,7 +18,10 @@ from fastervit_tpu_torch.ops.msda import (MSDeformAttnModule,
 SERVED = ((100, 167), (50, 84), (25, 42), (13, 21))
 # (N, Q, M, D, P, levels): the served encoder (Q = S) and decoder calls at
 # batch 2, then odd shapes: narrow and wide heads, a 1x1 level, one level,
-# many points, and empty batches and query sets
+# many points, and empty batches and query sets; between them they reach
+# every group size of K5's plans (`cuda_msda.msda_plan`: D 1, 4, 8, 16, 24,
+# 32, 33, 48, 64), a row's samples fewer than, and not a multiple of, its
+# group's lanes, and rows that do not fill a block
 CASES = [
     (2, 22223, 8, 32, 4, SERVED),
     (2, 900, 8, 32, 4, SERVED),
@@ -26,6 +30,9 @@ CASES = [
     (1, 64, 4, 64, 4, ((12, 17), (6, 9), (3, 5), (2, 3))),
     (3, 41, 5, 33, 1, ((7, 7),)),
     (1, 19, 2, 16, 20, ((6, 5), (3, 3))),
+    (2, 29, 3, 24, 3, ((8, 6), (4, 3), (1, 2))),
+    (1, 23, 2, 1, 3, ((5, 4), (2, 2))),
+    (2, 30, 3, 48, 2, ((7, 9), (4, 5))),
     (0, 10, 8, 32, 4, SERVED),
     (2, 0, 8, 32, 4, SERVED),
 ]
@@ -71,6 +78,8 @@ def test_kernel_fp32_matches_plain(cuda, n, q, m, d, p, shapes):
     assert got.shape == (n, q, m * d) and got.dtype == torch.float32
     assert cuda_msda.ms_deform_attn_cuda.launches == before + int(n * q > 0)
     if n * q:
+        assert cuda_msda.ms_deform_attn_cuda.last_plan == msda_plan(
+            d, torch.float32, pointer_alignment(value.data_ptr()))
         # f32 throughout; only the order of the sums differs
         assert (got - want).abs().max().item() <= 1e-5
         again = cuda_msda.ms_deform_attn_cuda(value, shapes, loc, w)
@@ -104,6 +113,11 @@ def test_kernel_bf16_value_f32_locations_matches_plain(cuda, n, q, m, d, p,
     got = cuda_msda.ms_deform_attn_cuda(value, shapes, loc, w)
     assert got.dtype == torch.bfloat16 and got.shape == (n, q, m * d)
     if n * q:
+        plan = cuda_msda.ms_deform_attn_cuda.last_plan
+        assert plan == msda_plan(d, torch.bfloat16,
+                                 pointer_alignment(value.data_ptr()))
+        if d % 2 == 0:  # the served form loads vectors
+            assert plan.vec > 1
         want = msda_reference(value.float(), shapes, loc, w.float())
         # the same f32 math on the same inputs, rounded to bf16 once
         bound = 2 ** -8 * max(1.0, want.abs().max().item())
@@ -112,6 +126,73 @@ def test_kernel_bf16_value_f32_locations_matches_plain(cuda, n, q, m, d, p,
                            want.bfloat16().float())
         again = cuda_msda.ms_deform_attn_cuda(value, shapes, loc, w)
         assert torch.equal(again, got)
+
+
+def _at_element_offset(t):
+    """A contiguous copy of t whose address is one element past an
+    allocation's (so aligned to the element alone)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n,q,m,d,p,shapes", [c for c in CASES
+                                              if c[0] * c[1] and c[1] < 2000])
+def test_value_at_an_odd_element_offset(cuda, dtype, n, q, m, d, p, shapes):
+    """A value that is a view one element into its storage runs on scalar
+    loads (V 1), and gives the aligned launch's bits, since each lane sums
+    its channels in the same order whatever the plan."""
+    value, loc, w = make_inputs(n, q, m, d, p, shapes, cuda, 3)
+    value, w = value.to(dtype), w.to(dtype)
+    shifted = _at_element_offset(value)
+    assert pointer_alignment(shifted.data_ptr()) == dtype.itemsize
+    got = cuda_msda.ms_deform_attn_cuda(shifted, shapes, loc, w)
+    plan = cuda_msda.ms_deform_attn_cuda.last_plan
+    assert plan == msda_plan(d, dtype, dtype.itemsize) and plan.vec == 1
+    aligned = cuda_msda.ms_deform_attn_cuda(value, shapes, loc, w)
+    assert torch.equal(got, aligned)
+    want = msda_reference(value.float(), shapes, loc, w.float())
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        bound = 2 ** -8 * max(1.0, want.abs().max().item())
+        assert (got.float() - want).abs().max().item() <= bound
+
+
+# plans the C entry point refuses, each beside the value it is given: a
+# D 32 bf16 value aligned to 16 bytes, or one element into its storage
+WRONG_PLANS = [
+    ((4, 8, 8, 8, 8), True),    # 16-byte loads from a 2-byte-aligned value
+    ((4, 4, 4, 8, 8), False),   # 4 lanes of 4 channels: 16 of D's 32
+    ((2, 8, 16, 16, 8), False),  # two lanes a row: no instance runs it
+    ((4, 8, 8, 8, 9), False),   # nine warps a block, past kMaxWarps
+    ((4, 8, 8, 4, 8), False),   # 4 lanes, 4 rows: not a whole warp
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan,shifted", WRONG_PLANS)
+def test_kernel_refuses_a_plan_it_cannot_run(cuda, plan, shifted,
+                                             monkeypatch):
+    """The C entry point checks the plan it is handed and refuses one that
+    no instance runs on these pointers: the call raises, and counts no
+    launch."""
+    n, q, m, d, p, shapes = CASES[1]
+    value, loc, w = make_inputs(n, q, m, d, p, shapes, cuda, 4)
+    value, w = value.bfloat16(), w.bfloat16()
+    if shifted:
+        value = _at_element_offset(value)
+    kernel = cuda_msda.ms_deform_attn_cuda
+    kernel(value, shapes, loc, w)
+    before = kernel.launches
+    monkeypatch.setattr(cuda_msda, "msda_plan",
+                        lambda *_: cuda_msda.MsdaPlan(*plan))
+    with pytest.raises(RuntimeError, match="msda_forward"):
+        kernel(value, shapes, loc, w)
+    assert kernel.launches == before
 
 
 @pytest.mark.cuda
