@@ -98,12 +98,15 @@ Phases, each of which raises on failure:
      from a reference-layout DINO checkpoint it writes first, then the
      route check of DINO-4scale on faster_vit_0_224 at 800x1333 (11 K1,
      6 K3, 12 K5);
- 22. K6, the fused HAT sub-block kernel, against its plain version in fp32
-     and bf16 at FasterViT-0's batch-256 sites (carrier, joint, level 3)
-     and odd ones (fv1's carrier, 10 heads, hd 49, S = 1, a ragged batch,
-     B = 0), γ learned and ones, its DropPath instantiation with zero
-     masks, two launches bit-identical; K6, the plain version and the
-     composed sub-block timed at the fv0 sites beside the bound;
+ 22. K6, the fused HAT sub-block kernel: ptxas' registers and spills of
+     its two tensor-core instances (none in the served one), its C entry
+     point's refusal of 7 wrong plans; against its plain version in fp32
+     and bf16 at FasterViT-0's batch-256 sites (carrier, joint, level 3;
+     bf16 on the wgmma route with a ring of 3 or more slots) and odd ones
+     (fv1's carrier, 10 heads, hd 49, S = 1, a ragged batch, B = 0), γ
+     learned and ones, its DropPath instantiation with zero masks, two
+     launches bit-identical; K6, the plain version and the composed
+     sub-block timed at the fv0 sites beside the bound;
  23. faster_vit_0_224 fp32 b4 with set_fused_hat(True): the card (17 K6, no
      K1) against the CPU (plain path) and the card's composed path;
  24. the serving path through the fused block: faster_vit_0_224 bf16 b256
@@ -1114,7 +1117,7 @@ def train_parity_phase(fvt, cuda_attention, steps,
 
 
 KINDS = [  # (kind, substrings of a kernel's name), first match wins
-    ("K6 hat_block", ("hat_block_kernel",)),
+    ("K6 hat_block", ("hat_block_kernel", "hat_block_tc_kernel")),
     ("K5 ms_deform_attn", ("msda_fwd",)),
     ("K4 window_mhsa_long_backward", ("long_bwd", "long_dbias_sum")),
     ("K3 window_mhsa_long", ("window_mhsa_long",)),
@@ -2309,22 +2312,90 @@ def drop_masks(b, gen, keep=0.6):
     return masks
 
 
-def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
+def ptxas_k6_instances(log: str) -> list:
+    """[{instance, served, registers, spill_stores, static_smem}] for each
+    hat_block_tc_kernel<HAS_DP> (K6's tensor-core route) that nvcc's
+    -Xptxas -v log reports, each printed; the instance without DropPath is
+    the served one (set_fused_hat's forwards)."""
+    def describe(name):
+        args = re.search(r"hat_block_tc_kernelILb([01])E", name)
+        if args is None:
+            return None
+        return {"instance": f"<HAS_DP {args[1]}>", "served": args[1] == "0"}
+
+    out = ptxas_entries(log, describe)
+    for i in out:
+        print(f"  ptxas: hat_block_tc_kernel{i['instance']}: "
+              f"{i['registers']} registers, {i['spill_stores']} bytes of "
+              f"spill stores{' (served)' if i['served'] else ''}")
+    return out
+
+
+def k6_refuses_wrong_plans(cuda_hat_block, gen) -> None:
+    """K6's C entry point, handed each wrong plan below in place of
+    cuda_hat_block.plan's, refuses it: the call raises and counts no
+    launch."""
+    kernel = cuda_hat_block.hat_block_cuda
+    b, s, h, c = 4, 16, 8, 256
+    tc = cuda_hat_block.plan(b, s, c, 4 * c, h, True)
+    sc = cuda_hat_block.plan(b, s, c, 4 * c, h, False)
+    wrong = [(torch.float32, tc, "the tensor cores for f32"),
+             (torch.bfloat16, tc._replace(stages=2), "a ring of 2 slots"),
+             (torch.bfloat16, tc._replace(stages=9), "a ring of 9 slots"),
+             (torch.bfloat16, tc._replace(warpgroups=3), "3 warpgroups"),
+             (torch.bfloat16, tc._replace(smem_bytes=tc.smem_bytes + 16),
+              "a wrong shared-memory figure"),
+             (torch.bfloat16, tc._replace(windows_per_block=5),
+              "80 tokens a block"),
+             (torch.float32, sc._replace(stages=3), "a scalar plan with a "
+                                                    "ring")]
+    make = cuda_hat_block.plan
+    try:
+        for dtype, plan, what in wrong:
+            x, p, bias = hat_inputs(b, s, h, c, gen, dtype)
+            cuda_hat_block.plan = lambda *_: plan
+            before = kernel.launches
+            try:
+                kernel(x, p, bias, h, 0.1)
+                refused = False
+            except RuntimeError as err:
+                refused = "hat_block" in str(err)
+            check(refused and kernel.launches == before,
+                  f"K6 ran the plan {tuple(plan)} ({what}), which its C "
+                  "entry point must refuse")
+    finally:
+        cuda_hat_block.plan = make
+    torch.cuda.synchronize()
+    print(f"K6's C entry point refuses {len(wrong)} wrong plans ("
+          + ", ".join(w for *_, w in wrong) + "), each counting no launch")
+
+
+def k6_phase(cuda_hat_block, hat_block, attention, ptx_log: str) -> dict:
     """K6 against its plain version in fp32 and bf16 at FasterViT-0's
     batch-256 sites and odd shapes, γ learned and ones, the DropPath
-    instantiation at the joint site, two launches bit-identical; K6, the
-    plain version and the composed sub-block timed at the fv0 sites."""
+    instantiation at the joint site, two launches bit-identical, every bf16
+    fv0 site on the tensor-core route; wrong plans refused; ptxas of the
+    tensor-core instances (no spills in the served one); K6, the plain
+    version and the composed sub-block timed at the fv0 sites."""
     kernel = cuda_hat_block.hat_block_cuda
     plain = hat_block.hat_block_reference
     lib = cuda_hat_block.cuda_attention._library()
     gen = torch.Generator(device="cuda").manual_seed(40)
+    instances = ptxas_k6_instances(ptx_log)
+    check(len(instances) == 2, f"ptxas reports {len(instances)} K6 "
+                               "tensor-core instances, expected 2")
+    for i in instances:
+        check(not (i["served"] and i["spill_stores"]),
+              f"K6's served instance {i['instance']} spills "
+              f"{i['spill_stores']} bytes")
+    k6_refuses_wrong_plans(cuda_hat_block, gen)
 
     def plan_of_launch(s, h, c):
         """The plan K6 just launched with, held against the kernel's own
         shared-memory figure."""
         pl = kernel.last_plan
         smem = lib.hat_block_smem_bytes(s, c, h, pl.windows_per_block,
-                                        int(pl.tensor_cores))
+                                        int(pl.tensor_cores), pl.stages)
         check(smem == pl.smem_bytes, f"K6's plan at S={s} H={h} C={c} counts "
                                      f"{pl.smem_bytes} bytes, the kernel {smem}")
         return pl
@@ -2366,8 +2437,8 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
                   f"max|plain|) fp32 {err32:.3e} (tol {TOL_K6_FP32}), bf16 "
                   f"{err16:.3e} (tol {TOL_K6_BF16}); two launches "
                   f"bit-identical: {same}; plan fp32 {tuple(plan32)}, bf16 "
-                  f"{tuple(plan16)} (windows a block, tensor cores, smem "
-                  "bytes)")
+                  f"{tuple(plan16)} (route, windows a block, ring stages, "
+                  "warpgroups, smem bytes)")
             check(err32 <= TOL_K6_FP32, f"K6 fp32 error {err32} at "
                                         f"{(b, s, h, c)}")
             check(err16 <= TOL_K6_BF16, f"K6 bf16 error {err16} at "
@@ -2380,8 +2451,10 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
             abs16_all = max(abs16_all, abs16)
         if not calls:
             continue
-        check(plan16.tensor_cores, f"K6 bf16 at the fv0 site {(b, s, h, c)} "
-                                   "runs on tensor cores")
+        check(plan16.route == "wgmma"
+              and plan16.stages >= cuda_hat_block.MIN_STAGES,
+              f"K6 bf16 at the fv0 site {(b, s, h, c)} runs {tuple(plan16)}, "
+              "not the tensor-core route with a ring of 3 or more slots")
         # the serving path's dtypes, in turns; the composed sub-block is
         # the yardstick (no single PyTorch call computes a HAT sub-block)
         hidden, hd = 4 * c, c // h
@@ -2402,6 +2475,7 @@ def k6_phase(cuda_hat_block, hat_block, attention) -> dict:
         composed_fwd += calls * composed_ms
         bound_fwd += calls * bound
         per_call.append({"B": b, "S": s, "H": h, "C": c, "calls": calls,
+                         "plan": plan16._asdict(),
                          "ms": ms, "plain_ms": plain_ms,
                          "composed_ms": composed_ms, "bound_ms": bound,
                          "gflop": flops / 1e9, "mb": nbytes / 1e6})
@@ -3463,7 +3537,7 @@ def main() -> None:
     dino_cli_phase(cuda_attention, cuda_msda, dino, detection_cli, cfg)
 
     # 22. K6 against its plain version
-    k6 = k6_phase(cuda_hat_block, hat_block, attention)
+    k6 = k6_phase(cuda_hat_block, hat_block, attention, ptx_log)
 
     # 23. fv0 fp32 with the fused block: K6 on the card against the plain
     #     version on the CPU

@@ -368,7 +368,8 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.msda_probe_wide.restype = ctypes.c_int
         lib.hat_block_forward.argtypes = (  # K6, in ops/cuda_hat_block.py
-            [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 11
+            [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_void_p])
         lib.hat_block_forward.restype = ctypes.c_int
         lib.attn_online_forward.argtypes = (  # P1
@@ -389,7 +390,7 @@ def _library() -> ctypes.CDLL:
         lib.long_attention_smem_bytes.restype = ctypes.c_longlong
         lib.long_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.long_attention_bwd_smem_bytes.restype = ctypes.c_longlong
-        lib.hat_block_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.hat_block_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.hat_block_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p

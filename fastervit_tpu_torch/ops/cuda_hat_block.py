@@ -10,11 +10,14 @@ dtype or a failed launch raises; nothing falls back to the plain version
 no nvcc and no card.
 
 K6's limits are its own, not the TPU's VMEM: a window of S <= MAX_SEQ
-tokens, a head dim <= MAX_HEAD_DIM, and a shared-memory plan (`plan`: the
-f32 residual of the block's windows, one head's qkv and logits, two staged
-GEMM tiles) within the 227 KB a block may use. The plan is made here, once:
-the kernel takes the windows a block holds and the choice of tensor cores
-as arguments, and only checks them.
+tokens, a head dim <= MAX_HEAD_DIM, and a shared-memory plan within the
+227 KB a block may use. Two routes (`plan`): bf16 at widths that are
+multiples of 32 on the tensor cores (wgmma, the weight tiles streamed
+through a ring of shared-memory slots), where its plan fits; f32, and bf16
+at other widths, on scalar FMA (the f32 residual of the block's windows,
+one head's qkv and logits, two staged GEMM tiles). The plan is made here,
+once: the kernel takes it as five ints, checks it against its own formulas
+and refuses one it cannot run.
 """
 from __future__ import annotations
 
@@ -29,9 +32,20 @@ MAX_SEQ = 64          # kMaxSeq in csrc/hat_block.cu
 MAX_HEAD_DIM = 64     # kMaxHeadDim
 SMEM_LIMIT = 232448   # kSmemLimit: 227 KB, the most an H100 block may use
 _MAX_ROWS = 64        # kMaxRows: tokens a block holds, whole windows
-_KT, _TILE_STRIDE = 32, 65  # kKT, kTileStride
-_TC_K = 32            # kTcK: the tensor-core path's widths are multiples
-_TC_STAGE_FLOATS = 2 * 2 * 64 * (_TC_K + 8) // 2 + 8 * 256  # kTcStageFloats
+_KT, _TILE_STRIDE = 32, 65  # kKT, kTileStride (the scalar route)
+# the tensor-core route (namespace tcr): a ring slot holds a weight tile of
+# _NT output columns × _KT_TC of depth in bf16; C and hidden are multiples
+# of _WIDTH; the MLP runs in chunks of _HC hidden columns; each of the
+# _WARPGROUPS consumer warpgroups keeps _ATTN_STAGES stages of q, k, v,
+# each 64 rows × _ATTN_DEPTH (hd padded with zeros)
+_NT, _KT_TC = 128, 64         # kNt, kKt
+_SLOT_BYTES = _NT * _KT_TC * 2  # kSlotBytes
+MIN_STAGES, MAX_STAGES = 3, 8   # kMinStages, kMaxStages
+_WARPGROUPS = 2       # kWarpgroups
+_HC = 128             # kHc
+_ATTN_STAGES = 2      # kAttnStages
+_ATTN_DEPTH = 64      # kD
+_WIDTH = 32           # kWidth
 _DTYPES = (torch.float32, torch.bfloat16)
 # The fused block's params, in the order K6 takes them (the JAX package's
 # _PARAM_ORDER), and the four matrices among them
@@ -42,39 +56,76 @@ MATRICES = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
 
 
 class Plan(NamedTuple):
-    """How K6 runs a shape: whole windows a block holds, whether the bf16
-    products run on tensor cores (wmma) or scalar FMA, and the block's
-    dynamic shared memory in bytes."""
+    """How K6 runs a shape: the route ("wgmma": bf16 on the tensor cores,
+    "scalar": scalar FMA), whole windows a block holds, the weight tiles
+    the ring holds and the consumer warpgroups (both 0 on the scalar
+    route), and the block's dynamic shared memory in bytes."""
+    route: str
     windows_per_block: int
-    tensor_cores: bool
+    stages: int
+    warpgroups: int
     smem_bytes: int
+
+    @property
+    def tensor_cores(self) -> bool:
+        return self.route == "wgmma"
+
+    def as_c(self) -> tuple:
+        """The five ints the C entry point takes."""
+        return (int(self.tensor_cores), self.windows_per_block, self.stages,
+                self.warpgroups, self.smem_bytes)
 
 
 def _smem(seq: int, c: int, num_heads: int, wpb: int,
-          tensor_cores: bool = False) -> int:
-    """hat_block_smem_bytes in csrc/hat_block.cu."""
+          route: str = "scalar", stages: int = 0) -> int:
+    """hat_block_smem_bytes in csrc/hat_block.cu: the scalar route's
+    layout, or the tensor-core route's with a ring of `stages` slots."""
     rows = wpb * seq
-    floats = (rows * c + 2 * _MAX_ROWS + 2 * c
+    if route == "wgmma":
+        x_region = max(rows * c * 4,
+                       _WARPGROUPS * _ATTN_STAGES * 3 * 64 * _ATTN_DEPTH * 2)
+        return (stages * _SLOT_BYTES + 64 * c * 2 + 64 * _HC * 2 + x_region
+                + 2 * 64 * 4 + 2 * stages * 8)
+    floats = (rows * c + 2 * _MAX_ROWS + 2 * c + 2 * _KT * _TILE_STRIDE
               + rows * ((3 * (c // num_heads)) | 1) + rows * seq)
-    if tensor_cores:  # the bf16 LayerNorm output and the cp.async stage
-        y16_bytes = -(-rows // 16) * 16 * (c + 8) * 2
-        floats += -(-y16_bytes // 32) * 8 + _TC_STAGE_FLOATS
-    else:             # the two staged f32 tiles
-        floats += 2 * _KT * _TILE_STRIDE
     return 4 * floats
+
+
+def _tc_plan(b: int, seq: int, c: int, num_heads: int) -> Optional[Plan]:
+    """The tensor-core plan: windows a block to fill the card (at least one
+    block an SM where the batch allows, at most 64 tokens), then fewer
+    while the ring's MIN_STAGES slots do not fit; the ring as deep as fits,
+    up to MAX_STAGES. None if one window with MIN_STAGES does not fit."""
+    blocks_per_card = cuda_attention._SMS
+    wpb = max(1, min(_MAX_ROWS // seq, b, -(-b // blocks_per_card)))
+    for w in range(wpb, 0, -1):
+        free = SMEM_LIMIT - _smem(seq, c, num_heads, w, "wgmma", 0)
+        stages = min(MAX_STAGES, free // (_SLOT_BYTES + 16))
+        if stages >= MIN_STAGES:
+            return Plan("wgmma", w, stages, _WARPGROUPS,
+                        _smem(seq, c, num_heads, w, "wgmma", stages))
+    return None
+
+
+def _scalar_plan(b: int, seq: int, c: int, num_heads: int) -> Plan:
+    """As many whole windows a block as fit in 64 tokens, the batch and
+    SMEM_LIMIT, at least one."""
+    wpb = max(1, min(_MAX_ROWS // seq, b))
+    while wpb > 1 and _smem(seq, c, num_heads, wpb) > SMEM_LIMIT:
+        wpb -= 1
+    return Plan("scalar", wpb, 0, 0, _smem(seq, c, num_heads, wpb))
 
 
 def plan(b: int, seq: int, c: int, hidden: int, num_heads: int,
          bf16: bool) -> Plan:
-    """K6's plan for x (b, seq, c): as many whole windows a block as fit in
-    64 tokens, the batch and SMEM_LIMIT, at least one; tensor cores for bf16
-    where C and hidden are multiples of 32 and their larger plan fits."""
-    wpb = max(1, min(_MAX_ROWS // seq, b))
-    while wpb > 1 and _smem(seq, c, num_heads, wpb) > SMEM_LIMIT:
-        wpb -= 1
-    tc = (bf16 and c % _TC_K == 0 and hidden % _TC_K == 0
-          and _smem(seq, c, num_heads, wpb, True) <= SMEM_LIMIT)
-    return Plan(wpb, tc, _smem(seq, c, num_heads, wpb, tc))
+    """K6's plan for x (b, seq, c): the tensor cores for bf16 where C and
+    hidden are multiples of 32 and a plan of theirs fits (`_tc_plan`),
+    scalar FMA otherwise (`_scalar_plan`)."""
+    if bf16 and c % _WIDTH == 0 and hidden % _WIDTH == 0:
+        how = _tc_plan(b, seq, c, num_heads)
+        if how is not None:
+            return how
+    return _scalar_plan(b, seq, c, num_heads)
 
 
 def unsupported(x_shape: Sequence[int], c: int, hidden: int,
@@ -97,7 +148,7 @@ def unsupported(x_shape: Sequence[int], c: int, hidden: int,
     if smem > SMEM_LIMIT:
         return (f"K6's shared-memory plan needs {smem} bytes at S={s}, "
                 f"C={c}, H={num_heads}, over the {SMEM_LIMIT} a block may use")
-    if -(-b // plan(b, s, c, hidden, num_heads, False).windows_per_block) \
+    if -(-b // _scalar_plan(b, s, c, num_heads).windows_per_block) \
             > 2 ** 31 - 1 or num_heads * s * s > 2 ** 31 - 1:
         return f"B={b}, S={s}, H={num_heads} exceed the launch grid"
     return None
@@ -170,28 +221,22 @@ def hat_block_cuda(x: torch.Tensor, params: Dict[str, torch.Tensor],
         if dp1.shape != (b,) or dp2.shape != (b,):
             raise ValueError(f"dp1 and dp2 must be ({b},), got "
                              f"{tuple(dp1.shape)} and {tuple(dp2.shape)}")
-    # ctx, then the wide part for qkv and h1, each with _MAX_ROWS rows of
-    # padding that the tensor-core loads of the last block may read
-    rows = b * s + _MAX_ROWS
-    scratch = torch.empty(rows * (c + max(3 * c, hidden)), dtype=x.dtype,
-                          device=x.device)
-    ptrs = [x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            scratch.data_ptr() + rows * c * x.element_size(),
-            bias.data_ptr(), dp1.data_ptr() if has_dp else 0,
-            dp2.data_ptr() if has_dp else 0]
-    ptrs += [params[k].data_ptr() for k in PARAM_ORDER]
     how = plan(b, s, c, hidden, num_heads, x.dtype == torch.bfloat16)
-    # the tensor-core loads need the scratch and the matrices 32-byte aligned
-    operands = [2, 3] + [7 + PARAM_ORDER.index(k) for k in MATRICES]
-    if how.tensor_cores and any(ptrs[i] % 32 for i in operands):
-        how = Plan(how.windows_per_block, False,
-                   _smem(s, c, num_heads, how.windows_per_block))
+    scratch, ptrs = _scratch(x, out, hidden, how)
+    ptrs += [bias.data_ptr(), dp1.data_ptr() if has_dp else 0,
+             dp2.data_ptr() if has_dp else 0]
+    ptrs += [params[k].data_ptr() for k in PARAM_ORDER]
+    # the tensor-core route reads x, out, the scratch and the matrices in
+    # 16-byte units
+    operands = [0, 1, 3] + [7 + PARAM_ORDER.index(k) for k in MATRICES]
+    if how.tensor_cores and any(ptrs[i] % 16 for i in operands):
+        how = _scalar_plan(b, s, c, num_heads)
+        scratch, ptrs[:4] = _scratch(x, out, hidden, how)
     lib = cuda_attention._library()
     with torch.cuda.device(x.device):
         err = lib.hat_block_forward(
             (ctypes.c_void_p * len(ptrs))(*ptrs), b, s, c, hidden, num_heads,
-            how.windows_per_block, int(how.tensor_cores),
-            int(x.dtype == torch.bfloat16),
+            (ctypes.c_int * 5)(*how.as_c()), int(x.dtype == torch.bfloat16),
             int(params["ln1_scale"].dtype == torch.bfloat16),
             int(bias.dtype == torch.bfloat16), int(has_dp), float(scale),
             torch.cuda.current_stream().cuda_stream)
@@ -199,6 +244,23 @@ def hat_block_cuda(x: torch.Tensor, params: Dict[str, torch.Tensor],
     hat_block_cuda.launches += 1
     hat_block_cuda.last_plan = how
     return out
+
+
+def _scratch(x: torch.Tensor, out: torch.Tensor, hidden: int, how: Plan):
+    """The scratch a plan needs and the first four of the kernel's
+    pointers (x, out, ctx, the wide part). Scalar route:
+    ctx, then the wide part for h1, each with _MAX_ROWS rows of padding;
+    tensor-core route: qkv (B·S, 3C) alone, as both."""
+    b, s, c = x.shape
+    if how.tensor_cores:
+        scratch = torch.empty(b * s * 3 * c, dtype=x.dtype, device=x.device)
+        return scratch, [x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                         scratch.data_ptr()]
+    rows = b * s + _MAX_ROWS
+    scratch = torch.empty(rows * (c + max(3 * c, hidden)), dtype=x.dtype,
+                          device=x.device)
+    return scratch, [x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     scratch.data_ptr() + rows * c * x.element_size()]
 
 
 hat_block_cuda.launches = 0

@@ -110,12 +110,76 @@ def test_kernel_bf16_matches_plain(cuda, b, s, h, c, learned_gamma):
                          + [(16, 8, 256), (53, 8, 256), (49, 16, 512)])
 def test_plan_smem_matches_the_kernel(cuda, s, h, c):
     """The shared memory ops/cuda_hat_block.py plans with, held against the
-    kernel's own figure, at every block size and both product paths."""
+    kernel's own figure, at every block size, both routes and every ring
+    depth."""
     lib = cuda_attention._library()
     for wpb in range(1, 64 // s + 1):
-        for tc in (False, True):
-            assert lib.hat_block_smem_bytes(s, c, h, wpb, int(tc)) == \
-                cuda_hat_block._smem(s, c, h, wpb, tc)
+        assert lib.hat_block_smem_bytes(s, c, h, wpb, 0, 0) == \
+            cuda_hat_block._smem(s, c, h, wpb)
+        for stages in range(cuda_hat_block.MIN_STAGES,
+                            cuda_hat_block.MAX_STAGES + 1):
+            assert lib.hat_block_smem_bytes(s, c, h, wpb, 1, stages) == \
+                cuda_hat_block._smem(s, c, h, wpb, "wgmma", stages)
+
+
+# (B, S, heads, C): FasterViT-0's three sites at a small batch, FasterViT-1
+# to -3's admitted widths on the tensor cores (hd 40, 48, 64; FasterViT-3's
+# carriers moved there from scalar FMA), and ragged batches of carrier
+# windows that leave the last block one window short
+TC_CASES = [(5, 16, 8, 256), (3, 53, 8, 256), (2, 49, 16, 512),
+            (6, 16, 8, 320), (2, 53, 8, 320), (4, 16, 8, 384),
+            (2, 53, 8, 384), (4, 16, 8, 512), (259, 16, 8, 256),
+            (133, 16, 8, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,c", TC_CASES)
+def test_tensor_core_route_at_family_widths(cuda, b, s, h, c):
+    """bf16 on the wgmma route at the family's admitted widths, within the
+    bf16 tolerance of the plain version, two launches bit-identical."""
+    x, params, bias = make(b, s, h, c, cuda, seed=11)
+    x16, p16, b16 = x.bfloat16(), cast(params, torch.bfloat16), \
+        bias.bfloat16()
+    scale = (c // h) ** -0.5
+    got = cuda_hat_block.hat_block_cuda(x16, p16, b16, h, scale)
+    plan = cuda_hat_block.hat_block_cuda.last_plan
+    assert plan.route == "wgmma" and plan.stages >= cuda_hat_block.MIN_STAGES
+    if b % plan.windows_per_block:
+        assert b > plan.windows_per_block  # a short last block
+    want = hb.hat_block_reference(x16, p16, b16, h, scale, attn_impl="plain")
+    assert (got.float() - want.float()).abs().max().item() <= bound(
+        want, TOL_BF16)
+    assert torch.equal(cuda_hat_block.hat_block_cuda(x16, p16, b16, h, scale),
+                       got)
+
+
+# Plans the C entry point must refuse, each beside a shape it is handed
+# with: the tensor cores for f32, a ring of 2 and of 9 slots, a third
+# warpgroup, a wrong shared-memory figure, more than 64 tokens a block, and
+# a scalar plan with a ring
+def _wrong_plans():
+    tc = cuda_hat_block.plan(4, 16, 256, 1024, 8, True)
+    sc = cuda_hat_block.plan(4, 16, 256, 1024, 8, False)
+    return [(torch.float32, tc._replace(smem_bytes=tc.smem_bytes)),
+            (torch.bfloat16, tc._replace(stages=2)),
+            (torch.bfloat16, tc._replace(stages=9)),
+            (torch.bfloat16, tc._replace(warpgroups=3)),
+            (torch.bfloat16, tc._replace(smem_bytes=tc.smem_bytes + 16)),
+            (torch.bfloat16, tc._replace(windows_per_block=5)),
+            (torch.float32, sc._replace(stages=3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(7))
+def test_wrong_plans_are_refused(cuda, monkeypatch, case):
+    dtype, wrong = _wrong_plans()[case]
+    x, params, bias = make(4, 16, 8, 256, cuda)
+    x, params = x.to(dtype), cast(params, dtype)
+    monkeypatch.setattr(cuda_hat_block, "plan", lambda *_: wrong)
+    before = cuda_hat_block.hat_block_cuda.launches
+    with pytest.raises(RuntimeError, match="hat_block"):
+        cuda_hat_block.hat_block_cuda(x, params, bias, 8, 0.1)
+    assert cuda_hat_block.hat_block_cuda.launches == before
 
 
 @pytest.mark.cuda

@@ -328,23 +328,28 @@ def test_admission_beside_jax(name, monkeypatch):
     assert counts == ADMITTED[name], (name, counts, seen)
 
 
-# K6's launch plan: (B, S, H, C, bf16) -> (whole windows a block, tensor
-# cores). FasterViT-0's batch-256 sites in bf16 all run on tensor cores; f32
-# and widths that are not multiples of 32 take scalar FMA; a batch smaller
-# than the windows that would fit sets the block's size.
-PLANS = [((256, 16, 8, 256, True), (4, True)),
-         ((1024, 53, 8, 256, True), (1, True)),
-         ((256, 49, 16, 512, True), (1, True)),
-         ((256, 49, 16, 512, False), (1, False)),
-         ((2, 16, 8, 256, True), (2, True)),
-         ((3, 49, 4, 196, True), (1, False))]
+# K6's launch plan: (B, S, H, C, bf16) -> (route, whole windows a block).
+# FasterViT-0's batch-256 sites in bf16 all run on the tensor cores (wgmma),
+# the carriers two windows a block so that 128 blocks fill the card; f32 and
+# widths that are not multiples of 32 take scalar FMA; a small batch gives
+# one window a block on the tensor cores.
+PLANS = [((256, 16, 8, 256, True), ("wgmma", 2)),
+         ((1024, 53, 8, 256, True), ("wgmma", 1)),
+         ((256, 49, 16, 512, True), ("wgmma", 1)),
+         ((256, 49, 16, 512, False), ("scalar", 1)),
+         ((2, 16, 8, 256, True), ("wgmma", 1)),
+         ((3, 49, 4, 196, True), ("scalar", 1))]
 
 
 @pytest.mark.parametrize("shape,want", PLANS)
 def test_k6_plan(shape, want):
     b, s, h, c, bf16 = shape
     plan = cuda_hat_block.plan(b, s, c, 4 * c, h, bf16)
-    assert (plan.windows_per_block, plan.tensor_cores) == want
-    assert plan.smem_bytes == cuda_hat_block._smem(s, c, h, *want)
+    assert (plan.route, plan.windows_per_block) == want
+    assert plan.smem_bytes == cuda_hat_block._smem(
+        s, c, h, plan.windows_per_block, plan.route, plan.stages)
     assert plan.smem_bytes <= cuda_hat_block.SMEM_LIMIT
+    assert plan.tensor_cores == (want[0] == "wgmma")
+    assert (plan.stages >= cuda_hat_block.MIN_STAGES if plan.tensor_cores
+            else plan.stages == 0)
     assert hb.fused_block_supported((b, s, c), c, 4 * c, h)
