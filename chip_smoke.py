@@ -130,13 +130,19 @@ Phases, each of which raises on failure:
      TFLOP/s; then the probes' main path, attn_vpu_probe and
      attn_online_probe through their main at that call, their JSON printed
      and kept in the output directory, P1 and P2 launched there;
- 27. the MSDA gather probes' kernels: P3a (fused_gather), P3b
-     (fused_gather_p4, P = 1, 2, 4), P3c (fused_gather_per_head) and P4a
-     (packed_gather on f32 and bf16 corner-packed maps, P = 1, 2, 4)
-     against their plain versions at MOTR's four padded levels at the
-     probes' QP 408,000 and at odd shapes (a 3x3 map, QP 4 and 4,004, one
-     head, D 64, QP 0), each also with out-of-range samples, which must
-     give NaN at the plain versions' places; two launches bit-identical;
+ 27. the MSDA gather probes' kernels: ptxas' registers and spills of the
+     81 instances of the pair and packed kernel (P3a-c, P4a, P4b; none in
+     the 18 that D 32 runs), their C entry points' refusal of 5 wrong
+     plans; P3a (fused_gather), P3b (fused_gather_p4, P = 1, 2, 4), P3c
+     (fused_gather_per_head) and P4a (packed_gather on f32 and bf16
+     corner-packed maps, P = 1, 2, 4) against their plain versions at
+     MOTR's four padded levels at the probes' QP 408,000 and at odd shapes
+     (a 3x3 map, QP 4 and 4,004, one head, D 64, QP 0), each also with
+     out-of-range samples, which must give NaN at the plain versions'
+     places, every launch's plan held to probe_plan; two launches
+     bit-identical, each timed call's route (smem for the pair kernels at
+     level 3, l2 elsewhere) and its 16-byte vectors checked, maps one
+     element into their storage on V 1 with the aligned launch's bits;
      kernel, plain version, the grid_sample form and bound timed in turns
      at levels 0 and 3; then the probes' main path, msda_pallas_probe
      (the levels, then K5's encoder call) and msda_packed_probe through
@@ -146,14 +152,16 @@ Phases, each of which raises on failure:
      (packed_coeff) and P4d (packed_wide) against their plain versions at
      every shape of phase 27, P 1, 2, 4, on f32 and bf16 maps, P4c and P4d
      on the weights of coeff_scalars / coeff_wide and on random ones, each
-     also with out-of-range samples (NaN at the plain versions' places);
-     P4b on an f32 map equal to P3b and P4c on coeff_scalars equal to P4a
-     bit for bit, P4d's groups summed within the order bound of P4a; two
-     launches bit-identical; kernel, plain version, the grid_sample form
-     and bound timed in turns at levels 0 and 3, f32 and bf16 maps; then
-     the probe's main path, msda_packed_probe2 through its main at all
-     four levels, its JSON printed and kept in the output directory, the
-     three kernels (and P3b, P4a) launched there.
+     also with out-of-range samples (NaN at the plain versions' places),
+     every P4b launch's plan held to probe_plan; P4b on an f32 map equal
+     to P3b and P4c on coeff_scalars equal to P4a bit for bit, P4d's
+     groups summed within the order bound of P4a; two launches
+     bit-identical, P4b's route and vectors checked as in phase 27;
+     kernel, plain version, the grid_sample form and bound timed in turns
+     at levels 0 and 3, f32 and bf16 maps; then the probe's main path,
+     msda_packed_probe2 through its main at all four levels, its JSON
+     printed and kept in the output directory, the three kernels (and P3b,
+     P4a) launched there.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -366,6 +374,21 @@ GATHER_POINTS = (1, 2, 4)
 # (every product and sum rounded alone, a bf16 map widened exactly): held
 # to TOL_GATHER, and NaN at the same places
 TOL_GATHER = 1e-6
+# Plans the C entry points of P3a-c, P4a and P4b must refuse: (kernel,
+# (Hp, Wp, D, map dtype, the map's element offset), ProbePlan fields, what
+# is wrong)
+PROBE_WRONG_PLANS = [
+    ("P3b", (27, 50, 32, torch.float32, 1), (8, 4, 4, 4, 8, 528, "l2"),
+     "16-byte loads from a 4-byte-aligned map"),
+    ("P4b", (27, 50, 20, torch.bfloat16, 0), (4, 8, 8, 8, 8, 528, "l2"),
+     "V 8 on D 20, which it does not divide"),
+    ("P3b", (202, 386, 32, torch.float32, 0), (8, 4, 4, 4, 32, 132, "smem"),
+     "route smem for a 10 MB map"),
+    ("P3a", (27, 50, 32, torch.float32, 0), (8, 4, 4, 4, 33, 132, "l2"),
+     "33 warps a block, past kMaxWarps"),
+    ("P4a", (27, 50, 32, torch.float32, 0), (8, 4, 4, 4, 32, 132, "smem"),
+     "route smem in packed mode"),
+]
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -491,6 +514,30 @@ def ptxas_k5_instances(log: str) -> dict:
         out[name] = i
         print(f"  ptxas: msda_fwd_kernel{name}: {i['registers']} registers, "
               f"{i['spill_stores']} bytes of spill stores")
+    return out
+
+
+def ptxas_probe_instances(log: str) -> dict:
+    """{instance: {registers, spill_stores, static_smem}} for each
+    msda_probe_vec_kernel<P, mode, T, V, NV, smem> (P3a-c, P4a, P4b) that
+    nvcc's -Xptxas -v log reports, each printed."""
+    def describe(name):
+        args = re.search(r"msda_probe_vec_kernelILi(\d)ELNS_4ModeE(\d)E"
+                         r"(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)E", name)
+        if args is None:
+            return None
+        return {"instance": f"<P {args[1]}, "
+                            f"{('pair', 'packed')[int(args[2])]}, "
+                            f"{'float' if args[3] == 'f' else 'bf16'}, "
+                            f"V {args[4]}, NV {args[5]}, "
+                            f"{('l2', 'smem')[int(args[6])]}>"}
+
+    out = {}
+    for i in ptxas_entries(log, describe):
+        name = i.pop("instance")
+        out[name] = i
+        print(f"  ptxas: msda_probe_vec_kernel{name}: {i['registers']} "
+              f"registers, {i['spill_stores']} bytes of spill stores")
     return out
 
 
@@ -2932,16 +2979,87 @@ def gather_out_of_range(t: torch.Tensor, edge: int,
     return torch.where(pick, values[which], t)
 
 
-def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
-    """P3a, P3b, P3c and P4a against their plain versions on the card at
-    GATHER_SHAPES, at P 1, 2, 4 (P3b, P4a), P4a on f32 and bf16 packed
+def check_probe_plan(cuda_msda, kernel, mode: str, map_t: torch.Tensor,
+                     what: str):
+    """The wrapper's latest launch ran probe_plan's plan for map_t (one
+    head's map, pair or packed, as it lies on the card); MOTR's width, D 32,
+    on a 16-byte-aligned map loads 16-byte vectors. Returns the plan."""
+    d = map_t.shape[-1] // (4 if mode == "packed" else 1)
+    want = cuda_msda._probe_plan_for(mode, map_t, d)
+    plan = kernel.last_plan
+    check(plan == want, f"{what} ran plan {plan}, probe_plan gives {want}")
+    if d == 32 and cuda_msda.pointer_alignment(map_t.data_ptr()) == 16:
+        check(plan.vec * map_t.element_size() == 16,
+              f"{what} at D 32 on {plan.vec}-element vectors")
+    return plan
+
+
+def probe_refuses_wrong_plans(cuda_msda, msda_probes, gen) -> None:
+    """The C entry points of P3a-c, P4a and P4b, handed each plan of
+    PROBE_WRONG_PLANS in place of probe_plan's, refuse it: the call raises
+    and counts no launch."""
+    kernels = {"P3a": cuda_msda.fused_gather_cuda,
+               "P3b": cuda_msda.fused_gather_p4_cuda,
+               "P4a": cuda_msda.packed_gather_cuda,
+               "P4b": cuda_msda.pair_staticr_cuda}
+    make = cuda_msda.probe_plan
+    try:
+        for name, (hp, wp, d, dtype, offset), fields, what in (
+                PROBE_WRONG_PLANS):
+            case = list(msda_probes.sample_case(hp, wp, 400, 8, d, gen,
+                                                "cuda"))
+            if name == "P4a":
+                args = [msda_probes.pack_corners(case[0]).to(dtype),
+                        case[1] * (wp - 1) + case[2], *case[3:], 4]
+            else:
+                args = [case[0].to(dtype), *case[1:]]
+                args += [] if name == "P3a" else [4]
+            if offset:
+                args[0] = at_element_offset(args[0])
+            cuda_msda.probe_plan = lambda *_: cuda_msda.ProbePlan(*fields)
+            kernel = kernels[name]
+            before = kernel.launches
+            try:
+                kernel(*args)
+                refused = False
+            except RuntimeError as err:
+                refused = "msda_probe_" in str(err)
+            check(refused and kernel.launches == before,
+                  f"{name} ran plan {fields} ({what}), which its C entry "
+                  "point must refuse")
+    finally:
+        cuda_msda.probe_plan = make
+    torch.cuda.synchronize()
+    print(f"the probes' C entry points refuse {len(PROBE_WRONG_PLANS)} wrong "
+          "plans (" + "; ".join(w for *_, w in PROBE_WRONG_PLANS)
+          + "), each counting no launch")
+
+
+def msda_probe_phase(cuda_msda, msda_probes, probe_modules,
+                     ptx_log: str) -> tuple:
+    """The registers and spills of P3a-c's, P4a's and P4b's instances (no
+    spill in the D 32 ones) and their C entry points' refusal of wrong
+    plans; P3a, P3b, P3c and P4a against their plain versions on the card
+    at GATHER_SHAPES, at P 1, 2, 4 (P3b, P4a), P4a on f32 and bf16 packed
     maps, each case also with out-of-range samples (NaN at the same
-    places); two launches bit-identical; kernel, plain version, the
-    grid_sample form and the bound timed in turns at levels 0 and 3; then
-    the probes' main path: msda_pallas_probe and msda_packed_probe through
-    their main at the default geometry, every kernel's count set to 0 just
-    before and read just after. Returns the four kernels' lines and K5's
-    launches on that path (the encoder call)."""
+    places), every launch's plan held to probe_plan; two launches
+    bit-identical, the pair kernels on route smem at level 3 and l2 at
+    level 0, 16-byte vectors, a map one element into its storage on V 1
+    with the aligned launch's bits; kernel, plain version, the grid_sample
+    form and the bound timed in turns at levels 0 and 3; then the probes'
+    main path: msda_pallas_probe and msda_packed_probe through their main
+    at the default geometry, every kernel's count set to 0 just before and
+    read just after. Returns the four kernels' lines and K5's launches on
+    that path (the encoder call)."""
+    instances = ptxas_probe_instances(ptx_log)
+    d32 = {k: v for k, v in instances.items()
+           if "float, V 4," in k or "bf16, V 8," in k}
+    check(len(instances) == 81 and len(d32) == 18
+          and all(not r["spill_stores"] for r in d32.values()),
+          f"the probes' 81 instances in the ptxas log, the 18 of D 32 "
+          f"without spills: {d32}")
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    probe_refuses_wrong_plans(cuda_msda, msda_probes, gen)
     kernels = {"P3a": cuda_msda.fused_gather_cuda,
                "P3b": cuda_msda.fused_gather_p4_cuda,
                "P3c": cuda_msda.fused_gather_per_head_cuda,
@@ -2950,7 +3068,6 @@ def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
               "P3b": msda_probes.gather_p4_reference,
               "P3c": msda_probes.gather_reference,
               "P4a": msda_probes.packed_gather_reference}
-    gen = torch.Generator(device="cuda").manual_seed(60)
     errs = dict.fromkeys(kernels, 0.0)
     timed = {name: {} for name in ("P3a", "P3b", "P3c", "P4a", "P4a bf16")}
     for index, (hp, wp, qp, m, d) in enumerate(GATHER_SHAPES):
@@ -2990,11 +3107,15 @@ def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
                 check(err <= TOL_GATHER, f"{name} off its plain version by "
                                          f"{err} at {(hp, wp, qp, m, d)}")
                 worst[name] = max(worst[name], err)
+                check_probe_plan(
+                    cuda_msda, kernel, "packed" if name == "P4a" else "pair",
+                    args[0][-1] if name == "P3c" else args[0],
+                    f"{name} at {(hp, wp, qp, m, d)}")
                 del got, want
             print(f"P3a-c, P4a msda_probe Hp={hp} Wp={wp} QP={qp} M={m} D={d}"
                   f" {label} (P3b, P4a at P {GATHER_POINTS}, P4a f32 and "
                   f"bf16 map): max|err| {worst} (tol {TOL_GATHER}), NaN at "
-                  "the plain versions' places")
+                  "the plain versions' places, every plan probe_plan's")
             errs = {n: max(errs[n], worst[n]) for n in errs}
         del broken, broken_fl
         if index not in GATHER_TIMED:
@@ -3018,6 +3139,13 @@ def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
             kernel, plain = kernels[name], plains[name]
             same = torch.equal(kernel(*args), kernel(*args))
             check(same, f"{label}'s two launches differ at {level}")
+            plan = kernel.last_plan
+            route = ("smem" if name != "P4a" and index == GATHER_TIMED[1]
+                     else "l2")
+            check(plan.route == route and plan.vec * (
+                2 if label.endswith("bf16") else 4) == 16,
+                  f"{label} at {level} ran {plan}: expected route {route} "
+                  "on 16-byte vectors")
             plain_ms, ms, lib_ms = in_turns(
                 lambda: plain(*args), lambda: kernel(*args),
                 lambda: gather_grid_sample(vm_nchw, grid, w, p), iters=10)
@@ -3034,13 +3162,30 @@ def msda_probe_phase(cuda_msda, msda_probes, probe_modules) -> tuple:
             timed[label][level] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": by,
-                "ns_per_sample": ms * 1e6 / (m * qp)}
+                "ns_per_sample": ms * 1e6 / (m * qp),
+                "plan": plan._asdict()}
             print(f"{label} at {level} (M {m}, QP {qp}, D {d}, P {p}): "
-                  f"two launches bit-identical; kernel {ms:.4f} ms "
-                  f"({ms * 1e6 / (m * qp):.4f} ns a sample), plain "
-                  f"{plain_ms:.4f} ms, grid_sample form {lib_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"two launches bit-identical, plan {tuple(plan)}; kernel "
+                  f"{ms:.4f} ms ({ms * 1e6 / (m * qp):.4f} ns a sample), "
+                  f"plain {plain_ms:.4f} ms, grid_sample form {lib_ms:.4f} "
+                  f"ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP f32, {by}) [{card()}]")
+        # a map one element into its storage: V 1, the aligned launch's bits
+        for name, mapped, rest in (("P3b", vm, case[1:] + [4]),
+                                   ("P4a", pm, [fl, fy, fx, w, 4]),
+                                   ("P4a", pm16, [fl, fy, fx, w, 4])):
+            kernel = kernels[name]
+            want = kernel(mapped, *rest)
+            got = kernel(at_element_offset(mapped), *rest)
+            plan = kernel.last_plan
+            check(plan.vec == 1 and bits_equal(got, want),
+                  f"{name} on a {mapped.dtype} map one element into its "
+                  f"storage at {level}: plan {plan}, the aligned launch's "
+                  f"bits {bits_equal(got, want)}")
+            print(f"{name} at {level}, a {mapped.dtype} map one element into "
+                  f"its storage: plan {tuple(plan)}, the aligned launch's "
+                  "bits")
+            del want, got
         del case, pm, pm16, fl, vm, iy, ix, fy, fx, w, vm_nchw, grid, rows
         gc.collect()
         torch.cuda.empty_cache()
@@ -3200,6 +3345,10 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
                               f"{name} off its plain version by {err} at "
                               f"{(hp, wp, qp, m, d)} {dtype} P {p}")
                         worst[name] = max(worst[name], err)
+                        if name == "P4b":
+                            check_probe_plan(cuda_msda, kernel, "pair",
+                                             args[0], f"P4b at "
+                                             f"{(hp, wp, qp, m, d)} {dtype}")
                         first.setdefault(name, got)
                     if not qp:
                         continue
@@ -3264,6 +3413,13 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
             kernel, plain = kernels[name], plains[name]
             same = torch.equal(kernel(*args), kernel(*args))
             check(same, f"{label}'s two launches differ at {level}")
+            plan = getattr(kernel, "last_plan", None)  # P4b's alone
+            if name == "P4b":
+                route = "smem" if index == GATHER_TIMED[1] else "l2"
+                check(plan.route == route
+                      and plan.vec * args[0].element_size() == 16,
+                      f"{label} at {level} ran {plan}: expected route "
+                      f"{route} on 16-byte vectors")
             plain_ms, ms, lib_ms = in_turns(
                 lambda: plain(*args), lambda: kernel(*args),
                 lambda: gather_grid_sample(vm_nchw, grid, w, 4), iters=10)
@@ -3283,6 +3439,8 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": by,
                 "ns_per_sample": ms * 1e6 / (m * qp)}
+            if plan is not None:
+                timed[label][level]["plan"] = plan._asdict()
             print(f"{label} at {level} (M {m}, QP {qp}, D {d}, P 4): two "
                   f"launches bit-identical; kernel {ms:.4f} ms "
                   f"({ms * 1e6 / (m * qp):.4f} ns a sample), plain "
@@ -3561,7 +3719,8 @@ def main() -> None:
     # 27. the MSDA gather probes: P3a-c and P4a against their plain
     #     versions, timed, then both probes through their main
     gathers, k5["launches_msda_probes"] = msda_probe_phase(
-        cuda_msda, msda_probes, (msda_pallas_probe, msda_packed_probe))
+        cuda_msda, msda_probes, (msda_pallas_probe, msda_packed_probe),
+        ptx_log)
     k5["launches_msda_probes_in"] = (
         "the MSDA probes' main path (msda_pallas_probe's encoder call)")
 

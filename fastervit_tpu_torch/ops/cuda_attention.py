@@ -356,10 +356,12 @@ def _library() -> ctypes.CDLL:
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
         lib.msda_probe_packed.argtypes = (  # P4a, in ops/cuda_msda.py
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_probe_packed.restype = ctypes.c_int
         lib.msda_probe_pair.argtypes = (  # P3a-c, P4b, in ops/cuda_msda.py
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_probe_pair.restype = ctypes.c_int
         lib.msda_probe_coeff.argtypes = (  # P4c, in ops/cuda_msda.py
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])

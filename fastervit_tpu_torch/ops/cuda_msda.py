@@ -6,7 +6,9 @@ gather probes' kernels (csrc/msda_probe.cu): P3a `fused_gather_cuda`, P3b
 `packed_gather_cuda`, P4b `pair_staticr_cuda`, P4c `packed_coeff_cuda` and
 P4d `packed_wide_cuda`, the counterparts of scripts/msda_pallas_probe.py's,
 scripts/msda_packed_probe.py's and scripts/msda_packed_probe2.py's Pallas
-kernels.
+kernels. K5 runs the plan of `msda_plan`, P3a-c, P4a and P4b that of
+`probe_plan`; each C entry point checks its plan and refuses one that no
+instance of its kernel runs.
 
 The kernels are built with K1-K4 into one library by
 `cuda_attention.build()` and loaded by its `_library()`. A failed build, an
@@ -74,15 +76,24 @@ def msda_plan(d: int, dtype: torch.dtype,
     if not 1 <= d <= MAX_CHANNELS:
         raise NotImplementedError(f"K5 takes 1 to {MAX_CHANNELS} channels a "
                                   f"head, got {d}")
+    lanes, vec, per_lane = _lane_group(d, dtype, value_ptr_alignment)
+    return MsdaPlan(lanes, vec, per_lane, 32 // lanes, _WARPS_PER_BLOCK)
+
+
+def _lane_group(d: int, dtype: torch.dtype,
+                ptr_alignment: int) -> Tuple[int, int, int]:
+    """(G, V, channels a lane) of a group of lanes that holds D channels
+    of `dtype` read from an address that is a multiple of ptr_alignment
+    bytes: the widest vector of at most 16 bytes that divides D and the
+    alignment, the fewest lanes (4 to 32, a power of two) that hold D's
+    vectors one a lane, two a lane past 32 vectors."""
     elem = dtype.itemsize
     vec = MAX_VECTOR_BYTES // elem
-    while vec > 1 and (d % vec or value_ptr_alignment % (vec * elem)):
+    while vec > 1 and (d % vec or ptr_alignment % (vec * elem)):
         vec //= 2
     vectors = d // vec
     lanes = next(g for g in _LANE_GROUPS if g >= vectors or g == 32)
-    per_lane = -(-vectors // lanes)
-    return MsdaPlan(lanes, vec, per_lane * vec, 32 // lanes,
-                    _WARPS_PER_BLOCK)
+    return lanes, vec, -(-vectors // lanes) * vec
 
 
 def check_supported(value_shape: Sequence[int], shapes: Tuple,
@@ -201,8 +212,93 @@ ms_deform_attn_cuda.last_plan = None  # the MsdaPlan of the latest launch
 # The MSDA gather probes' kernels, P3a-c and P4a-d (csrc/msda_probe.cu)
 PROBE_MAX_CHANNELS = 64       # kMaxChannels in csrc/msda_probe.cu
 PROBE_POINTS = (1, 2, 4)      # the instantiations of its P
-_MAX_HEADS = 65535            # kMaxGridY: one grid row a head
+_MAX_HEADS = 65535            # kMaxGridY: P4c's, P4d's grid row a head
 _INT32_MAX = 2 ** 31 - 1      # its offsets are 32-bit
+PROBE_MODES = ("pair", "packed")   # the modes that run a ProbePlan
+PROBE_MAX_WARPS = 32          # kMaxWarps: warps a block, at most
+PROBE_SMEM_BYTES = 232_448    # kMaxSmemBytes: a block's dynamic shared
+#                               memory, at most (227 KB)
+_SM_SMEM_BYTES = 233_472      # an SM's shared memory (228 KB) ...
+_BLOCK_SMEM_RESERVE = 1_024   # ... of which the card keeps 1 KB a block
+# 32 warps an SM at 64 registers a thread: route "l2" in four blocks of 8
+# warps; route "smem" in as many blocks as their map copies fit, at most 4
+_WARPS_PER_SM, _L2_BLOCKS_PER_SM, _SMEM_BLOCKS_PER_SM = 32, 4, 4
+
+
+class ProbePlan(NamedTuple):
+    """How P3a-c, P4a and P4b run (csrc/msda_probe.cu's pair and packed
+    mode): lanes an output row (G), channels a vector load (V), channels a
+    lane holds (a multiple of V), rows a warp (32/G), warps a block, blocks
+    (the persistent grid; a launch takes no more than its rows need) and
+    the route: "l2", the corners read from the map in device memory
+    through L2, chunks of rows walked head-major by grid stride; or
+    "smem", each block's run of chunks read from a copy of its head's map
+    in shared memory. The C entry points check it and refuse what no
+    instance of the kernel runs."""
+    lanes: int
+    vec: int
+    channels: int
+    rows_per_warp: int
+    warps: int
+    blocks: int
+    route: str
+
+    def as_c(self):
+        """The seven ints the C entry points take (msda_probe.cu::Plan):
+        the route as 0 ("l2") or 1 ("smem")."""
+        return (ctypes.c_int * 7)(*self[:6], int(self.route == "smem"))
+
+
+@functools.lru_cache(maxsize=None)
+def probe_plan(mode: str, d: int, dtype: torch.dtype,
+               map_bytes_per_head: int, ptr_alignment: int,
+               sm_count: int) -> ProbePlan:
+    """The plan of a pair-mode (P3a-c, P4b: `mode` "pair") or packed-mode
+    (P4a: "packed") launch on heads of D channels whose map, in `dtype`,
+    holds map_bytes_per_head bytes a head from an address that is a
+    multiple of ptr_alignment bytes, on a card of sm_count SMs.
+
+    G, V and the channels a lane are K5's (`msda_plan`): f32 D 32 on a
+    16-byte address G 8, V 4; bf16 G 4, V 8; an odd element offset V 1.
+    A pair-mode map that fits a block's shared memory (PROBE_SMEM_BYTES;
+    MOTR's level 3, 172.8 KB f32) takes route "smem": as many blocks an SM
+    as their copies of the map fit, 1, 2 or 4, of 32 warps an SM between
+    them (f32 level 3: one block of 32 warps; bf16: two of 16). Every other
+    map, and every packed one, takes route "l2": four blocks of 8 warps an
+    SM."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe_plan's modes are {PROBE_MODES}, got {mode}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"the probe kernels take a float32 or bfloat16 map, "
+                        f"got {dtype}")
+    if not 1 <= d <= PROBE_MAX_CHANNELS:
+        raise NotImplementedError(f"the probe kernels take 1 to "
+                                  f"{PROBE_MAX_CHANNELS} channels, got {d}")
+    lanes, vec, per_lane = _lane_group(d, dtype, ptr_alignment)
+    if mode == "pair" and map_bytes_per_head <= PROBE_SMEM_BYTES:
+        fit = min(_SMEM_BLOCKS_PER_SM, _SM_SMEM_BYTES // (
+            map_bytes_per_head + _BLOCK_SMEM_RESERVE))
+        per_sm = 1 << (fit.bit_length() - 1)  # 1, 2 or 4: whole warps
+        return ProbePlan(lanes, vec, per_lane, 32 // lanes,
+                         _WARPS_PER_SM // per_sm, per_sm * sm_count, "smem")
+    return ProbePlan(lanes, vec, per_lane, 32 // lanes,
+                     _WARPS_PER_SM // _L2_BLOCKS_PER_SM,
+                     _L2_BLOCKS_PER_SM * sm_count, "l2")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _probe_plan_for(mode: str, vm: torch.Tensor, d: int) -> ProbePlan:
+    """probe_plan for one head of the map vm (pair (.., Hp, Wp, D) or
+    packed (.., cells, 4D)) as it lies on its card."""
+    per_head = vm.shape[-1] * vm.shape[-2] * vm.element_size()
+    if mode == "pair":
+        per_head *= vm.shape[-3]
+    return probe_plan(mode, d, vm.dtype, per_head,
+                      pointer_alignment(vm.data_ptr()), _sm_count(vm.device))
 
 
 def _check_scalars(what: str, heads: int, indices: Sequence[torch.Tensor],
@@ -383,19 +479,21 @@ def _gather_output(what: str, vm: torch.Tensor,
 
 
 def _gather_launch(vm: torch.Tensor, scalars: Sequence[torch.Tensor],
-                   out: torch.Tensor, heads: int, points: int) -> None:
+                   out: torch.Tensor, heads: int, points: int) -> ProbePlan:
     """One launch of msda_probe_pair over `heads` heads, from the first
     elements of vm (.., Hp, Wp, D), f32 or bf16, the scalars (.., QP) and
-    out."""
+    out; returns its plan."""
     hp, wp, d = vm.shape[-3:]
+    how = _probe_plan_for("pair", vm, d)
     lib = cuda_attention._library()
     with torch.cuda.device(vm.device):
         err = lib.msda_probe_pair(
             vm.data_ptr(), *(t.data_ptr() for t in scalars), out.data_ptr(),
             heads, scalars[0].shape[-1], hp, wp, d, points,
-            int(vm.dtype == torch.bfloat16),
+            int(vm.dtype == torch.bfloat16), how.as_c(),
             torch.cuda.current_stream().cuda_stream)
     cuda_attention._raise_on(err, "msda_probe_pair")
+    return how
 
 
 def fused_gather_cuda(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -403,16 +501,19 @@ def fused_gather_cuda(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
                       w: torch.Tensor) -> torch.Tensor:
     """P3a on the card: out[m, i] = w·bilinear(vm[m], iy, ix, fy, fx) for
     every sample i, (M, QP, D) f32 (see `check_gather`). Counts its
-    launches in `fused_gather_cuda.launches`."""
+    launches in `fused_gather_cuda.launches` and keeps the latest one's
+    ProbePlan in `fused_gather_cuda.last_plan`."""
     scalars = (iy, ix, fy, fx, w)
     out = _gather_output("fused_gather", vm, scalars, 1)
     if out.numel():
-        _gather_launch(vm, scalars, out, vm.shape[0], 1)
+        fused_gather_cuda.last_plan = _gather_launch(vm, scalars, out,
+                                                     vm.shape[0], 1)
         fused_gather_cuda.launches += 1
     return out
 
 
 fused_gather_cuda.launches = 0
+fused_gather_cuda.last_plan = None  # the ProbePlan of the latest launch
 
 
 def fused_gather_p4_cuda(vm: torch.Tensor, iy: torch.Tensor,
@@ -421,16 +522,19 @@ def fused_gather_p4_cuda(vm: torch.Tensor, iy: torch.Tensor,
                          p: int = 4) -> torch.Tensor:
     """P3b on the card: P3a summed over each query's P consecutive samples
     in order, (M, QP/P, D) f32. Counts its launches in
-    `fused_gather_p4_cuda.launches`."""
+    `fused_gather_p4_cuda.launches` and keeps the latest one's ProbePlan in
+    `fused_gather_p4_cuda.last_plan`."""
     scalars = (iy, ix, fy, fx, w)
     out = _gather_output("fused_gather_p4", vm, scalars, p)
     if out.numel():
-        _gather_launch(vm, scalars, out, vm.shape[0], p)
+        fused_gather_p4_cuda.last_plan = _gather_launch(vm, scalars, out,
+                                                        vm.shape[0], p)
         fused_gather_p4_cuda.launches += 1
     return out
 
 
 fused_gather_p4_cuda.launches = 0
+fused_gather_p4_cuda.last_plan = None  # the ProbePlan of the latest launch
 
 
 def fused_gather_per_head_cuda(vm: torch.Tensor, iy: torch.Tensor,
@@ -439,31 +543,35 @@ def fused_gather_per_head_cuda(vm: torch.Tensor, iy: torch.Tensor,
                                w: torch.Tensor) -> torch.Tensor:
     """P3c on the card: P3a with one launch a head, each over that head's
     map and samples alone, into one (M, QP, D) f32 output. Counts its M
-    launches a call in `fused_gather_per_head_cuda.launches`."""
+    launches a call in `fused_gather_per_head_cuda.launches` and keeps the
+    latest one's ProbePlan (its grid spreads the one head over every SM)
+    in `fused_gather_per_head_cuda.last_plan`."""
     scalars = (iy, ix, fy, fx, w)
     out = _gather_output("fused_gather_per_head", vm, scalars, 1)
     if out.numel():
         for h in range(vm.shape[0]):
-            _gather_launch(vm[h], [t[h] for t in scalars], out[h], 1, 1)
+            fused_gather_per_head_cuda.last_plan = _gather_launch(
+                vm[h], [t[h] for t in scalars], out[h], 1, 1)
             fused_gather_per_head_cuda.launches += 1
     return out
 
 
 fused_gather_per_head_cuda.launches = 0
+fused_gather_per_head_cuda.last_plan = None  # the latest launch's ProbePlan
 
 
 def _packed_launch(entry: str, pm: torch.Tensor,
                    streams: Sequence[torch.Tensor], out: torch.Tensor,
-                   points: int) -> None:
-    """One launch of the C entry point `entry` (msda_probe_packed,
-    msda_probe_coeff or msda_probe_wide) on the packed map pm (f32 or
-    bf16), fl and its float streams."""
+                   points: int, *plan) -> None:
+    """One launch of the C entry point `entry` (msda_probe_packed, with its
+    plan's ints, msda_probe_coeff or msda_probe_wide) on the packed map pm
+    (f32 or bf16), fl and its float streams."""
     lib = cuda_attention._library()
     with torch.cuda.device(pm.device):
         err = getattr(lib, entry)(
             pm.data_ptr(), *(t.data_ptr() for t in streams), out.data_ptr(),
             pm.shape[0], streams[0].shape[1], pm.shape[1], pm.shape[2] // 4,
-            points, int(pm.dtype == torch.bfloat16),
+            points, int(pm.dtype == torch.bfloat16), *plan,
             torch.cuda.current_stream().cuda_stream)
     cuda_attention._raise_on(err, entry)
 
@@ -473,17 +581,22 @@ def packed_gather_cuda(pm: torch.Tensor, fl: torch.Tensor, fy: torch.Tensor,
                        p: int = 4) -> torch.Tensor:
     """P4a on the card: the corner-packed sum over each query's P samples,
     (M, QP/P, D) f32 from an f32 or bf16 packed map (see `check_packed`).
-    Counts its launches in `packed_gather_cuda.launches`."""
+    Counts its launches in `packed_gather_cuda.launches` and keeps the
+    latest one's ProbePlan in `packed_gather_cuda.last_plan`."""
     check_packed(pm, fl, fy, fx, w, p)
     streams = (fl, fy, fx, w)
-    out = _probe_output("packed_gather", (pm, *streams), pm.shape[2] // 4, p)
+    d = pm.shape[2] // 4
+    out = _probe_output("packed_gather", (pm, *streams), d, p)
     if out.numel():
-        _packed_launch("msda_probe_packed", pm, streams, out, p)
+        how = _probe_plan_for("packed", pm, d)
+        _packed_launch("msda_probe_packed", pm, streams, out, p, how.as_c())
         packed_gather_cuda.launches += 1
+        packed_gather_cuda.last_plan = how
     return out
 
 
 packed_gather_cuda.launches = 0
+packed_gather_cuda.last_plan = None  # the ProbePlan of the latest launch
 
 
 def pair_staticr_cuda(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -491,17 +604,20 @@ def pair_staticr_cuda(vm: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
                       p: int = 4) -> torch.Tensor:
     """P4b on the card: P3b's sum over each query's P samples from an f32
     or bf16 map, (M, QP/P, D) f32 (see `check_pair`). Counts its launches
-    in `pair_staticr_cuda.launches`."""
+    in `pair_staticr_cuda.launches` and keeps the latest one's ProbePlan in
+    `pair_staticr_cuda.last_plan`."""
     check_pair(vm, iy, ix, fy, fx, w, p)
     scalars = (iy, ix, fy, fx, w)
     out = _probe_output("pair_staticr", (vm, *scalars), vm.shape[-1], p)
     if out.numel():
-        _gather_launch(vm, scalars, out, vm.shape[0], p)
+        pair_staticr_cuda.last_plan = _gather_launch(vm, scalars, out,
+                                                     vm.shape[0], p)
         pair_staticr_cuda.launches += 1
     return out
 
 
 pair_staticr_cuda.launches = 0
+pair_staticr_cuda.last_plan = None  # the ProbePlan of the latest launch
 
 
 def packed_coeff_cuda(pm: torch.Tensor, fl: torch.Tensor, c00: torch.Tensor,

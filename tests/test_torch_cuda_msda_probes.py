@@ -2,10 +2,12 @@
 PyTorch versions on the card: P3a `fused_gather_cuda`, P3b
 `fused_gather_p4_cuda`, P3c `fused_gather_per_head_cuda` and P4a
 `packed_gather_cuda` (f32 and bf16 packed maps), at MOTR's levels and odd
-shapes, with out-of-range samples; their launch counters, bit-identical
-launches and the probe modules' timed runs. Every test here needs a CUDA
-device and skips without one. On a machine with an H100 (which need not
-have jax, so tests/conftest.py is not loaded):
+shapes, with out-of-range samples; every route and vector width of their
+launch plans (`cuda_msda.probe_plan`) bit for bit, maps at element offsets
+included, and the C entry points' refusal of wrong plans; their launch
+counters, bit-identical launches and the probe modules' timed runs. Every
+test here needs a CUDA device and skips without one. On a machine with an
+H100 (which need not have jax, so tests/conftest.py is not loaded):
 
     python -m pytest --noconftest -q tests/test_torch_cuda_msda_probes.py
 """
@@ -186,3 +188,126 @@ def test_probe_times_every_row_on_the_card(cuda, probe, tmp_path, capsys):
         enc = result["encoder_call"]
         assert enc["S"] == 102_000 and enc["ms_k5"] > 0
         assert enc["parity_max_abs_diff"] <= 1e-5
+
+
+def _at_offset(t, elems):
+    """A contiguous copy of t `elems` elements into its storage."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bits_match(got, want):
+    """The plain version's f32 bits wherever it is a number, and NaN at its
+    NaN places (the kernels' NaN is 0x7fffffff, torch's 0x7fc00000)."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32),
+                            want[~nan].view(torch.int32)))
+
+
+# (kernel, map dtype, the map's element offset, its vector bytes, (Hp, Wp),
+# route): every route and vector width of the pair kernel (P3b on f32,
+# P4b on bf16 maps) and the packed one (P4a), with MOTR's level 2 (52x98,
+# route l2 for the pair kernel) and level 3 (27x50, route smem)
+OFFSETS = {torch.float32: ((0, 16), (2, 8), (1, 4)),
+           torch.bfloat16: ((0, 16), (4, 8), (2, 4), (1, 2))}
+PLAN_CASES = [
+    (kind, dtype, offset, vec_bytes, level, route)
+    for kind in ("pair", "packed")
+    for dtype, offsets in OFFSETS.items()
+    for offset, vec_bytes in offsets
+    for level, route in (((52, 98), "l2"),
+                         ((27, 50), "smem" if kind == "pair" else "l2"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,offset,vec_bytes,level,route",
+                         PLAN_CASES, ids=str)
+def test_every_plan_route_and_vector_bit_for_bit(cuda, kind, dtype, offset,
+                                                 vec_bytes, level, route):
+    """Each route and vector width against the plain version, bit for bit,
+    with some samples out of range; two launches give the same bits."""
+    hp, wp = level
+    case = _case(hp, wp, 40_800, 8, 32, cuda, seed=3, out_of_range=True)
+    if kind == "pair":
+        kernel, plain = ((cuda_msda.fused_gather_p4_cuda,
+                          msda_probes.gather_p4_reference)
+                         if dtype == torch.float32 else
+                         (cuda_msda.pair_staticr_cuda,
+                          msda_probes.pair_staticr_reference))
+        args = [_at_offset(case[0].to(dtype), offset), *case[1:], 4]
+    else:
+        kernel, plain = (cuda_msda.packed_gather_cuda,
+                         msda_probes.packed_gather_reference)
+        pm, fl = _packed(case, wp)
+        fl = torch.where((case[1] >= 0) & (case[1] <= hp - 2)
+                         & (case[2] >= 0) & (case[2] <= wp - 2), fl, -1)
+        args = [_at_offset(pm.to(dtype), offset), fl, *case[3:], 4]
+    got = kernel(*args)
+    plan = kernel.last_plan
+    again = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert plan.route == route
+    assert plan.vec * dtype.itemsize == vec_bytes
+    assert torch.isnan(want).any()
+    assert _bits_match(got, want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [(52, 98), (27, 50)])
+def test_per_head_launches_spread_one_head(cuda, level):
+    """P3c launches one head at a time; each launch's grid is the card's
+    (its head over every SM), on route l2 or smem, with P3a's bits."""
+    hp, wp = level
+    case = _case(hp, wp, 40_800, 8, 32, cuda, seed=4, out_of_range=True)
+    kernel = cuda_msda.fused_gather_per_head_cuda
+    before = kernel.launches
+    got = kernel(*case)
+    plan = kernel.last_plan
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernel.launches == before + 8
+    assert plan.route == ("smem" if hp == 27 else "l2")
+    assert plan.warps * plan.blocks == 32 * sms
+    assert _bits_match(got, msda_probes.gather_reference(*case))
+    assert _bits_match(got, cuda_msda.fused_gather_cuda(*case))
+
+
+@pytest.mark.cuda
+def test_c_entry_points_refuse_wrong_plans(cuda, monkeypatch):
+    """msda_probe_pair and msda_probe_packed, handed a plan that no instance
+    runs on their pointers in place of probe_plan's, refuse it: the call
+    raises and counts no launch."""
+    level3 = _case(27, 50, 400, 8, 32, cuda)
+    level0 = _case(202, 386, 400, 8, 32, cuda)
+    d20 = _case(27, 50, 400, 8, 20, cuda)
+    pm, fl = _packed(level3, 50)
+    plan = cuda_msda.ProbePlan
+    wrong = [  # (kernel, arguments, plan, what is wrong)
+        (cuda_msda.fused_gather_p4_cuda,
+         [_at_offset(level3[0], 1), *level3[1:], 4],
+         plan(8, 4, 4, 4, 8, 528, "l2"), "misaligned vectors"),
+        (cuda_msda.pair_staticr_cuda,
+         [d20[0].bfloat16(), *d20[1:], 4],
+         plan(4, 8, 8, 8, 8, 528, "l2"), "a V that does not divide D"),
+        (cuda_msda.fused_gather_p4_cuda, [*level0, 4],
+         plan(8, 4, 4, 4, 32, 132, "smem"), "a map that does not fit"),
+        (cuda_msda.fused_gather_cuda, level3,
+         plan(8, 4, 4, 4, 33, 132, "l2"), "too many warps"),
+        (cuda_msda.packed_gather_cuda, [pm, fl, *level3[3:], 4],
+         plan(8, 4, 4, 4, 32, 132, "smem"), "packed on route smem"),
+        (cuda_msda.fused_gather_p4_cuda, [*level3, 4],
+         plan(8, 4, 4, 2, 8, 528, "l2"), "rows that are no whole warp"),
+    ]
+    for kernel, args, bad, what in wrong:
+        monkeypatch.setattr(cuda_msda, "probe_plan", lambda *_: bad)
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="msda_probe_"):
+            kernel(*args)
+        assert kernel.launches == before, what
+    monkeypatch.undo()
+    torch.cuda.synchronize()

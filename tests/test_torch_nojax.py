@@ -7,8 +7,9 @@ and post-processed, the MSDA and box ops, the evaluator, the weights bridge
 and the CLI), the long-window attention probes (ops.attention_probes and
 both probe modules, run with --device cpu), the MSDA gather probes
 (ops.msda_probes with P4b-d, msda_pallas_probe, msda_packed_probe and
-msda_packed_probe2, run with --device cpu), the K6 turns probe
-(probes/hat_turns, imported) and chip_smoke.py load no jax,
+msda_packed_probe2, run with --device cpu), the turns probes of K6 and
+of the MSDA gather probes' kernels (probes/hat_turns, msda_probe_turns,
+imported) and chip_smoke.py load no jax,
 jaxlib, flax or fastervit_tpu module."""
 import os
 import subprocess
@@ -57,7 +58,7 @@ with tempfile.TemporaryDirectory() as d:
     assert CheckpointManager(d).restore(state) is state and state.step == 1
 assert not PreemptionHandler().preempted
 import chip_smoke
-from fastervit_tpu_torch.probes import hat_turns
+from fastervit_tpu_torch.probes import hat_turns, msda_probe_turns
 from fastervit_tpu_torch.detection import (coco_eval, convert, dino,
                                            transformer)
 from fastervit_tpu_torch.detection import main as detection_cli
