@@ -130,33 +130,33 @@ Phases, each of which raises on failure:
      TFLOP/s; then the probes' main path, attn_vpu_probe and
      attn_online_probe through their main at that call, their JSON printed
      and kept in the output directory, P1 and P2 launched there;
- 27. the MSDA gather probes' kernels: ptxas' registers and spills of the
-     81 instances of the pair and packed kernel (P3a-c, P4a, P4b; none in
-     the 18 that D 32 runs), their C entry points' refusal of 5 wrong
-     plans; P3a (fused_gather), P3b (fused_gather_p4, P = 1, 2, 4), P3c
-     (fused_gather_per_head) and P4a (packed_gather on f32 and bf16
-     corner-packed maps, P = 1, 2, 4) against their plain versions at
-     MOTR's four padded levels at the probes' QP 408,000 and at odd shapes
-     (a 3x3 map, QP 4 and 4,004, one head, D 64, QP 0), each also with
-     out-of-range samples, which must give NaN at the plain versions'
-     places, every launch's plan held to probe_plan; two launches
-     bit-identical, each timed call's route (smem for the pair kernels at
-     level 3, l2 elsewhere) and its 16-byte vectors checked, maps one
-     element into their storage on V 1 with the aligned launch's bits;
-     kernel, plain version, the grid_sample form and bound timed in turns
-     at levels 0 and 3; then the probes' main path, msda_pallas_probe
-     (the levels, then K5's encoder call) and msda_packed_probe through
-     their main, their JSON printed and kept in the output directory, the
-     four kernels and K5 launched there;
+ 27. the MSDA gather probes' kernels: ptxas' registers and spills of the 108
+     instances of the vec kernel (pair, packed and coeff mode: P3a-c, P4a,
+     P4b, P4c; none in the 24 that D 32 runs), their C entry points' refusal
+     of 7 wrong plans; P3a (fused_gather), P3b (fused_gather_p4, P = 1, 2, 4),
+     P3c (fused_gather_per_head) and P4a (packed_gather on f32 and bf16
+     corner-packed maps, P = 1, 2, 4) against their plain versions at MOTR's
+     four padded levels at the probes' QP 408,000 and at odd shapes (a 3x3
+     map, QP 4 and 4,004, one head, D 64, QP 0), each also with out-of-range
+     samples, which must give NaN at the plain versions' places, every
+     launch's plan held to probe_plan; two launches bit-identical, each timed
+     call's route (smem for the pair kernels at level 3, l2 elsewhere) and its
+     16-byte vectors checked, maps one element into their storage on V 1 with
+     the aligned launch's bits; kernel, plain version, the grid_sample form
+     and bound timed in turns at levels 0 and 3; then the probes' main path,
+     msda_pallas_probe (the levels, then K5's encoder call) and
+     msda_packed_probe through their main, their JSON printed and kept in the
+     output directory, the four kernels and K5 launched there;
  28. the second MSDA gather probe's kernels: P4b (pair_staticr), P4c
      (packed_coeff) and P4d (packed_wide) against their plain versions at
      every shape of phase 27, P 1, 2, 4, on f32 and bf16 maps, P4c and P4d
      on the weights of coeff_scalars / coeff_wide and on random ones, each
      also with out-of-range samples (NaN at the plain versions' places),
-     every P4b launch's plan held to probe_plan; P4b on an f32 map equal
-     to P3b and P4c on coeff_scalars equal to P4a bit for bit, P4d's
-     groups summed within the order bound of P4a; two launches
-     bit-identical, P4b's route and vectors checked as in phase 27;
+     every P4b and P4c launch's plan held to probe_plan; P4b on an f32
+     map equal to P3b and P4c on coeff_scalars equal to P4a bit for bit,
+     P4d's groups summed within the order bound of P4a; two launches
+     bit-identical, P4b's and P4c's routes (P4c on l2 at both levels) and
+     16-byte vectors checked;
      kernel, plain version, the grid_sample form and bound timed in turns
      at levels 0 and 3, f32 and bf16 maps; then the probe's main path,
      msda_packed_probe2 through its main at all four levels, its JSON
@@ -374,7 +374,7 @@ GATHER_POINTS = (1, 2, 4)
 # (every product and sum rounded alone, a bf16 map widened exactly): held
 # to TOL_GATHER, and NaN at the same places
 TOL_GATHER = 1e-6
-# Plans the C entry points of P3a-c, P4a and P4b must refuse: (kernel,
+# Plans the C entry points of P3a-c and P4a-c must refuse: (kernel,
 # (Hp, Wp, D, map dtype, the map's element offset), ProbePlan fields, what
 # is wrong)
 PROBE_WRONG_PLANS = [
@@ -388,6 +388,10 @@ PROBE_WRONG_PLANS = [
      "33 warps a block, past kMaxWarps"),
     ("P4a", (27, 50, 32, torch.float32, 0), (8, 4, 4, 4, 32, 132, "smem"),
      "route smem in packed mode"),
+    ("P4c", (27, 50, 32, torch.bfloat16, 0), (4, 8, 8, 8, 32, 132, "smem"),
+     "route smem in coeff mode"),
+    ("P4c", (27, 50, 32, torch.float32, 1), (8, 4, 4, 4, 8, 528, "l2"),
+     "16-byte loads from a 4-byte-aligned coeff map"),
 ]
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
@@ -519,15 +523,15 @@ def ptxas_k5_instances(log: str) -> dict:
 
 def ptxas_probe_instances(log: str) -> dict:
     """{instance: {registers, spill_stores, static_smem}} for each
-    msda_probe_vec_kernel<P, mode, T, V, NV, smem> (P3a-c, P4a, P4b) that
-    nvcc's -Xptxas -v log reports, each printed."""
+    msda_probe_vec_kernel<P, mode, T, V, NV, smem> (P3a-c, P4a, P4b, P4c)
+    that nvcc's -Xptxas -v log reports, each printed."""
     def describe(name):
         args = re.search(r"msda_probe_vec_kernelILi(\d)ELNS_4ModeE(\d)E"
                          r"(f|13__nv_bfloat16)Li(\d)ELi(\d)ELb(\d)E", name)
         if args is None:
             return None
         return {"instance": f"<P {args[1]}, "
-                            f"{('pair', 'packed')[int(args[2])]}, "
+                            f"{('pair', 'packed', 'coeff')[int(args[2])]}, "
                             f"{'float' if args[3] == 'f' else 'bf16'}, "
                             f"V {args[4]}, NV {args[5]}, "
                             f"{('l2', 'smem')[int(args[6])]}>"}
@@ -2982,9 +2986,10 @@ def gather_out_of_range(t: torch.Tensor, edge: int,
 def check_probe_plan(cuda_msda, kernel, mode: str, map_t: torch.Tensor,
                      what: str):
     """The wrapper's latest launch ran probe_plan's plan for map_t (one
-    head's map, pair or packed, as it lies on the card); MOTR's width, D 32,
-    on a 16-byte-aligned map loads 16-byte vectors. Returns the plan."""
-    d = map_t.shape[-1] // (4 if mode == "packed" else 1)
+    head's map, pair, packed or coeff, as it lies on the card); MOTR's
+    width, D 32, on a 16-byte-aligned map loads 16-byte vectors. Returns the
+    plan."""
+    d = map_t.shape[-1] // (1 if mode == "pair" else 4)
     want = cuda_msda._probe_plan_for(mode, map_t, d)
     plan = kernel.last_plan
     check(plan == want, f"{what} ran plan {plan}, probe_plan gives {want}")
@@ -2995,22 +3000,25 @@ def check_probe_plan(cuda_msda, kernel, mode: str, map_t: torch.Tensor,
 
 
 def probe_refuses_wrong_plans(cuda_msda, msda_probes, gen) -> None:
-    """The C entry points of P3a-c, P4a and P4b, handed each plan of
+    """The C entry points of P3a-c and P4a-c, handed each plan of
     PROBE_WRONG_PLANS in place of probe_plan's, refuse it: the call raises
     and counts no launch."""
     kernels = {"P3a": cuda_msda.fused_gather_cuda,
                "P3b": cuda_msda.fused_gather_p4_cuda,
                "P4a": cuda_msda.packed_gather_cuda,
-               "P4b": cuda_msda.pair_staticr_cuda}
+               "P4b": cuda_msda.pair_staticr_cuda,
+               "P4c": cuda_msda.packed_coeff_cuda}
     make = cuda_msda.probe_plan
     try:
         for name, (hp, wp, d, dtype, offset), fields, what in (
                 PROBE_WRONG_PLANS):
             case = list(msda_probes.sample_case(hp, wp, 400, 8, d, gen,
                                                 "cuda"))
-            if name == "P4a":
+            if name in ("P4a", "P4c"):
+                weights = (case[3:] if name == "P4a" else
+                           msda_probes.coeff_scalars(*case[3:]))
                 args = [msda_probes.pack_corners(case[0]).to(dtype),
-                        case[1] * (wp - 1) + case[2], *case[3:], 4]
+                        case[1] * (wp - 1) + case[2], *weights, 4]
             else:
                 args = [case[0].to(dtype), *case[1:]]
                 args += [] if name == "P3a" else [4]
@@ -3037,26 +3045,28 @@ def probe_refuses_wrong_plans(cuda_msda, msda_probes, gen) -> None:
 
 def msda_probe_phase(cuda_msda, msda_probes, probe_modules,
                      ptx_log: str) -> tuple:
-    """The registers and spills of P3a-c's, P4a's and P4b's instances (no
-    spill in the D 32 ones) and their C entry points' refusal of wrong
-    plans; P3a, P3b, P3c and P4a against their plain versions on the card
-    at GATHER_SHAPES, at P 1, 2, 4 (P3b, P4a), P4a on f32 and bf16 packed
-    maps, each case also with out-of-range samples (NaN at the same
-    places), every launch's plan held to probe_plan; two launches
-    bit-identical, the pair kernels on route smem at level 3 and l2 at
-    level 0, 16-byte vectors, a map one element into its storage on V 1
-    with the aligned launch's bits; kernel, plain version, the grid_sample
-    form and the bound timed in turns at levels 0 and 3; then the probes'
-    main path: msda_pallas_probe and msda_packed_probe through their main
-    at the default geometry, every kernel's count set to 0 just before and
-    read just after. Returns the four kernels' lines and K5's launches on
+    """The registers and spills of the vec kernel's 108 instances (pair,
+    packed and coeff mode: P3a-c, P4a, P4b, P4c; P 1, 2, 4 × f32 V 1×1, 1×2,
+    2, 4 and bf16 V 1×1, 1×2, 2, 4, 8; pair mode on route l2 and smem, the
+    others on l2 alone; no spill in the 24 of D 32: f32 V 4 and bf16 V 8) and
+    their C entry points' refusal of wrong plans; P3a, P3b, P3c and P4a
+    against their plain versions on the card at GATHER_SHAPES, at P 1, 2, 4
+    (P3b, P4a), P4a on f32 and bf16 packed maps, each case also with
+    out-of-range samples (NaN at the same places), every launch's plan held to
+    probe_plan; two launches bit-identical, the pair kernels on route smem at
+    level 3 and l2 at level 0, 16-byte vectors, a map one element into its
+    storage on V 1 with the aligned launch's bits; kernel, plain version, the
+    grid_sample form and the bound timed in turns at levels 0 and 3; then the
+    probes' main path: msda_pallas_probe and msda_packed_probe through their
+    main at the default geometry, every kernel's count set to 0 just before
+    and read just after. Returns the four kernels' lines and K5's launches on
     that path (the encoder call)."""
     instances = ptxas_probe_instances(ptx_log)
     d32 = {k: v for k, v in instances.items()
            if "float, V 4," in k or "bf16, V 8," in k}
-    check(len(instances) == 81 and len(d32) == 18
+    check(len(instances) == 108 and len(d32) == 24
           and all(not r["spill_stores"] for r in d32.values()),
-          f"the probes' 81 instances in the ptxas log, the 18 of D 32 "
+          f"the probes' 108 instances in the ptxas log, the 24 of D 32 "
           f"without spills: {d32}")
     gen = torch.Generator(device="cuda").manual_seed(60)
     probe_refuses_wrong_plans(cuda_msda, msda_probes, gen)
@@ -3273,10 +3283,12 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
     GATHER_SHAPES, at P 1, 2, 4, on f32 and bf16 maps, P4c and P4d on the
     weights of coeff_scalars / coeff_wide and on random ones (uniform in
     [-1/4, 1/4), which no coeff_* gives), each case also with out-of-range
-    samples (NaN at the same places); P4b on an f32 map against P3b and P4c
-    on coeff_scalars against P4a, bit for bit, and P4d on coeff_wide, its
-    groups summed, against P4a within the order bound of the same 4P
-    products' sums; two launches bit-identical; kernel, plain version, the
+    samples (NaN at the same places), every P4b and P4c launch's plan held
+    to probe_plan; P4b on an f32 map against P3b and P4c on coeff_scalars
+    against P4a, bit for bit, and P4d on coeff_wide, its groups summed,
+    against P4a within the order bound of the same 4P products' sums; two
+    launches bit-identical, P4b's and P4c's routes (P4c on l2, P4b on smem
+    at level 3) and 16-byte vectors checked; kernel, plain version, the
     grid_sample form and the bound timed in turns at levels 0 and 3 (f32
     and bf16 maps); then the probe's main path: msda_packed_probe2 through
     its main at all four levels, every kernel's count set to 0 just before
@@ -3345,10 +3357,12 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
                               f"{name} off its plain version by {err} at "
                               f"{(hp, wp, qp, m, d)} {dtype} P {p}")
                         worst[name] = max(worst[name], err)
-                        if name == "P4b":
-                            check_probe_plan(cuda_msda, kernel, "pair",
-                                             args[0], f"P4b at "
-                                             f"{(hp, wp, qp, m, d)} {dtype}")
+                        if name != "P4d":   # P4d keeps the first walk
+                            check_probe_plan(
+                                cuda_msda, kernel,
+                                "pair" if name == "P4b" else "coeff",
+                                args[0],
+                                f"{name} at {(hp, wp, qp, m, d)} {dtype}")
                         first.setdefault(name, got)
                     if not qp:
                         continue
@@ -3413,9 +3427,10 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
             kernel, plain = kernels[name], plains[name]
             same = torch.equal(kernel(*args), kernel(*args))
             check(same, f"{label}'s two launches differ at {level}")
-            plan = getattr(kernel, "last_plan", None)  # P4b's alone
-            if name == "P4b":
-                route = "smem" if index == GATHER_TIMED[1] else "l2"
+            plan = getattr(kernel, "last_plan", None)  # none for P4d
+            if plan is not None:
+                route = ("smem" if name == "P4b" and index == GATHER_TIMED[1]
+                         else "l2")
                 check(plan.route == route
                       and plan.vec * args[0].element_size() == 16,
                       f"{label} at {level} ran {plan}: expected route "

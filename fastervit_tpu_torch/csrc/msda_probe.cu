@@ -73,41 +73,43 @@
 // VMEM and walked chunks of samples; a Hopper block has at most 227 KB of
 // shared memory and the card a 50 MB L2.
 //
-// Design of pair and packed mode (msda_probe_vec_kernel; the launch plan is
-// made in Python, cuda_msda.py::probe_plan, and checked here):
+// Design of pair, packed and coeff mode (msda_probe_vec_kernel; the launch
+// plan is made in Python, cuda_msda.py::probe_plan, and checked here):
 // - A group of G lanes owns one output row and its P samples, in order, so
 //   the P sum stays in registers and no sum crosses groups. Each lane holds
 //   V contiguous channels (two vectors for D > 32 on scalar loads) and
 //   reads each corner's share with one 2- to 16-byte load: f32 at D 32 G 8,
 //   V 4 (a warp load fetches one corner of four rows), bf16 G 4, V 8 (eight
-//   rows); a packed lane makes its four loads at 0, D, 2D, 3D of the 4D-wide
-//   row. A D or a map address that the widest vector does not divide takes
-//   a narrower V, down to 1.
+//   rows); a packed or coeff lane makes its four loads at 0, D, 2D, 3D of
+//   the 4D-wide row. A D or a map address that the widest vector does not
+//   divide takes a narrower V, down to 1.
 // - Lane l of a warp loads sample l of its 32/G rows' P·32/G samples (one
 //   coalesced load a stream, with the evict-first hint, __ldcs: read once)
-//   and forms its map offset; the offset and then fy, fx and w reach the
-//   group through shuffles, and each lane of the group forms the
-//   coefficients. The next chunk's scalars are loaded before this chunk's
-//   corners are walked, and each sample's four corner loads are issued
-//   before any is added. The output is stored with __stcs (written once),
-//   so that neither stream pushes the map out of L2.
+//   and forms its map offset; the offset and then the sample's floats (fy,
+//   fx, w; in coeff mode the four corner weights) reach the group through
+//   shuffles, and each lane of the group forms the coefficients (coeff
+//   mode takes the weights as they are). The next chunk's scalars are
+//   loaded before this chunk's corners are walked, and each sample's four
+//   corner loads are issued before any is added. The output is stored with
+//   __stcs (written once), so that neither stream pushes the map out of L2.
 // - Route "l2": a persistent grid of a few blocks an SM walks the (head,
 //   rows) chunks of 32/G rows in head-major order by grid stride, so the
 //   rows in flight at any moment lie within about one head and that head's
-//   map stays in L2 (P3b 10 MB, P4a 39.6 MB f32 and 19.8 MB bf16 at level
-//   0); P3c's one-head launch spreads its head over every SM the same way.
+//   map stays in L2 (P3b 10 MB, P4a and P4c 39.6 MB f32 and 19.8 MB bf16 at
+//   level 0); P3c's one-head launch spreads its head over every SM the same
+//   way.
 // - Route "smem" (pair mode, where a head's padded map fits a block's
 //   dynamic shared memory, as MOTR's level 3 does: 172.8 KB f32, 86.4 KB
 //   bf16): block b takes the b-th of gridDim equal runs of the head-major
 //   chunks, copies each head's map that its run meets into shared memory
-//   by cp.async (once a head a block) and reads every corner from there.
+//   by cp.async (once a head a block) and reads every corner from there. A
+//   packed map never fits (level 3's f32 one is 652 KB a head).
 // - There are no atomics and every output row has one owner, so two
 //   launches, and any two plans, give the same bits.
-// Coeff and wide mode (msda_probe_kernel) keep the first design: one warp
-// owns a run of 32 output rows, lane j loads sample j's scalars, the warp
-// walks the samples in order taking them with __shfl_sync, and a lane owns
-// a channel (two for D > 32), or in wide mode the output lanes
-// k = lane + 32·t (4D ≤ 256), streaming each sample's cf row with the
+// Wide mode (msda_probe_kernel) keeps the first design: one warp owns a run
+// of 32 output rows, lane j loads sample j's map offset, the warp walks the
+// samples in order taking them with __shfl_sync, and lane l owns the output
+// lanes k = l + 32·t (4D ≤ 256), streaming each sample's cf row with the
 // evict-first hint beside its map row; blocks are ordered head-major
 // (blockIdx.y is the head).
 //
@@ -131,8 +133,8 @@ using fastervit::Vec;
 
 constexpr int kMaxChannels = 64;  // PROBE_MAX_CHANNELS in cuda_msda.py
 constexpr int kMaxGridY = 65535;  // heads, at most (_MAX_HEADS in
-                                  // cuda_msda.py): coeff and wide mode's
-                                  // gridDim.y
+                                  // cuda_msda.py): wide mode's gridDim.y,
+                                  // and the limit of every entry point
 constexpr unsigned kFull = 0xffffffffu;
 
 // what an out-of-range sample gives, on every lane
@@ -140,12 +142,12 @@ __device__ __forceinline__ float nan_f32() {
   return __int_as_float(0x7fffffff);
 }
 
-// The first walk (coeff and wide mode)
+// The first walk (wide mode)
 constexpr int kWarps = 8;         // warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 32;         // output rows a warp
 
-// The redesigned walk (pair and packed mode)
+// The redesigned walk (pair, packed and coeff mode)
 constexpr int kMaxWarps = 32;     // warps a block, at most (PROBE_MAX_WARPS)
 // at most 64 registers a thread (__launch_bounds__(32·kMaxWarps, 1)), so
 // that 32 warps an SM keep their corner loads in flight, in one block or
@@ -173,7 +175,7 @@ struct Streams {
 };
 
 // ---------------------------------------------------------------------------
-// Pair and packed mode
+// Pair, packed and coeff mode
 
 // The launch plan, in the order of cuda_msda.py::ProbePlan.as_c: lanes a
 // row (G), channels a vector (V), channels a lane (NV·V), rows a warp
@@ -190,41 +192,63 @@ struct Shape {
 };
 
 // One sample's scalars as its lane loaded them: a (iy or fl), b (ix, pair
-// only), y (fy), x (fx), w. A lane with no sample holds one out of range.
+// only) and its floats, y, x, w (fy, fx, w), or in coeff mode y, x, w, z
+// (c00, c01, c10, c11). Only coeff mode's Raw has a z: a dead z in the
+// other modes' changed the SASS of some of their P 1 instances (about 1%
+// slower at MOTR's level 0 on an H100). A lane with no sample holds one out
+// of range.
+template <Mode kMode>
 struct Raw {
   int a, b;
   float y, x, w;
 };
+template <>
+struct Raw<kCoeff> {
+  int a, b;
+  float y, x, w, z;
+};
 
 template <Mode kMode>
-__device__ __forceinline__ Raw load_raw(const Streams& in, int s, bool has) {
-  Raw r = {-1, -1, 0.f, 0.f, 0.f};
+__device__ __forceinline__ Raw<kMode> load_raw(const Streams& in, int s,
+                                               bool has) {
+  Raw<kMode> r = {-1, -1, 0.f, 0.f, 0.f};
   if (has) {
     r.a = __ldcs(in.ia + s);
     if (kMode == kPair) r.b = __ldcs(in.ib + s);
     r.y = __ldcs(in.f[0] + s);
     r.x = __ldcs(in.f[1] + s);
     r.w = __ldcs(in.f[2] + s);
+    if constexpr (kMode == kCoeff) r.z = __ldcs(in.f[3] + s);
   }
   return r;
 }
 
 // The sample's first element in its head's map (−1 out of range).
 template <Mode kMode>
-__device__ __forceinline__ int map_offset(const Raw& r, const Shape& sh) {
-  if (kMode == kPacked)
+__device__ __forceinline__ int map_offset(const Raw<kMode>& r,
+                                          const Shape& sh) {
+  if (kMode == kPacked || kMode == kCoeff)
     return r.a >= 0 && r.a < sh.cells ? r.a * 4 * sh.channels : -1;
   return r.a >= 0 && r.a <= sh.hp - 2 && r.b >= 0 && r.b <= sh.wp - 2
              ? (r.a * sh.wp + r.b) * sh.channels
              : -1;
 }
 
-// A sample's coefficients from its fy, fx, w, in the JAX kernels'
-// roundings: pair (1−fx, fx, 1−fy, fy, w); packed the corner weights
-// (c00, c01, c10, c11). Every lane of a group forms them alike.
+// A sample's coefficients from its floats, in the JAX kernels' roundings:
+// pair (1−fx, fx, 1−fy, fy, w) and packed the corner weights (c00, c01,
+// c10, c11) from y, x, w = fy, fx, w; coeff the corner weights y, x, w, z
+// as they were given. Every lane of a group forms them alike.
 template <Mode kMode>
 __device__ __forceinline__ void coefficients(float y, float x, float w,
-                                             float (&c)[5]) {
+                                             float z, float (&c)[5]) {
+  if (kMode == kCoeff) {
+    c[0] = y;
+    c[1] = x;
+    c[2] = w;
+    c[3] = z;
+    c[4] = 0.f;
+    return;
+  }
   const float gy = __fsub_rn(1.f, y), gx = __fsub_rn(1.f, x);
   if (kMode == kPacked) {
     const float ay = __fmul_rn(w, gy), by = __fmul_rn(w, y);
@@ -287,9 +311,9 @@ __device__ __forceinline__ void walk(const T* __restrict__ map,
     const bool live = c < end && lane < batch && s < sh.samples;
     return load_raw<kMode>(in, live ? h * sh.samples + s : 0, live);
   };
-  Raw next = raw_of(first);
+  Raw<kMode> next = raw_of(first);
   for (int c = first; c < end; c += step) {
-    const Raw mine = next;
+    const Raw<kMode> mine = next;
     next = raw_of(c + step);  // the next chunk's scalars, in flight now
     const int off = map_offset<kMode>(mine, sh);
     const int h = c / sh.chunks_per_head;
@@ -322,10 +346,12 @@ __device__ __forceinline__ void walk(const T* __restrict__ map,
             q[k][t].bits = {};
           }
         }
+      float z = 0.f;
+      if constexpr (kMode == kCoeff) z = __shfl_sync(kFull, mine.z, src);
       float k_[5];
-      coefficients<kMode>(__shfl_sync(kFull, mine.y, src),
-                          __shfl_sync(kFull, mine.x, src),
-                          __shfl_sync(kFull, mine.w, src), k_);
+      coefficients<kMode>(
+          __shfl_sync(kFull, mine.y, src), __shfl_sync(kFull, mine.x, src),
+          __shfl_sync(kFull, mine.w, src), z, k_);
 #pragma unroll
       for (int t = 0; t < NV; ++t)
 #pragma unroll
@@ -381,8 +407,8 @@ __device__ __forceinline__ void copy_to_shared(T* tile,
   }
 }
 
-// map: pair vm (heads, hp, wp, channels); packed pm (heads, cells,
-// 4·channels). out: (heads, samples / P, channels) f32.
+// map: pair vm (heads, hp, wp, channels); packed and coeff pm (heads,
+// cells, 4·channels). out: (heads, samples / P, channels) f32.
 template <int P, Mode kMode, typename T, int V, int NV, bool kSmem>
 __global__ void __launch_bounds__(32 * kMaxWarps, kMinBlocks)
 msda_probe_vec_kernel(const T* __restrict__ map, Streams in,
@@ -514,68 +540,37 @@ Shape shape_of(const Plan& p, int heads, int samples, int points, int hp,
 }
 
 // ---------------------------------------------------------------------------
-// Coeff and wide mode: the first walk
+// Wide mode: the first walk
 
-// A sample as lane j holds it: its map offset (−1 out of range) and, in
-// coeff mode, its four corner weights.
-struct Sample {
-  int off;
-  float c[4];
-};
-
-template <Mode kMode>
-__device__ __forceinline__ Sample load_sample(const Streams& in, int s,
-                                              int cells, int channels) {
-  Sample out = {-1, {0.f, 0.f, 0.f, 0.f}};
-  const int fl = __ldg(in.ia + s);
-  out.off = (fl >= 0 && fl < cells) ? fl * 4 * channels : -1;
-  if (kMode == kCoeff) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out.c[k] = __ldg(in.f[k] + s);
-  }
-  return out;
+// The map offset of lane j's sample fl (−1 out of range).
+__device__ __forceinline__ int load_offset(const int* fl, int s, int cells,
+                                           int channels) {
+  const int f = __ldg(fl + s);
+  return (f >= 0 && f < cells) ? f * 4 * channels : -1;
 }
 
-// Channel d of one coeff sample, in the JAX kernel's order of roundings.
-template <typename T>
-__device__ __forceinline__ float coeff_value(const T* __restrict__ base,
-                                             const float (&c)[4], int d,
-                                             int channels) {
-  float v = __fmul_rn(to_f32(__ldg(base + d)), c[0]);
-  v = __fadd_rn(v, __fmul_rn(to_f32(__ldg(base + channels + d)), c[1]));
-  v = __fadd_rn(v, __fmul_rn(to_f32(__ldg(base + 2 * channels + d)), c[2]));
-  return __fadd_rn(v, __fmul_rn(to_f32(__ldg(base + 3 * channels + d)), c[3]));
-}
-
-// map: pm (heads, cells, 4·channels). out: (heads, samples / P, width) f32,
-// width = 4·channels in wide mode, else channels. Block (x, head): warp k
-// of block x owns rows [(x·kWarps + k)·kRows, +kRows).
+// map: pm (heads, cells, 4·channels). out: (heads, samples / P,
+// 4·channels) f32. Block (x, head): warp k of block x owns rows
+// [(x·kWarps + k)·kRows, +kRows).
 template <int P, Mode kMode, typename T>
 __global__ void __launch_bounds__(kThreads)
 msda_probe_kernel(const T* __restrict__ map, Streams in,
                   float* __restrict__ out, int samples, int cells,
                   int channels) {
   static_assert(32 % P == 0, "P divides 32");
-  static_assert(kMode == kCoeff || kMode == kWide, "coeff or wide mode");
-  // output lanes a lane owns: a channel and its second (D ≤ 64), or in
-  // wide mode k = lane + 32·t over the 4D ≤ 256 of a row
-  constexpr int kLanes = kMode == kWide ? 4 * kMaxChannels / 32 : 2;
+  static_assert(kMode == kWide, "the first walk runs wide mode alone");
+  // output lanes a lane owns: k = lane + 32·t over the 4D ≤ 256 of a row
+  constexpr int kLanes = 4 * kMaxChannels / 32;
   const int rows = samples / P;
   const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;
   if (row0 >= rows) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.y;
-  const int width = kMode == kWide ? 4 * channels : channels;
+  const int width = 4 * channels;
   const T* map_h = map + m * cells * 4 * channels;
   const int first = m * samples;  // the head's first sample
   in.ia += first;
-  const float* cf_h = nullptr;  // wide: the head's first cf row
-  if (kMode == kWide) {
-    cf_h = in.f[0] + first * width;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) in.f[k] += first;
-  }
+  const float* cf_h = in.f[0] + first * width;  // the head's first cf row
   float* out_h = out + m * rows * width;
   int lanes[kLanes];
   bool has[kLanes];
@@ -590,9 +585,8 @@ msda_probe_kernel(const T* __restrict__ map, Streams in,
   for (int row = row0; row < row_end; row += 32 / P) {
     const int base = row * P;
     const int count = min(32, (row_end - row) * P);
-    Sample mine = {-1, {0.f, 0.f, 0.f, 0.f}};
-    if (lane < count)
-      mine = load_sample<kMode>(in, base + lane, cells, channels);
+    int mine = -1;
+    if (lane < count) mine = load_offset(in.ia, base + lane, cells, channels);
     const int nrows = count / P;
 #pragma unroll 4
     for (int r = 0; r < nrows; ++r) {
@@ -600,30 +594,18 @@ msda_probe_kernel(const T* __restrict__ map, Streams in,
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const int j = r * P + p;
-        const int off = __shfl_sync(kFull, mine.off, j);
+        const int off = __shfl_sync(kFull, mine, j);
         float v[kLanes];
 #pragma unroll
         for (int t = 0; t < kLanes; ++t) v[t] = nan_f32();
-        if (kMode == kWide) {
-          if (off >= 0) {  // warp-uniform
-            const T* at = map_h + off;
-            const float* cf = cf_h + (base + j) * width;
+        if (off >= 0) {  // warp-uniform
+          const T* at = map_h + off;
+          const float* cf = cf_h + (base + j) * width;
 #pragma unroll
-            for (int t = 0; t < kLanes; ++t)
-              if (has[t])
-                v[t] = __fmul_rn(to_f32(__ldg(at + lanes[t])),
-                                 __ldcs(cf + lanes[t]));
-          }
-        } else {
-          float c[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) c[k] = __shfl_sync(kFull, mine.c[k], j);
-          if (off >= 0) {  // warp-uniform
-            const T* at = map_h + off;
-#pragma unroll
-            for (int t = 0; t < kLanes; ++t)
-              if (has[t]) v[t] = coeff_value(at, c, lanes[t], channels);
-          }
+          for (int t = 0; t < kLanes; ++t)
+            if (has[t])
+              v[t] = __fmul_rn(to_f32(__ldg(at + lanes[t])),
+                               __ldcs(cf + lanes[t]));
         }
 #pragma unroll
         for (int t = 0; t < kLanes; ++t)
@@ -683,6 +665,29 @@ bool bad_packed(int heads, int samples, int cells, int channels, int row) {
          (long long)heads * samples * row > INT_MAX;
 }
 
+// A packed- or coeff-mode launch (P4a, P4c) of the seven plan ints on pm
+// (heads, cells, 4·channels), f32 (bf16 = 0) or bf16, refused unless an
+// instance of this file runs the plan on these pointers.
+template <Mode kMode>
+int launch_packed(const void* pm, const Streams& in, void* out, int heads,
+                  int samples, int cells, int channels, int points, int bf16,
+                  const int* plan, void* stream) {
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
+  const int elem = bf16 ? 2 : 4;
+  if (bad_shape(heads, samples, channels, points) ||
+      bad_packed(heads, samples, cells, channels, channels) ||
+      bad_plan(p, channels, elem, pm, out,
+               (long long)cells * 4 * channels * elem, false))
+    return int(cudaErrorInvalidValue);
+  const Shape sh = shape_of(p, heads, samples, points, 0, 0, cells, channels,
+                            cells * 4 * channels);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!bf16)
+    return int(launch_points<kMode, float>(p, points, pm, in, out, sh, s));
+  return int(
+      launch_points<kMode, __nv_bfloat16>(p, points, pm, in, out, sh, s));
+}
+
 }  // namespace
 
 extern "C" {
@@ -727,43 +732,29 @@ int msda_probe_packed(const void* pm, const void* fl, const void* fy,
                       const void* fx, const void* w, void* out, int heads,
                       int samples, int cells, int channels, int points,
                       int bf16, const int* plan, void* stream) {
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
-  const int elem = bf16 ? 2 : 4;
-  if (bad_shape(heads, samples, channels, points) ||
-      bad_packed(heads, samples, cells, channels, channels) ||
-      bad_plan(p, channels, elem, pm, out,
-               (long long)cells * 4 * channels * elem, false))
-    return int(cudaErrorInvalidValue);
   const Streams in = {static_cast<const int*>(fl), nullptr,
                       {static_cast<const float*>(fy),
                        static_cast<const float*>(fx),
                        static_cast<const float*>(w), nullptr}};
-  const Shape sh = shape_of(p, heads, samples, points, 0, 0, cells, channels,
-                            cells * 4 * channels);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!bf16)
-    return int(launch_points<kPacked, float>(p, points, pm, in, out, sh, s));
-  return int(
-      launch_points<kPacked, __nv_bfloat16>(p, points, pm, in, out, sh, s));
+  return launch_packed<kPacked>(pm, in, out, heads, samples, cells, channels,
+                                points, bf16, plan, stream);
 }
 
 // P4c. pm, fl as P4a; c00, c01, c10, c11: (heads, samples) f32, the corner
-// weights; out: (heads, samples / points, channels) f32. Returns the
-// cudaError_t of the launch.
+// weights; out: (heads, samples / points, channels) f32; plan as for
+// msda_probe_packed. Returns the cudaError_t of the launch.
 int msda_probe_coeff(const void* pm, const void* fl, const void* c00,
                      const void* c01, const void* c10, const void* c11,
                      void* out, int heads, int samples, int cells,
-                     int channels, int points, int bf16, void* stream) {
-  if (bad_shape(heads, samples, channels, points) ||
-      bad_packed(heads, samples, cells, channels, channels))
-    return int(cudaErrorInvalidValue);
+                     int channels, int points, int bf16, const int* plan,
+                     void* stream) {
   const Streams in = {static_cast<const int*>(fl), nullptr,
                       {static_cast<const float*>(c00),
                        static_cast<const float*>(c01),
                        static_cast<const float*>(c10),
                        static_cast<const float*>(c11)}};
-  return int(launch_typed<kCoeff>(bf16, pm, in, out, heads, samples, cells,
-                                  channels, points, stream));
+  return launch_packed<kCoeff>(pm, in, out, heads, samples, cells, channels,
+                               points, bf16, plan, stream);
 }
 
 // P4d. pm, fl as P4a; cf: (heads, samples, 4·channels) f32, a coefficient

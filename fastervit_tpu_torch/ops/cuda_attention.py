@@ -355,18 +355,21 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
-        lib.msda_probe_packed.argtypes = (  # P4a, in ops/cuda_msda.py
+        # the MSDA probes, bound in ops/cuda_msda.py: all but P4d (wide
+        # mode, the first walk) take a ProbePlan's seven ints
+        lib.msda_probe_packed.argtypes = (  # P4a
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_probe_packed.restype = ctypes.c_int
-        lib.msda_probe_pair.argtypes = (  # P3a-c, P4b, in ops/cuda_msda.py
+        lib.msda_probe_pair.argtypes = (  # P3a-c, P4b
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_probe_pair.restype = ctypes.c_int
-        lib.msda_probe_coeff.argtypes = (  # P4c, in ops/cuda_msda.py
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.msda_probe_coeff.argtypes = (  # P4c
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_probe_coeff.restype = ctypes.c_int
-        lib.msda_probe_wide.argtypes = (  # P4d, in ops/cuda_msda.py
+        lib.msda_probe_wide.argtypes = (  # P4d
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.msda_probe_wide.restype = ctypes.c_int
         lib.hat_block_forward.argtypes = (  # K6, in ops/cuda_hat_block.py

@@ -6,7 +6,7 @@ gather probes' kernels (csrc/msda_probe.cu): P3a `fused_gather_cuda`, P3b
 `packed_gather_cuda`, P4b `pair_staticr_cuda`, P4c `packed_coeff_cuda` and
 P4d `packed_wide_cuda`, the counterparts of scripts/msda_pallas_probe.py's,
 scripts/msda_packed_probe.py's and scripts/msda_packed_probe2.py's Pallas
-kernels. K5 runs the plan of `msda_plan`, P3a-c, P4a and P4b that of
+kernels. K5 runs the plan of `msda_plan`, P3a-c and P4a-c that of
 `probe_plan`; each C entry point checks its plan and refuses one that no
 instance of its kernel runs.
 
@@ -212,9 +212,10 @@ ms_deform_attn_cuda.last_plan = None  # the MsdaPlan of the latest launch
 # The MSDA gather probes' kernels, P3a-c and P4a-d (csrc/msda_probe.cu)
 PROBE_MAX_CHANNELS = 64       # kMaxChannels in csrc/msda_probe.cu
 PROBE_POINTS = (1, 2, 4)      # the instantiations of its P
-_MAX_HEADS = 65535            # kMaxGridY: P4c's, P4d's grid row a head
+_MAX_HEADS = 65535            # kMaxGridY: P4d's grid row a head, the
+#                               limit of every entry point
 _INT32_MAX = 2 ** 31 - 1      # its offsets are 32-bit
-PROBE_MODES = ("pair", "packed")   # the modes that run a ProbePlan
+PROBE_MODES = ("pair", "packed", "coeff")   # the modes that run a ProbePlan
 PROBE_MAX_WARPS = 32          # kMaxWarps: warps a block, at most
 PROBE_SMEM_BYTES = 232_448    # kMaxSmemBytes: a block's dynamic shared
 #                               memory, at most (227 KB)
@@ -226,15 +227,14 @@ _WARPS_PER_SM, _L2_BLOCKS_PER_SM, _SMEM_BLOCKS_PER_SM = 32, 4, 4
 
 
 class ProbePlan(NamedTuple):
-    """How P3a-c, P4a and P4b run (csrc/msda_probe.cu's pair and packed
-    mode): lanes an output row (G), channels a vector load (V), channels a
-    lane holds (a multiple of V), rows a warp (32/G), warps a block, blocks
-    (the persistent grid; a launch takes no more than its rows need) and
-    the route: "l2", the corners read from the map in device memory
-    through L2, chunks of rows walked head-major by grid stride; or
-    "smem", each block's run of chunks read from a copy of its head's map
-    in shared memory. The C entry points check it and refuse what no
-    instance of the kernel runs."""
+    """How P3a-c, P4a, P4b and P4c run (csrc/msda_probe.cu's pair, packed and
+    coeff mode): lanes an output row (G), channels a vector load (V), channels
+    a lane holds (a multiple of V), rows a warp (32/G), warps a block, blocks
+    (the persistent grid; a launch takes no more than its rows need) and the
+    route: "l2", the corners read from the map in device memory through L2,
+    chunks of rows walked head-major by grid stride; or "smem", each block's
+    run of chunks read from a copy of its head's map in shared memory. The C
+    entry points check it and refuse what no instance of the kernel runs."""
     lanes: int
     vec: int
     channels: int
@@ -253,10 +253,11 @@ class ProbePlan(NamedTuple):
 def probe_plan(mode: str, d: int, dtype: torch.dtype,
                map_bytes_per_head: int, ptr_alignment: int,
                sm_count: int) -> ProbePlan:
-    """The plan of a pair-mode (P3a-c, P4b: `mode` "pair") or packed-mode
-    (P4a: "packed") launch on heads of D channels whose map, in `dtype`,
-    holds map_bytes_per_head bytes a head from an address that is a
-    multiple of ptr_alignment bytes, on a card of sm_count SMs.
+    """The plan of a pair-mode (P3a-c, P4b: `mode` "pair"), packed-mode
+    (P4a: "packed") or coeff-mode (P4c: "coeff") launch on heads of D
+    channels whose map, in `dtype`, holds map_bytes_per_head bytes a head
+    from an address that is a multiple of ptr_alignment bytes, on a card
+    of sm_count SMs.
 
     G, V and the channels a lane are K5's (`msda_plan`): f32 D 32 on a
     16-byte address G 8, V 4; bf16 G 4, V 8; an odd element offset V 1.
@@ -264,8 +265,8 @@ def probe_plan(mode: str, d: int, dtype: torch.dtype,
     MOTR's level 3, 172.8 KB f32) takes route "smem": as many blocks an SM
     as their copies of the map fit, 1, 2 or 4, of 32 warps an SM between
     them (f32 level 3: one block of 32 warps; bf16: two of 16). Every other
-    map, and every packed one, takes route "l2": four blocks of 8 warps an
-    SM."""
+    map, and every packed or coeff one, takes route "l2": four blocks of 8
+    warps an SM."""
     if mode not in PROBE_MODES:
         raise ValueError(f"probe_plan's modes are {PROBE_MODES}, got {mode}")
     if dtype not in _DTYPES:
@@ -292,8 +293,8 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _probe_plan_for(mode: str, vm: torch.Tensor, d: int) -> ProbePlan:
-    """probe_plan for one head of the map vm (pair (.., Hp, Wp, D) or
-    packed (.., cells, 4D)) as it lies on its card."""
+    """probe_plan for one head of the map vm (pair (.., Hp, Wp, D); packed
+    and coeff (.., cells, 4D)) as it lies on its card."""
     per_head = vm.shape[-1] * vm.shape[-2] * vm.element_size()
     if mode == "pair":
         per_head *= vm.shape[-3]
@@ -563,9 +564,9 @@ fused_gather_per_head_cuda.last_plan = None  # the latest launch's ProbePlan
 def _packed_launch(entry: str, pm: torch.Tensor,
                    streams: Sequence[torch.Tensor], out: torch.Tensor,
                    points: int, *plan) -> None:
-    """One launch of the C entry point `entry` (msda_probe_packed, with its
-    plan's ints, msda_probe_coeff or msda_probe_wide) on the packed map pm
-    (f32 or bf16), fl and its float streams."""
+    """One launch of the C entry point `entry` (msda_probe_packed or
+    msda_probe_coeff, with its plan's ints, or msda_probe_wide) on the
+    packed map pm (f32 or bf16), fl and its float streams."""
     lib = cuda_attention._library()
     with torch.cuda.device(pm.device):
         err = getattr(lib, entry)(
@@ -626,17 +627,22 @@ def packed_coeff_cuda(pm: torch.Tensor, fl: torch.Tensor, c00: torch.Tensor,
     """P4c on the card: the corner-packed sum over each query's P samples
     with the corner weights given, (M, QP/P, D) f32 from an f32 or bf16
     packed map (see `check_coeff`). Counts its launches in
-    `packed_coeff_cuda.launches`."""
+    `packed_coeff_cuda.launches` and keeps the latest one's ProbePlan in
+    `packed_coeff_cuda.last_plan`."""
     check_coeff(pm, fl, c00, c01, c10, c11, p)
     streams = (fl, c00, c01, c10, c11)
-    out = _probe_output("packed_coeff", (pm, *streams), pm.shape[2] // 4, p)
+    d = pm.shape[2] // 4
+    out = _probe_output("packed_coeff", (pm, *streams), d, p)
     if out.numel():
-        _packed_launch("msda_probe_coeff", pm, streams, out, p)
+        how = _probe_plan_for("coeff", pm, d)
+        _packed_launch("msda_probe_coeff", pm, streams, out, p, how.as_c())
         packed_coeff_cuda.launches += 1
+        packed_coeff_cuda.last_plan = how
     return out
 
 
 packed_coeff_cuda.launches = 0
+packed_coeff_cuda.last_plan = None  # the ProbePlan of the latest launch
 
 
 def packed_wide_cuda(pm: torch.Tensor, fl: torch.Tensor, cf: torch.Tensor,

@@ -18,8 +18,9 @@ kernel runs on it:
   `fused_gather_per_head_cuda` (one launch a head), all on the f32 map;
 - P4a `packed_gather_cuda` on the f32 and the bf16 corner-packed map, P 4;
 - P4b `pair_staticr_cuda` on the bf16 map, P 4;
-- P4c `packed_coeff_cuda` on the f32 packed map with `coeff_scalars`'
-  weights and P4d `packed_wide_cuda` with `coeff_wide`'s rows, P 4.
+- P4c `packed_coeff_cuda` on the f32 and the bf16 packed map with
+  `coeff_scalars`' weights, and P4d `packed_wide_cuda` on the f32 one with
+  `coeff_wide`'s rows, P 4.
 Each call is timed with CUDA events over 50 calls after 5, with the
 samples a second and the corner rows a second it implies (4 corners × D
 channels a sample, in the map's type); each output's SHA-256 is written,
@@ -64,8 +65,9 @@ def cases(cuda_msda, msda_probes, level_case):
                        [pm16, fl, fy, fx, w, 4], 2)
     out["P4b bf16"] = (cuda_msda.pair_staticr_cuda,
                        [vm.bfloat16(), iy, ix, fy, fx, w, 4], 2)
-    out["P4c"] = (cuda_msda.packed_coeff_cuda,
-                  [pm, fl, *msda_probes.coeff_scalars(fy, fx, w), 4], 4)
+    cs = msda_probes.coeff_scalars(fy, fx, w)
+    out["P4c"] = (cuda_msda.packed_coeff_cuda, [pm, fl, *cs, 4], 4)
+    out["P4c bf16"] = (cuda_msda.packed_coeff_cuda, [pm16, fl, *cs, 4], 2)
     out["P4d"] = (cuda_msda.packed_wide_cuda,
                   [pm, fl, msda_probes.coeff_wide(fy, fx, w, D), 4], 4)
     return out

@@ -279,13 +279,14 @@ def test_per_head_launches_spread_one_head(cuda, level):
 
 @pytest.mark.cuda
 def test_c_entry_points_refuse_wrong_plans(cuda, monkeypatch):
-    """msda_probe_pair and msda_probe_packed, handed a plan that no instance
-    runs on their pointers in place of probe_plan's, refuse it: the call
-    raises and counts no launch."""
+    """msda_probe_pair, msda_probe_packed and msda_probe_coeff, handed a
+    plan that no instance runs on their pointers in place of probe_plan's,
+    refuse it: the call raises and counts no launch."""
     level3 = _case(27, 50, 400, 8, 32, cuda)
     level0 = _case(202, 386, 400, 8, 32, cuda)
     d20 = _case(27, 50, 400, 8, 20, cuda)
     pm, fl = _packed(level3, 50)
+    cs = msda_probes.coeff_scalars(*level3[3:])
     plan = cuda_msda.ProbePlan
     wrong = [  # (kernel, arguments, plan, what is wrong)
         (cuda_msda.fused_gather_p4_cuda,
@@ -302,6 +303,12 @@ def test_c_entry_points_refuse_wrong_plans(cuda, monkeypatch):
          plan(8, 4, 4, 4, 32, 132, "smem"), "packed on route smem"),
         (cuda_msda.fused_gather_p4_cuda, [*level3, 4],
          plan(8, 4, 4, 2, 8, 528, "l2"), "rows that are no whole warp"),
+        (cuda_msda.packed_coeff_cuda, [pm.bfloat16(), fl, *cs, 4],
+         plan(4, 8, 8, 8, 32, 132, "smem"), "coeff on route smem"),
+        (cuda_msda.packed_coeff_cuda, [_at_offset(pm, 1), fl, *cs, 4],
+         plan(8, 4, 4, 4, 8, 528, "l2"), "coeff on misaligned vectors"),
+        (cuda_msda.packed_coeff_cuda, [pm, fl, *cs, 4],
+         plan(8, 2, 2, 4, 8, 528, "l2"), "coeff on 16 of D's 32 channels"),
     ]
     for kernel, args, bad, what in wrong:
         monkeypatch.setattr(cuda_msda, "probe_plan", lambda *_: bad)

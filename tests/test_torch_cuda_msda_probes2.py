@@ -1,11 +1,12 @@
 """The second MSDA gather probe's kernels (csrc/msda_probe.cu) against their
 plain PyTorch versions on the card: P4b `pair_staticr_cuda`, P4c
-`packed_coeff_cuda` and P4d `packed_wide_cuda`, on f32 and bf16 maps, at P
-1, 2 and 4, at MOTR's levels and odd shapes, with out-of-range samples;
-P4b on an f32 map against P3b and P4c on `coeff_scalars` against P4a, bit
-for bit; their launch counters, refusals, bit-identical launches and the
-probe module's timed run. Every test here needs a CUDA device and skips
-without one. On a machine with an H100 (which need not have jax, so
+`packed_coeff_cuda` and P4d `packed_wide_cuda`, on f32 and bf16 maps, at P 1,
+2 and 4, at MOTR's levels and odd shapes, with out-of-range samples; P4b on an
+f32 map against P3b and P4c on `coeff_scalars` against P4a, bit for bit; P4c's
+launch plan (`cuda_msda.probe_plan`, coeff mode) on aligned maps and maps one
+element into their storage; their launch counters, refusals, bit-identical
+launches and the probe module's timed run. Every test here needs a CUDA device
+and skips without one. On a machine with an H100 (which need not have jax, so
 tests/conftest.py is not loaded):
 
     python -m pytest --noconftest -q tests/test_torch_cuda_msda_probes2.py
@@ -178,6 +179,34 @@ def test_launches_are_counted_and_bit_identical(cuda):
     assert msda_probes.packed_coeff(pm, fl, *coeffs, 4).shape == (8, 0, 32)
     assert msda_probes.packed_wide(pm, fl, cf, 4).shape == (8, 0, 128)
     assert [k.launches for k in calls] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("hp,wp,qp,m,d", CASES[:2] + CASES[5:7])
+def test_coeff_runs_probe_plan(cuda, hp, wp, qp, m, d, offset):
+    """Every P4c launch runs probe_plan("coeff", ...)'s plan for its map as
+    it lies on the card: route l2, 16-byte vectors at D 32 on an aligned
+    map, V 1 on a map one element into its storage, with the same bits."""
+    case, pm, fl, coeffs = _case(hp, wp, qp, m, d, cuda, seed=5,
+                                 out_of_range=True)[:4]
+    kernel = cuda_msda.packed_coeff_cuda
+    for dtype in MAPS:
+        pmt = pm.to(dtype)
+        if offset:
+            buf = torch.empty(pmt.numel() + offset, dtype=dtype, device=cuda)
+            pmt = buf[offset:].view(pmt.shape).copy_(pmt)
+        for p in POINTS:
+            got = kernel(pmt, fl, *coeffs, p)
+            plan = kernel.last_plan
+            assert plan == cuda_msda._probe_plan_for("coeff", pmt, d)
+            assert plan.route == "l2"
+            if d == 32:
+                assert plan.vec == 1 if offset else (
+                    plan.vec * dtype.itemsize == 16)
+            want = msda_probes.packed_coeff_reference(pmt, fl, *coeffs, p)
+            assert _compare(got, want) == 0.0
+            assert _bits_equal(got, kernel(pm.to(dtype), fl, *coeffs, p))
 
 
 @pytest.mark.cuda

@@ -1,12 +1,13 @@
-"""The launch plan of the MSDA gather probes' pair and packed kernels (P3a-c,
-P4a, P4b: `ops.cuda_msda.probe_plan`), on the CPU: for every head width D
-the kernels take, both map dtypes, both modes and every alignment of the
-map's address, the plan covers each channel exactly once, loads vectors that
-D and the address allow, names an instance of csrc/msda_probe.cu and passes
-the checks of its C entry points (which refuse any other plan on the card);
-DINO's and MOTR's width D 32 gets 16-byte vectors; the shared-memory route
+"""The launch plan of the MSDA gather probes' pair, packed and coeff kernels
+(P3a-c, P4a, P4b, P4c: `ops.cuda_msda.probe_plan`), on the CPU: for every
+head width D the kernels take, both map dtypes, the three modes and every
+alignment of the map's address, the plan covers each channel exactly once,
+loads vectors that D and the address allow, names an instance of
+csrc/msda_probe.cu and passes the checks of its C entry points (which
+refuse any other plan on the card); DINO's and MOTR's width D 32 gets
+16-byte vectors; coeff mode gets packed mode's plan; the shared-memory route
 is taken at MOTR's level 3 and refused at levels 0-2 and for every packed
-map; and every shape that `_check_*` takes still gets a plan."""
+or coeff map; and every shape that `_check_*` takes still gets a plan."""
 import re
 from pathlib import Path
 
@@ -22,7 +23,7 @@ from fastervit_tpu_torch.ops.cuda_msda import (PROBE_MAX_CHANNELS,
 SOURCE = (Path(cuda_msda.__file__).resolve().parent.parent / "csrc"
           / "msda_probe.cu")
 DTYPES = [torch.float32, torch.bfloat16]
-MODES = ("pair", "packed")
+MODES = ("pair", "packed", "coeff")
 ALIGNMENTS = (16, 8, 4, 2)
 SMS = 132   # an H100 SXM's
 # MOTR's padded levels (Hp, Wp), level 0 first
@@ -93,6 +94,29 @@ def test_plan_covers_each_channel_once_with_allowed_vectors(d, dtype):
                                              int(plan.route == "smem")]
 
 
+@pytest.mark.parametrize("align", ALIGNMENTS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", range(1, PROBE_MAX_CHANNELS + 1))
+def test_coeff_plan_is_packed_plan(d, dtype, align):
+    """P4c's plan is P4a's (the same lane group, route l2, four blocks of
+    8 warps an SM) at every MOTR level, covers each channel once and passes
+    the C checks of coeff mode."""
+    for hp, wp in LEVELS:
+        map_bytes = _map_bytes("coeff", hp, wp, d, dtype)
+        plan = probe_plan("coeff", d, dtype, map_bytes, align, SMS)
+        assert plan == probe_plan("packed", d, dtype, map_bytes, align, SMS)
+        assert plan.route == "l2"
+        assert (plan.warps, plan.blocks) == (8, 4 * SMS)
+        held = [c for lane in range(plan.lanes)
+                for c in range(min(lane * plan.channels, d),
+                               min((lane + 1) * plan.channels, d))]
+        assert held == list(range(d))
+        assert _passes_the_c_checks(plan, d, dtype, align, "coeff",
+                                    map_bytes)
+    # a map small enough for a block's shared memory still takes route l2
+    assert probe_plan("coeff", d, dtype, 1024, align, SMS).route == "l2"
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_d32_plans_load_16_bytes(mode):
     """MOTR's width on a 16-byte-aligned map: f32 G 8, V 4 (four rows a
@@ -116,14 +140,16 @@ def test_d32_plans_load_16_bytes(mode):
 def test_shared_memory_route_at_level_3_only(dtype):
     """A pair-mode head map at MOTR's level 3 (172.8 KB f32, 86.4 KB bf16)
     fits a block's shared memory and takes route smem, in as many blocks an
-    SM as its copies fit; levels 0-2 do not, and no packed map takes it."""
+    SM as its copies fit; levels 0-2 do not, and no packed or coeff map
+    takes it."""
     for index, (hp, wp) in enumerate(LEVELS):
         pair_bytes = _map_bytes("pair", hp, wp, 32, dtype)
         pair = probe_plan("pair", 32, dtype, pair_bytes, 16, SMS)
-        packed = probe_plan("packed", 32, dtype,
-                            _map_bytes("packed", hp, wp, 32, dtype), 16, SMS)
-        assert packed.route == "l2" and packed.warps == 8
-        assert packed.blocks == 4 * SMS
+        for mode in ("packed", "coeff"):
+            packed = probe_plan(mode, 32, dtype,
+                                _map_bytes(mode, hp, wp, 32, dtype), 16, SMS)
+            assert packed.route == "l2" and packed.warps == 8
+            assert packed.blocks == 4 * SMS
         if index < 3:
             assert pair_bytes > PROBE_SMEM_BYTES
             assert pair.route == "l2" and pair.blocks == 4 * SMS
@@ -161,8 +187,8 @@ ADMITTED = [(202, 386, 8, 8, 32), (27, 50, 4, 8, 32), (3, 3, 4, 8, 32),
 
 @pytest.mark.parametrize("hp,wp,qp,m,d", ADMITTED)
 def test_admitted_shapes_get_a_plan(hp, wp, qp, m, d):
-    """What check_gather, check_pair and check_packed take, on any map
-    address, gets a plan that the C entry points run."""
+    """What check_gather, check_pair, check_packed and check_coeff take, on
+    any map address, gets a plan that the C entry points run."""
     gen = torch.Generator().manual_seed(0)
     case = list(msda_probes.sample_case(hp, wp, qp, m, d, gen, "cpu"))
     pm = msda_probes.pack_corners(case[0])
@@ -173,8 +199,11 @@ def test_admitted_shapes_get_a_plan(hp, wp, qp, m, d):
             cuda_msda.check_gather(vm, *case[1:], points=4)
         cuda_msda.check_pair(vm, *case[1:], 4)
         cuda_msda.check_packed(pm.to(dtype), fl, *case[3:], 4)
+        cuda_msda.check_coeff(pm.to(dtype), fl,
+                              *msda_probes.coeff_scalars(*case[3:]), 4)
         for mode, per_head in (("pair", vm[0].numel()),
-                               ("packed", pm[0].numel())):
+                               ("packed", pm[0].numel()),
+                               ("coeff", pm[0].numel())):
             for align in ALIGNMENTS:
                 if align < dtype.itemsize:
                     continue
@@ -186,7 +215,7 @@ def test_admitted_shapes_get_a_plan(hp, wp, qp, m, d):
 
 def test_plan_refuses_what_the_kernels_refuse():
     with pytest.raises(ValueError, match="modes"):
-        probe_plan("coeff", 32, torch.float32, 1000, 16, SMS)
+        probe_plan("wide", 32, torch.float32, 1000, 16, SMS)
     with pytest.raises(NotImplementedError, match="channels"):
         probe_plan("pair", 65, torch.float32, 1000, 16, SMS)
     with pytest.raises(NotImplementedError, match="channels"):
