@@ -161,7 +161,32 @@ Phases, each of which raises on failure:
      at levels 0 and 3, f32 and bf16 maps; then the probe's main path,
      msda_packed_probe2 through its main at all four levels, its JSON
      printed and kept in the output directory, the three kernels (and P3b,
-     P4a) launched there.
+     P4a) launched there;
+ 29. K7, the MSDA backward kernel, against its plain version in fp32 and
+     bf16 (beside f32 locations) at phase 18's shapes (the served encoder
+     and decoder calls, D 1-64, a 1x1 level, border and far-outside
+     samples, N = 0, Q = 0) and with value and grad_out one element into
+     their storage (scalar loads): dloc and dweights within TOL_K7 of
+     their largest entry (bf16 dweights one bf16 rounding more) and bit
+     for bit over two launches, dvalue (f32 atomics) within its order
+     bound c·2^-24·Σ|terms| against the plain version and between two
+     launches; ptxas' registers and spills of every instance, the served
+     ones without spills; kernel, plain version, autograd through the
+     grid_sample form and bound timed at the encoder and decoder calls;
+ 30. one fp32 DINO-4scale train step (faster_vit_4_21k_224, use_checkpoint,
+     b1 480x640, given assignments), card against CPU, the CPU's step on
+     the card's MSDA cells and ReLU branches (PinLog): the loss and every
+     gradient, 17 K1, 12 K3, 24 K5 (each layer's forward twice), 12 K7
+     and 29 K2 or K4 launches;
+ 31. the detection training path: that detector as configured, f32 weights
+     under bf16 autocast, b2 800x1333, the fused step (auction): one step's
+     launches by route and plan (K1 and K2 on the tensor cores, every K5
+     and K7 launch bf16 on vector loads), 10 steps timed after 2, peak
+     memory, one step profiled to chiprun_out/dino_train_profile.json, then
+     the loss finite and falling over 30 steps on the batch;
+ 32. the detection training CLI (--synthetic --dtype bfloat16 --epochs 1,
+     800x800) with --matcher auction and --matcher host, its best.pth
+     under TMPDIR, 48 K7 and 120 K5 launches each.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -317,6 +342,30 @@ TOL_DINO_FP32 = 1e-4
 # the 23 backbone blocks and 6 encoder layers (MSDA's sampling locations
 # and the reference boxes stay f32, as in the JAX detector): a few percent
 TOL_DINO_BF16 = 5e-2
+# K7, the MSDA backward, at K5's shapes (K5_SERVED: the encoder and decoder
+# calls, 6 each a train step; K5_ODD: D 1-64, a 1x1 level, border and far
+# outside samples, N = 0, Q = 0) and K5_OFFSET's, value and grad_out one
+# element into their storage. dloc and dweights against the plain version
+# relative to each tensor's largest entry (f32, the sums over D in another
+# order); bf16 dweights also one bf16 rounding of the entry; dvalue within
+# the order bound of msda.dvalue_order_bound (plus one bf16 rounding)
+TOL_K7 = 2e-5
+K7_SERVED_INSTANCES = ("<bf16, V 8, G 4, NV 1>", "<float, V 4, G 8, NV 1>")
+# the DINO-4scale train step: fp32 card against CPU at phase 19's b1
+# 480x640, the loss relative to itself and each gradient relative to its
+# tensor's largest entry (floor: 1e-5 of the largest of all): f32 with TF32
+# off through 23 backbone blocks and 6 + 6 transformer layers and back,
+# the sums in another order
+TOL_DINO_STEP_LOSS = 1e-4
+TOL_DINO_STEP_GRAD = 1e-3
+# (the CPU's step takes the card's MSDA cells and ReLU branches, with its
+# own autograd path: see PinLog)
+DINO_TRAIN_STEPS = 10      # timed bf16 steps, after 2
+# steps on one batch over which the loss must fall: the matcher re-solves
+# each step and the two-stage selection moves, so the box losses swing
+# from step to step (±40% over 13 steps in PR 17's runs); over 30 the mean
+# of the last 5 lay 27-36% under the first 3's, the class loss 50% under
+DINO_LOSS_STEPS = 30
 # K6, the fused HAT sub-block: (B, S, heads, C, calls per FasterViT-0 bf16
 # b256 forward): the level-2 carrier and joint sub-blocks and level 3, timed;
 # then checked only: faster_vit_1's carrier (C 320, 8 heads, hd 40), 10
@@ -500,12 +549,12 @@ def ptxas_instances(log: str, kernel: str, cuda_attention) -> list:
     return ptxas_entries(log, describe)
 
 
-def ptxas_k5_instances(log: str) -> dict:
+def ptxas_k5_instances(log: str, kernel: str = "msda_fwd_kernel") -> dict:
     """{instance: {registers, spill_stores, static_smem}} for each
-    msda_fwd_kernel<T, V, G, NV> that nvcc's -Xptxas -v log reports, each
-    printed."""
+    msda_fwd_kernel<T, V, G, NV> (K5; or, given kernel="msda_bwd_kernel",
+    K7's) that nvcc's -Xptxas -v log reports, each printed."""
     def describe(name):
-        args = re.search(r"msda_fwd_kernelI(f|13__nv_bfloat16)"
+        args = re.search(kernel + r"I(f|13__nv_bfloat16)"
                          r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
         if args is None:
             return None
@@ -516,7 +565,7 @@ def ptxas_k5_instances(log: str) -> dict:
     for i in ptxas_entries(log, describe):
         name = i.pop("instance")
         out[name] = i
-        print(f"  ptxas: msda_fwd_kernel{name}: {i['registers']} registers, "
+        print(f"  ptxas: {kernel}{name}: {i['registers']} registers, "
               f"{i['spill_stores']} bytes of spill stores")
     return out
 
@@ -636,14 +685,16 @@ class K5Plans:
     read from last_plan just after the launch, is counted in plans.count
     by (dtype, plan). ms_deform_attn_cuda is wrapped for the block's
     duration (its launches and last_plan read and written through to it);
-    the model, and the wrapper itself, look it up at each call."""
+    the model, and the wrapper itself, look it up at each call. With
+    kernel="ms_deform_attn_backward_cuda" it counts K7's launches alike."""
 
-    def __init__(self, cuda_msda):
-        self.cm = cuda_msda
+    def __init__(self, cuda_msda, kernel: str = "ms_deform_attn_cuda"):
+        self.cm, self.kernel = cuda_msda, kernel
+        self.label = "K5" if kernel == "ms_deform_attn_cuda" else "K7"
 
     def __enter__(self):
         self.count = collections.Counter()
-        orig, count = self.cm.ms_deform_attn_cuda, self.count
+        orig, count = getattr(self.cm, self.kernel), self.count
         self.orig = orig
 
         class Counted:
@@ -662,25 +713,26 @@ class K5Plans:
                            orig.last_plan)] += 1
                 return out
 
-        self.cm.ms_deform_attn_cuda = Counted()
+        setattr(self.cm, self.kernel, Counted())
         return self
 
     def __exit__(self, *exc):
-        self.cm.ms_deform_attn_cuda = self.orig
+        setattr(self.cm, self.kernel, self.orig)
 
     def check(self, launches: int, what: str, vector: bool = False) -> None:
-        """At least `launches` K5 launches in the block and, where `vector`,
+        """At least `launches` launches in the block and, where `vector`,
         every bf16 one on vector loads (V > 1)."""
         total = sum(self.count.values())
         scalar = sum(n for (dtype, plan), n in self.count.items()
                      if dtype == "bfloat16" and plan.vec == 1)
-        print(f"{what}: {total} K5 launches by plan: "
+        print(f"{what}: {total} {self.label} launches by plan: "
               + "; ".join(f"{n} {dtype} at {plan._asdict()}"
                           for (dtype, plan), n in self.count.items()))
-        check(total >= launches, f"{what}: {total} K5 launches, expected "
-                                 f"at least {launches}")
-        check(not (vector and scalar), f"{what}: {scalar} bf16 K5 launches "
-                                       "on scalar loads (V 1)")
+        check(total >= launches, f"{what}: {total} {self.label} launches, "
+                                 f"expected at least {launches}")
+        check(not (vector and scalar), f"{what}: {scalar} bf16 "
+                                       f"{self.label} launches on scalar "
+                                       "loads (V 1)")
 
 
 def check_short_plan(kernel, cuda_attention, bf16: bool, seq: int,
@@ -1170,6 +1222,7 @@ def train_parity_phase(fvt, cuda_attention, steps,
 KINDS = [  # (kind, substrings of a kernel's name), first match wins
     ("K6 hat_block", ("hat_block_kernel", "hat_block_tc_kernel")),
     ("K5 ms_deform_attn", ("msda_fwd",)),
+    ("K7 ms_deform_attn_backward", ("msda_bwd",)),
     ("K4 window_mhsa_long_backward", ("long_bwd", "long_dbias_sum")),
     ("K3 window_mhsa_long", ("window_mhsa_long",)),
     ("K2 window_mhsa_backward", ("window_mhsa_bwd", "dbias_sum")),
@@ -3534,13 +3587,561 @@ def msda_probe2_phase(cuda_msda, msda_probes, probe2) -> list:
     return lines
 
 
+def train_launches(cuda_attention, cuda_msda):
+    """Launches so far of K1, K2, K3, K4, K5 and K7, the kernels of the
+    detector's train step."""
+    return (*launches(cuda_attention), cuda_msda.ms_deform_attn_cuda.launches,
+            cuda_msda.ms_deform_attn_backward_cuda.launches)
+
+
+def reset_train_launches(cuda_attention, cuda_msda) -> None:
+    reset_launches(cuda_attention, cuda_msda)
+    cuda_msda.ms_deform_attn_backward_cuda.launches = 0
+
+
+def k7_check(kernel, plain, msda, value, shapes, loc, w, g) -> dict:
+    """K7 against its plain version on these inputs, and a second launch
+    against the first, to the bounds of TOL_K7; returns the errors."""
+    got = kernel(value, shapes, loc, w, g)
+    torch.cuda.synchronize()
+    bf16 = value.dtype == torch.bfloat16
+    want = plain(value.float(), shapes, loc, w.float(), g.float())
+    bound, c = msda.dvalue_order_bound(value, shapes, loc, w, g)
+    tiny = torch.finfo(torch.float32).tiny
+    # the kernel's bf16 dvalue is its f32 sum rounded once: half a bf16
+    # step, at most 2^-8 of the value, from the f32 sum
+    dv_bound = bound + (2 ** -8 * (want[0].abs() + bound) if bf16 else 0)
+    dv_ratio = ((got[0].float() - want[0]).abs()
+                / dv_bound.clamp(min=tiny)).max().item()
+    dl_err = rel_to_largest(got[1], want[1])
+    top = want[2].abs().max()
+    dw_bound = TOL_K7 * top + (2 ** -8 * want[2].abs() if bf16 else 0)
+    dw_ratio = ((got[2].float() - want[2]).abs()
+                / dw_bound.clamp(min=tiny)).max().item()
+    again = kernel(value, shapes, loc, w, g)
+    same = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    # two f32 sums of dvalue, each rounded to bf16: one bf16 step apart
+    rerun_bound = bound + (2 ** -7 * got[0].float().abs() if bf16 else 0)
+    rerun_ratio = ((again[0].float() - got[0].float()).abs()
+                   / rerun_bound.clamp(min=tiny)).max().item()
+    measured = (got[0].float() - want[0]).abs().max().item()
+    return {"c": c, "dvalue_over_bound": dv_ratio, "dvalue_max_abs_err":
+            measured, "dvalue_bound_max": bound.max().item(),
+            "dloc_rel": dl_err, "dweights_over_bound": dw_ratio,
+            "same_bits": same, "rerun_over_bound": rerun_ratio,
+            "plan": kernel.last_plan}
+
+
+def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
+    """K7 against its plain version at K5's served and odd shapes, f32 and
+    bf16 (beside f32 locations), and on a value and grad_out one element
+    into their storage; two launches compared; ptxas' registers and spills
+    of every instance (none in the served ones); then kernel, plain
+    version, autograd through the grid_sample form and the bound timed in
+    bf16 at the encoder and decoder calls."""
+    kernel = cuda_msda.ms_deform_attn_backward_cuda
+    plain = msda.msda_backward_reference
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    worst = {"dvalue_over_bound": 0.0, "dloc_rel": 0.0,
+             "dweights_over_bound": 0.0, "rerun_over_bound": 0.0}
+    err16 = 0.0
+    for n, q, m, d, p, shapes, _ in K5_SERVED + K5_ODD:
+        value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
+        g = torch.randn(n, q, m * d, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (value.to(dtype), shapes, loc, w.to(dtype), g.to(dtype))
+            if not n * q:
+                before = kernel.launches
+                got = kernel(*args)
+                check(kernel.launches == before
+                      and not any(t.abs().sum() for t in got),
+                      f"K7 on an empty input {(n, q)}")
+                continue
+            r = k7_check(kernel, plain, msda, *args)
+            print(f"K7 ms_deform_attn_backward N={n} Q={q} M={m} D={d} P={p} "
+                  f"{str(dtype).split('.')[-1]} levels {shapes}: dvalue "
+                  f"max|err| {r['dvalue_max_abs_err']:.3e}, at most "
+                  f"{r['dvalue_over_bound']:.3f} of its order bound c·2^-24·"
+                  f"Σ|terms| (c {r['c']}, largest bound "
+                  f"{r['dvalue_bound_max']:.3e}"
+                  f"{', plus one bf16 rounding' if dtype != torch.float32 else ''}"
+                  f"); dloc max|err| / max|plain| {r['dloc_rel']:.3e} (tol "
+                  f"{TOL_K7}); dweights at most "
+                  f"{r['dweights_over_bound']:.3f} of its bound; second "
+                  f"launch: dloc and dweights bit-identical {r['same_bits']}, "
+                  f"dvalue at most {r['rerun_over_bound']:.3f} of the order "
+                  f"bound; plan (G, V, channels a lane) {r['plan'].lanes}, "
+                  f"{r['plan'].vec}, {r['plan'].channels}")
+            check(r["dvalue_over_bound"] <= 1 and r["dloc_rel"] <= TOL_K7
+                  and r["dweights_over_bound"] <= 1 and r["same_bits"]
+                  and r["rerun_over_bound"] <= 1,
+                  f"K7 at {(n, q, m, d, p, dtype)}: {r}")
+            for key in worst:
+                worst[key] = max(worst[key], r[key])
+            if dtype == torch.bfloat16:
+                err16 = max(err16, r["dvalue_max_abs_err"])
+        del value, loc, w, g
+    # value and grad_out one element into their storage: scalar loads
+    for n, q, m, d, p, shapes, _ in K5_OFFSET:
+        value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
+        g = torch.randn(n, q, m * d, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            r = k7_check(kernel, plain, msda, at_element_offset(value.to(dtype)),
+                         shapes, loc, w.to(dtype),
+                         at_element_offset(g.to(dtype)))
+            print(f"K7 ms_deform_attn_backward N={n} Q={q} M={m} D={d} "
+                  f"{dtype}, value and grad_out one element into their "
+                  f"storage: plan (G, V) ({r['plan'].lanes}, {r['plan'].vec})"
+                  f", dvalue at most {r['dvalue_over_bound']:.3f} of its "
+                  f"bound, dloc {r['dloc_rel']:.3e}, dweights at most "
+                  f"{r['dweights_over_bound']:.3f} of its bound")
+            check(r["plan"].vec == 1 and r["dvalue_over_bound"] <= 1
+                  and r["dloc_rel"] <= TOL_K7
+                  and r["dweights_over_bound"] <= 1 and r["same_bits"],
+                  f"K7 on an offset value at {(n, q, m, d, p, dtype)}: {r}")
+        del value, loc, w, g
+    instances = ptxas_k5_instances(ptx_log, "msda_bwd_kernel")
+    served = {i: instances.get(i) for i in K7_SERVED_INSTANCES}
+    check(all(r is not None and not r["spill_stores"]
+              for r in served.values()),
+          f"K7's served instances in the ptxas log, without spills: "
+          f"{served}")
+
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    per_call, ops_ms, bytes_ms, served_plan = {}, 0.0, 0.0, None
+    for n, q, m, d, p, shapes, calls in K5_SERVED:
+        value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen, timing=True)
+        g16 = torch.randn(n, q, m * d, device="cuda",
+                          generator=gen).bfloat16()
+        v16, w16 = value.bfloat16(), w.bfloat16()
+        del value, w
+        # the library form: autograd through upstream's grid_sample MSDA
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (v16, loc, w16)]
+        out = msda_grid_sample(leaves[0], shapes, leaves[1], leaves[2])
+        plain_ms, ms, lib_ms = in_turns(
+            lambda: plain(v16, shapes, loc, w16, g16),
+            lambda: kernel(v16, shapes, loc, w16, g16),
+            lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True),
+            10)
+        served_plan = kernel.last_plan
+        check(served_plan.vec > 1, f"K7's served bf16 call on scalar loads: "
+                                   f"{served_plan}")
+        samples = n * q * m * len(shapes) * p
+        # value, grad_out, loc and weights read once, dvalue, dloc and
+        # dweights written once: bf16 but for the f32 locations and dloc
+        nbytes = (2 * (2 * v16.numel() + g16.numel()) + 2 * 4 * loc.numel()
+                  + 2 * 2 * w16.numel())
+        # the least f32 work: per sample and channel, the four corner dots
+        # <v_c, g> (4 FMAs, 8) and the four corner multiply-adds into dvalue
+        # (8), since dweights and both location terms are per-sample
+        # combinations of the dots; per sample, the geometry, the corner
+        # weights and those combinations (~40)
+        flops = samples * (16.0 * d + 40)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+        by = ("operations" if flops / F32_FLOP_PER_S
+              > nbytes / HBM_BYTES_PER_S else "bytes")
+        # the f32 dvalue buffer: zeroed, 4 corner atomics a sample and
+        # channel, read for the cast
+        buffer_mb = (4 * 2 * v16.numel() + 2 * v16.numel()) / 1e6
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound, "bound_by": by, "mbytes": nbytes / 1e6,
+               "gflop": flops / 1e9, "dvalue_buffer_mbytes": buffer_mb,
+               "g_samples_s": samples / ms / 1e6}
+        for key, t in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound)):
+            step[key] += calls * t
+        ops_ms += calls * 1e3 * flops / F32_FLOP_PER_S
+        bytes_ms += calls * 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"K7 ms_deform_attn_backward N={n} Q={q} bf16, uniform "
+              f"locations: kernel {ms:.4f} ms ({row['g_samples_s']:.1f} G "
+              f"samples/s; with its f32 dvalue buffer's zeroing and cast), "
+              f"plain {plain_ms:.4f} ms, autograd through the grid_sample "
+              f"form {lib_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32, {by}; "
+              f"the f32 buffer adds {buffer_mb:.1f} MB) per call")
+        per_call[f"({n},{q},{m},{d},{p})"] = row
+        del v16, loc, w16, g16, leaves, out
+    print(f"K7 ms_deform_attn_backward over one DINO-4scale bf16 "
+          f"b{DINO_BATCH} 800x1333 train step's 12 calls: kernel "
+          f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, autograd "
+          f"through the grid_sample form {step['library_ms']:.4f} ms, bound "
+          f"{step['bound_ms']:.4f} ms [{card()}]")
+    return {"name": "ms_deform_attn_backward", "route": "cuda",
+            "source": "fastervit_tpu_torch/csrc/msda_bwd.cu",
+            "replaces": "fastervit_tpu/ops/msda.py:184",
+            "replaces_kernels": "none: the JAX package's MSDA backward, "
+                                "_msda_core_bwd (msda.py:184-237), is XLA "
+                                "(its value gradient one-hot matmuls), not "
+                                "Pallas; K7 computes that function",
+            "launches": None, "max_abs_err": err16,
+            "err_is": "bf16 dvalue: max |kernel - plain| over the checked "
+                      "shapes; every tensor is held to its bound "
+                      "(worst_over_bound: dvalue's order bound, dloc "
+                      "relative to its largest entry)",
+            "worst_over_bound": worst, **step,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library": "autograd through upstream's ms_deform_attn_core_"
+                       "pytorch form (4 F.grid_sample calls and the "
+                       "weighted sum), its backward only",
+            "plan": served_plan._asdict(), "ptxas": served,
+            "per": f"one DINO-4scale bf16 b{DINO_BATCH} 800x1333 train step "
+                   "(12 calls: 6 in the encoder at Q = 22,223, 6 in the "
+                   "decoder at Q = 900), uniform locations",
+            "per_call": per_call}
+
+
+def dino_targets(detection_cli, batch: int, seed: int, max_targets: int,
+                 engine, device):
+    """A synthetic batch's targets (the CLI's), padded, on `device`."""
+    _, targets = next(detection_cli.synthetic_batches(1, batch, 32, 91,
+                                                      seed=seed))
+    return engine.targets_on(engine.pad_targets(targets, max_targets),
+                             device)
+
+
+def detection_optimizer(engine, det, cfg):
+    """The config's optimizer (engine.create_detection_optimizer)."""
+    return engine.create_detection_optimizer(
+        det, lr=float(cfg.get("lr", 1e-4)),
+        lr_backbone=float(cfg.get("lr_backbone", 1e-5)),
+        weight_decay=float(cfg.get("weight_decay", 1e-4)),
+        clip_norm=float(cfg.get("clip_max_norm", 0.1)),
+        lr_linear_proj_mult=float(cfg.get("lr_linear_proj_mult", 1.0)),
+        linear_proj_names=tuple(cfg.get("lr_linear_proj_names", [])))
+
+
+def _msda_cells(loc: torch.Tensor, shapes) -> torch.Tensor:
+    """Each sample's bilinear cell, floor(loc·W − 0.5) and floor(loc·H −
+    0.5) (msda._level_geometry's rounding), int16 on the CPU."""
+    wh = torch.tensor([[w_, h_] for h_, w_ in shapes], dtype=torch.float32,
+                      device=loc.device)
+    cells = torch.floor(loc.detach().float()
+                        * wh[None, None, None, :, None, :] - 0.5)
+    return cells.clamp(-2, 2 ** 14).to(torch.int16).cpu()
+
+
+class PinLog:
+    """Inside `with PinLog(msda, replay) as log:`, the step's two kinds of
+    branch are logged in call order: every MSDA call's sampling locations
+    (log.locs, f32), which pick each sample's bilinear cell, and every
+    ReLU's sign mask (log.masks, bool), both on the CPU; log.cells keeps
+    the cells of the model's own locations. `msda.ms_deform_attn`, which
+    MSDeformAttnModule looks up at each call, and F.relu, which the stem's
+    nn.ReLU, the FFNs and the box heads call, are wrapped for the block's
+    duration. Given `replay`, another run's PinLog, each call takes that
+    run's branch through the model's own autograd path: MSDA samples at
+    replay's locations (given + (loc − loc.detach()): exactly the given
+    values forward, the identity backward) and a ReLU is its input times
+    replay's mask; log.relu_flips counts the ReLU inputs on the other side
+    of 0 from replay's."""
+
+    def __init__(self, msda, replay=None):
+        self.msda, self.replay = msda, replay
+
+    def __enter__(self):
+        self.locs, self.masks, self.cells, self.relu_flips = [], [], [], 0
+        self.orig = self.msda.ms_deform_attn, torch.nn.functional.relu
+        orig_msda, orig_relu = self.orig
+
+        def msda_call(value, shapes, loc, w):
+            self.cells.append(_msda_cells(loc, shapes))
+            if self.replay is not None:
+                given = self.replay.locs[len(self.locs)].to(loc)
+                check(given.shape == loc.shape, f"MSDA call {len(self.locs)}"
+                      f": locations {tuple(loc.shape)}, replayed "
+                      f"{tuple(given.shape)}")
+                loc = given + (loc - loc.detach())
+            self.locs.append(loc.detach().float().cpu())
+            return orig_msda(value, shapes, loc, w)
+
+        def relu(x, inplace=False):
+            own = x.detach() > 0
+            if self.replay is None:
+                self.masks.append(own.cpu())
+                return orig_relu(x, inplace=inplace)
+            given = self.replay.masks[len(self.masks)].to(x.device)
+            check(given.shape == x.shape, f"ReLU call {len(self.masks)}: "
+                  f"input {tuple(x.shape)}, replayed {tuple(given.shape)}")
+            self.relu_flips += int((own != given).sum())
+            self.masks.append(given)
+            return x * given.to(x.dtype)
+
+        self.msda.ms_deform_attn, torch.nn.functional.relu = msda_call, relu
+        return self
+
+    def __exit__(self, *exc):
+        self.msda.ms_deform_attn, torch.nn.functional.relu = self.orig
+
+
+def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
+                         detection_cli, cfg) -> None:
+    """One fp32 DINO-4scale train step (the config's use_checkpoint on),
+    card against CPU, batch 1, 480x640, on the same weights, targets and
+    assignments (solved once from the CPU's costs): the loss and every
+    gradient, and the step's launches of K1-K5 and K7; the sampling-offset
+    kernels drawn at random (see below). A sample whose bilinear cell
+    differs between card and CPU (its location within rounding of a cell
+    border) or a ReLU input on the other side of 0 (within rounding of the
+    kink) would change the gradients upstream of it by a whole term, so the
+    CPU's step takes the card's branches through its own autograd path
+    (PinLog); how many of its own would have differed is printed."""
+    t0 = time.perf_counter()
+    det_cpu = dino.build_dino_from_config(
+        cfg, resolution=(480, 640), device="cpu",
+        generator=torch.Generator().manual_seed(41))
+    # at the init the offset heads' kernels are zero, so every sample sits
+    # on the lattice of its reference point plus the directional bias:
+    # on a cell border exactly, where the bilinear gradient jumps and f32
+    # rounding picks the side. A trained detector's offsets vary with the
+    # query: draw the kernels, as flax's lecun_normal would
+    gen = torch.Generator().manual_seed(47)
+    with torch.no_grad():
+        for m in det_cpu.modules():
+            if isinstance(m, msda.MSDeformAttnModule):
+                w = m.sampling_offsets.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / math.sqrt(w.shape[1]))
+    det = copy.deepcopy(det_cpu).to("cuda")
+    x = torch.randn(1, 3, 480, 640, generator=torch.Generator().manual_seed(42))
+    tgt = dino_targets(detection_cli, 1, 43, 20, engine, "cpu")
+    # both decoders on the CPU's two-stage selection: at a near-tie the
+    # card's top-k swaps queries, and every decoder gradient then differs
+    with torch.no_grad():
+        topk, scores = {}, None
+        for where, m in (("cpu", det_cpu), ("card", det)):
+            enc = m.eval().transformer.encode(m.project(m.features(
+                x.to("cpu" if where == "cpu" else "cuda"))))
+            topk[where] = m.transformer.select(enc).cpu()
+            if where == "cpu":
+                scores = enc["enc_logits"].max(-1).values[0]
+            del enc
+    k = topk["cpu"].shape[1]
+    by_score = scores.sort(descending=True).values
+    margin = (by_score[k - 1] - by_score[k]).item()
+    diff = (topk["card"][0] != topk["cpu"][0]).nonzero().flatten()
+    gap = ((scores[topk["card"][0][diff]] - scores[topk["cpu"][0][diff]])
+           .abs().max().item() if len(diff) else 0.0)
+    for where, m in (("cpu", det_cpu), ("card", det)):
+        pinned = topk["cpu"].to("cpu" if where == "cpu" else "cuda")
+        m.transformer.select = lambda enc, pinned=pinned: pinned
+    with torch.no_grad():
+        out = det_cpu(x)
+        layers = len(engine.loss_layers(out)[0])
+        assignment = engine.solve_assignments(
+            engine.compute_costs(out, tgt, layers), tgt["mask"])
+    del out
+    metrics, grads, seconds, logs = {}, {}, {}, {}
+    for where, m in (("card", det), ("cpu", det_cpu)):
+        dev = "cpu" if where == "cpu" else "cuda"
+        state = engine.DetectionTrainState(m, detection_optimizer(engine, m,
+                                                                  cfg))
+        step = engine.make_detection_train_step()
+        t1 = time.perf_counter()
+        before = train_launches(cuda_attention, cuda_msda)
+        replay = logs["card"] if where == "cpu" else None
+        with RouteLog(cuda_attention) as log_routes, \
+                PinLog(msda, replay) as log:
+            metrics[where] = step(state, x.to(dev),
+                                  {k: v.to(dev) for k, v in tgt.items()},
+                                  assignment)
+            torch.cuda.synchronize()
+        if where == "card":
+            calls = tuple(a - b for a, b in zip(
+                train_launches(cuda_attention, cuda_msda), before))
+            routes = log_routes
+        seconds[where] = time.perf_counter() - t1
+        grads[where] = {n: p.grad.detach().cpu()
+                        for n, p in m.named_parameters()}
+        logs[where] = log
+    # the cells the CPU's own locations would have sampled against the
+    # card's
+    cell_flips = sum(int((a != b).sum())
+                     for a, b in zip(logs["cpu"].cells, logs["card"].cells))
+    coords = sum(a.numel() for a in logs["cpu"].cells)
+    relus = sum(a.numel() for a in logs["cpu"].masks)
+    check(len(logs["cpu"].locs) == len(logs["card"].locs)
+          and len(logs["cpu"].masks) == len(logs["card"].masks),
+          f"MSDA calls: CPU {len(logs['cpu'].locs)}, card "
+          f"{len(logs['card'].locs)}; ReLU calls: CPU "
+          f"{len(logs['cpu'].masks)}, card {len(logs['card'].masks)}")
+    loss = {k: v["loss"].item() for k, v in metrics.items()}
+    dloss = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    floor = 1e-5 * max(g.abs().max().item() for g in grads["cpu"].values())
+    errs = {}
+    for name, ref in grads["cpu"].items():
+        err = (grads["card"][name] - ref).abs().max().item()
+        errs[name] = err / max(ref.abs().max().item(), floor)
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"DINO-4scale faster_vit_4_21k_224 fp32 train step b1 480x640 "
+          f"(use_checkpoint, given assignments), card vs CPU: loss "
+          f"{loss['card']:.6f} / {loss['cpu']:.6f}, relative |dloss| "
+          f"{dloss:.3e} (tol {TOL_DINO_STEP_LOSS}); gradients' max|err| / "
+          f"max|CPU| (floor {floor:.2e}), the 12 largest: "
+          + ", ".join(f"{n} {v:.2e}" for n, v in ranked[:12])
+          + f"; median {ranked[len(ranked) // 2][1]:.2e} over "
+          f"{len(ranked)} tensors (tol {TOL_DINO_STEP_GRAD})"
+          f"; two-stage selection: {len(diff)} of {k} positions differ "
+          f"on the card (largest score gap {gap:.2e}; margin between the "
+          f"{k}-th and {k + 1}-th score {margin:.2e}), both steps on the "
+          f"CPU's; both steps take the card's branches: the CPU's own "
+          f"MSDA locations would have sampled another cell at "
+          f"{cell_flips} of {coords} coordinates over "
+          f"{len(logs['cpu'].cells)} calls, its own ReLU inputs been on "
+          f"the other side of 0 at {logs['cpu'].relu_flips} of {relus} "
+          f"over {len(logs['cpu'].masks)} calls; K1, K2, K3, K4, K5, "
+          f"K7 launches per step {calls}; K1 routes {dict(routes.k1)}, K2 "
+          f"routes {dict(routes.k2)}; build {t1 - t0:.1f} s, CPU step "
+          f"{seconds['cpu']:.1f} s, card {seconds['card']:.1f} s")
+    check(dloss <= TOL_DINO_STEP_LOSS, f"DINO step loss card vs CPU {dloss}")
+    check(gap <= TOL_DINO_FP32 * scores.abs().max().item(),
+          f"two-stage selections differ by score gaps up to {gap}")
+    worst, worst_name = ranked[0][1], ranked[0][0]
+    check(worst <= TOL_DINO_STEP_GRAD, f"gradient of {worst_name}: card vs "
+                                       f"CPU {worst} of its largest entry")
+    check(calls[0] == 17 and calls[2] == 12 and calls[4] == 24
+          and calls[5] == 12 and calls[1] + calls[3] == 29,
+          f"DINO fp32 step launches {calls}, expected K1 17, K3 12, K5 24 "
+          "(each layer's forward again under use_checkpoint), K7 12 and "
+          "29 of K2 and K4")
+    del det_cpu, det, grads, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dino_train_phase(cuda_attention, cuda_msda, dino, engine, detection_cli,
+                     cfg) -> dict:
+    """The training path at full width: DINO-4scale on faster_vit_4_21k_224
+    as configured (use_checkpoint on), f32 weights and a bf16 forward by
+    autocast, batch 2 at 800x1333, the fused step (the auction on the
+    card): one step with its launches counted by route and plan, then 2
+    steps and DINO_TRAIN_STEPS timed with CUDA events on the same batch,
+    peak memory, one step profiled; then steps up to DINO_LOSS_STEPS, over
+    which the loss and the class loss are finite and fall."""
+    det = dino.build_dino_from_config(
+        cfg, resolution=DINO_CANVAS,
+        generator=torch.Generator().manual_seed(44))
+    check(det.transformer.use_checkpoint, "the config's use_checkpoint")
+    state = engine.DetectionTrainState(det, detection_optimizer(engine, det,
+                                                                cfg))
+    step = engine.make_fused_detection_train_step(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    x = torch.randn(DINO_BATCH, 3, *DINO_CANVAS, device="cuda", generator=gen)
+    tgt = dino_targets(detection_cli, DINO_BATCH, 46, 20, engine, "cuda")
+    losses = []
+    reset_train_launches(cuda_attention, cuda_msda)
+    with RouteLog(cuda_attention) as routes, \
+            K5Plans(cuda_msda) as k5_plans, \
+            K5Plans(cuda_msda, "ms_deform_attn_backward_cuda") as k7_plans:
+        m = step(state, x, tgt)
+        losses.append((m["loss"], m["loss_ce"]))
+        torch.cuda.synchronize()
+    calls = train_launches(cuda_attention, cuda_msda)
+    print(f"DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} 800x1333 "
+          f"train step (autocast, f32 weights, use_checkpoint, auction): K1, "
+          f"K2, K3, K4, K5, K7 launches per step {calls}; K1 routes "
+          f"{dict(routes.k1)}, K2 routes {dict(routes.k2)}")
+    k5_plans.check(24, "DINO bf16 train step", vector=True)
+    k7_plans.check(12, "DINO bf16 train step", vector=True)
+    check(calls[0] == 17 and calls[2] == 12 and calls[4] == 24
+          and calls[5] == 12 and calls[1] + calls[3] == 29
+          and all(calls[i] > 0 for i in (0, 2, 4, 5)),
+          f"DINO bf16 train step launches {calls}, expected K1 17, K3 12, "
+          "K5 24, K7 12 and 29 of K2 and K4")
+    check(set(routes.k1) == {"wgmma"} and set(routes.k2) <= {"wgmma"},
+          f"DINO bf16 step's K1 and K2 routes {dict(routes.k1)}, "
+          f"{dict(routes.k2)}")
+    check(all(dtype == "bfloat16" for dtype, _ in k5_plans.count)
+          and all(dtype == "bfloat16" for dtype, _ in k7_plans.count),
+          "every K5 and K7 launch of the bf16 step in bf16")
+    def run():
+        m = step(state, x, tgt)
+        losses.append((m["loss"], m["loss_ce"]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(DINO_TRAIN_STEPS):
+        run()
+    end.record()
+    end.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / DINO_TRAIN_STEPS
+    ms = start.elapsed_time(end) / DINO_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    smi = card()
+    print(f"DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} 800x1333 "
+          f"train step: {ms:.3f} ms a step (CUDA events over "
+          f"{DINO_TRAIN_STEPS} steps after 2; host {wall_ms:.3f} ms), "
+          f"{DINO_BATCH * 1000 / ms:.2f} img/s; peak memory "
+          f"{peak / 2**20:.1f} MiB [{smi}]")
+    prof = profile_device(run, 1, f"DINO-4scale faster_vit_4_21k_224 bf16 "
+                          f"b{DINO_BATCH} 800x1333 train step", ms, smi,
+                          "dino_train_profile.json")
+    while len(losses) < DINO_LOSS_STEPS:
+        run()
+    values = [v.item() for v, _ in losses]
+    ce = [c.item() for _, c in losses]
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    print(f"DINO bf16 train steps on one batch: the loss over "
+          f"{len(values)} steps {[round(v, 3) for v in values]} (mean of "
+          f"the first 3 {mean(values[:3]):.3f}, of the last 5 "
+          f"{mean(values[-5:]):.3f}); the class loss {ce[0]:.3f} -> "
+          f"{ce[-1]:.3f} (means {mean(ce[:3]):.3f}, {mean(ce[-5:]):.3f})")
+    check(all(math.isfinite(v) for v in values + ce), f"DINO losses {values}")
+    check(mean(values[-5:]) < mean(values[:3]) and mean(ce[-5:]) < mean(ce[:3]),
+          f"DINO loss did not fall over {len(values)} steps (mean of the last "
+          f"5 against the first 3): {values}, class loss {ce}")
+    del det, state, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": calls, "ms": ms, "peak": peak, "profile": prof}
+
+
+def dino_train_cli_phase(cuda_attention, cuda_msda, detection_cli) -> None:
+    """The training CLI on the card: one synthetic epoch of the served
+    config at 800x800 in bf16 (4 steps of batch 2, then 2 evaluation
+    batches), once with each matcher; its best weights under TMPDIR."""
+    for matcher in ("auction", "host"):
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_train_launches(cuda_attention, cuda_msda)
+            t0 = time.perf_counter()
+            result = detection_cli.main([
+                "--config", str(REPO / DINO_CONFIG), "--synthetic",
+                "--image-size", "800", "--dtype", "bfloat16", "--epochs",
+                "1", "--matcher", matcher, "--output", tmp])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            calls = train_launches(cuda_attention, cuda_msda)
+            best = Path(tmp) / "best.pth"
+            size = best.stat().st_size if best.exists() else 0
+        print(f"detection training CLI (--synthetic --dtype bfloat16 "
+              f"--epochs 1 --matcher {matcher}, {DINO_CONFIG}, 800x800, 4 "
+              f"steps of 2 and 2 eval batches): {seconds:.1f} s; {result}; "
+              f"best.pth {size / 2**20:.1f} MiB; K1, K2, K3, K4, K5, K7 "
+              f"launches {calls}")
+        check(size > 0 and math.isfinite(result["loss"])
+              and result["best_mAP"] >= 0,
+              f"the training CLI with --matcher {matcher}: {result}")
+        check(calls[5] == 4 * 12 and calls[4] == 4 * 24 + 2 * 12,
+              f"training CLI K5, K7 launches {calls[4:]}, expected "
+              f"{4 * 24 + 2 * 12} and {4 * 12}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         sys.exit(1)
     import fastervit_tpu_torch as fvt
-    from fastervit_tpu_torch.detection import dino
+    from fastervit_tpu_torch.detection import dino, engine
     from fastervit_tpu_torch.detection import main as detection_cli
     from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
     from fastervit_tpu_torch.ops import attention_probes, cuda_hat_block
@@ -3743,8 +4344,28 @@ def main() -> None:
     #     timed, then the probe through its main
     gathers += msda_probe2_phase(cuda_msda, msda_probes, msda_packed_probe2)
 
+    # 29. K7, the MSDA backward, against its plain version
+    k7 = k7_phase(cuda_msda, msda, ptx_log)
+
+    # 30. the fp32 DINO train step, card against CPU
+    dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
+                         detection_cli, cfg)
+
+    # 31. the detection training path: DINO-4scale bf16 b2 800x1333
+    trained_det = dino_train_phase(cuda_attention, cuda_msda, dino, engine,
+                                   detection_cli, cfg)
+    k7["launches"] = trained_det["launches"][5]
+    k5["launches_training"] = trained_det["launches"][4]
+    k7["launches_in"] = k5["launches_training_in"] = (
+        f"one DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} 800x1333 "
+        "train step of the detection training path (use_checkpoint: K5 "
+        "twice a layer)")
+
+    # 32. the detection training CLI, with each matcher
+    dino_train_cli_phase(cuda_attention, cuda_msda, detection_cli)
+
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
-                                  *gathers]}))
+                                  *gathers, k7]}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

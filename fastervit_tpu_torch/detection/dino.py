@@ -1,6 +1,7 @@
-"""DINO detector on a FasterViT pyramid backbone, for inference: the
-PyTorch port of fastervit_tpu/detection/dino.py's DINODetector (:28-100),
-build_dino_from_config (:103-122) and postprocess (:298-313); reference
+"""DINO detector on a FasterViT pyramid backbone, and its set criterion:
+the PyTorch port of fastervit_tpu/detection/dino.py's DINODetector
+(:28-100), build_dino_from_config (:103-122), sigmoid_focal_loss and
+criterion (:235-295) and postprocess (:298-313); reference
 downstream/object_detection/dino/models/dino/dino.py.
 
     import torch
@@ -14,6 +15,9 @@ downstream/object_detection/dino/models/dino/dino.py.
         out = det(images)            # (B, 3, 800, 1333) on the card
         dets = postprocess(out, sizes, num_select=300)
 
+Training goes through `detection/engine.py` (the criterion given
+assignments, the matchers, AdamW with per-module learning rates).
+
 The JAX detector reads its canvas from the input; the port's backbone and
 transformer fix their geometry when they are built, so
 `build_dino_from_config` takes the canvas (`resolution`), as `create_model`
@@ -25,16 +29,17 @@ loads with no converter (`detection/convert.py::load_dino_checkpoint`).
 
 The input projections' GroupNorm keeps flax's default eps of 1e-6, as the
 JAX detector has it (upstream's nn.GroupNorm(32, 256) takes 1e-5;
-ROADMAP §3). The criterion, contrastive denoising and padding masks come
-with the detection training slice.
+ROADMAP §3). Contrastive denoising and padding masks come with the next
+detection slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from fastervit_tpu_torch.detection.transformer import (_LATER,
                                                        DeformableTransformer)
@@ -69,7 +74,8 @@ class DINODetector(nn.Module):
     def __init__(self, backbone_cfg: FasterViTConfig, num_classes: int = 91,
                  dim: int = 256, num_queries: int = 900, enc_layers: int = 6,
                  dec_layers: int = 6, num_feature_levels: int = 4,
-                 return_interm_indices: Sequence[int] = (1, 2, 3)):
+                 return_interm_indices: Sequence[int] = (1, 2, 3),
+                 use_checkpoint: bool = False):
         super().__init__()
         self.canvas = tuple(backbone_cfg.resolution)
         self.num_classes, self.num_queries = num_classes, num_queries
@@ -92,7 +98,7 @@ class DINODetector(nn.Module):
         self.transformer = DeformableTransformer(
             self.spatial_shapes, dim=dim, enc_layers=enc_layers,
             dec_layers=dec_layers, num_queries=num_queries,
-            num_classes=num_classes)
+            num_classes=num_classes, use_checkpoint=use_checkpoint)
         # the shared heads, under upstream's top-level names too
         self.bbox_embed = self.transformer.decoder.bbox_embed
         self.class_embed = self.transformer.decoder.class_embed
@@ -188,9 +194,12 @@ def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),
     f32 as in the JAX detector: `DeformableTransformer._apply`).
     Reads the keys that fastervit_tpu's build_dino_from_config reads
     (backbone, backbone_overrides, num_classes, hidden_dim, num_queries,
-    enc_layers, dec_layers, num_feature_levels, return_interm_indices);
-    like it, it keeps 8 heads, 4 points and an FFN of 2048. Returns the
-    module in training mode; call `.eval()` for inference."""
+    enc_layers, dec_layers, num_feature_levels, return_interm_indices,
+    use_checkpoint: each transformer layer recomputed in the backward, as
+    the JAX detector's remat); like it, it keeps 8 heads, 4 points and an
+    FFN of 2048. Returns the module in training mode; call `.eval()` for
+    inference (and for training, which runs on frozen BatchNorm
+    statistics: `detection/engine.py`)."""
     h, w = (resolution, resolution) if isinstance(resolution, int) \
         else resolution
     backbone_cfg = get_config(cfg["backbone"], resolution=(h, w),
@@ -205,7 +214,8 @@ def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),
             dec_layers=cfg.get("dec_layers", 6),
             num_feature_levels=cfg.get("num_feature_levels", 4),
             return_interm_indices=tuple(cfg.get("return_interm_indices",
-                                                [1, 2, 3])))
+                                                [1, 2, 3])),
+            use_checkpoint=bool(cfg.get("use_checkpoint", False)))
     if device.type != "meta":
         init_weights(det, generator if generator is not None
                      else torch.Generator().manual_seed(0))
@@ -232,3 +242,47 @@ def postprocess(outputs: Dict, target_sizes: torch.Tensor,
     h, w = sizes[:, 0], sizes[:, 1]
     scale = torch.stack([w, h, w, h], -1)[:, None, :]
     return {"scores": scores, "labels": labels, "boxes": xyxy * scale}
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       alpha: float = 0.25, gamma: float = 2.0
+                       ) -> torch.Tensor:
+    """The focal loss of each logit against its 0/1 target, elementwise
+    (fastervit_tpu/detection/dino.py::sigmoid_focal_loss)."""
+    p = torch.sigmoid(logits)
+    ce = -(targets * F.logsigmoid(logits)
+           + (1 - targets) * F.logsigmoid(-logits))
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        loss = loss * (alpha * targets + (1 - alpha) * (1 - targets))
+    return loss
+
+
+def criterion(outputs: Dict, targets: List[Dict], num_classes: int,
+              weight_class: float = 1.0, weight_bbox: float = 5.0,
+              weight_giou: float = 2.0) -> Dict[str, torch.Tensor]:
+    """The Hungarian set criterion over every decoder layer and the
+    encoder's interm layer (fastervit_tpu/detection/dino.py::criterion;
+    reference SetCriterion), through the training engine's one loss path:
+    the targets padded to the longest image's (`engine.pad_targets`), the
+    matcher's cost of each layer (`compute_costs`, class weight 2) solved on
+    the host by scipy (`solve_assignments`), then `detection_loss`: the
+    focal class loss over every query and the L1 and GIoU box losses over
+    the matched pairs, each divided by the number of target boxes.
+    targets: per-image {'labels' (T,), 'boxes' (T, 4) cxcywh in [0, 1]},
+    numpy or torch. Returns loss_ce, loss_bbox, loss_giou and their
+    weighted sum, loss."""
+    from fastervit_tpu_torch.detection import engine  # engine imports dino
+    dev = outputs["logits"][0].device
+    tgt = engine.targets_on(engine.pad_targets(
+        targets, max([1] + [len(t["labels"]) for t in targets])), dev)
+    logits_l, _ = engine.loss_layers(outputs)
+    costs = engine.compute_costs(outputs, tgt, len(logits_l),
+                                 cost_bbox=weight_bbox, cost_giou=weight_giou)
+    assignment = torch.as_tensor(engine.solve_assignments(costs, tgt["mask"]),
+                                 device=dev)
+    loss, parts = engine.detection_loss(
+        outputs, tgt, assignment, num_classes, weight_class=weight_class,
+        weight_bbox=weight_bbox, weight_giou=weight_giou)
+    return {**parts, "loss": loss}

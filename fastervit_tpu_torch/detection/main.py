@@ -1,22 +1,30 @@
-"""DINO detection CLI of the port: evaluation (the `--eval` path of
-fastervit_tpu/detection/main.py:28-173).
+"""DINO detection CLI of the port: training and evaluation on synthetic
+data (fastervit_tpu/detection/main.py:28-219).
 
-    python -m fastervit_tpu_torch.detection.main --eval --synthetic \\
+    python -m fastervit_tpu_torch.detection.main --synthetic \\
         --config configs/dino/dino_4scale_faster_vit_4_21k_224.py \\
-        --image-size 800 --batch-size 2 --dtype bfloat16 --output out/
+        --image-size 800 --batch-size 2 --dtype bfloat16 --epochs 1 \\
+        --matcher auction --output out/
 
 builds the detector from the config (python files with `_base_`
 inheritance; `--options` takes dotted overrides such as num_select=100) on a
 square canvas of `--image-size`, on the card unless `--device cpu`,
-optionally loads a reference DINO checkpoint (`--checkpoint`), runs the
-synthetic batches of the JAX CLI through it and `postprocess`, and writes
-the COCO metrics of `evaluate_detections` to <output>/eval.json.
+optionally loads a reference DINO checkpoint (`--checkpoint`), then:
+- with `--eval`: runs the JAX CLI's synthetic evaluation batches through
+  it and `postprocess` and writes the COCO metrics of
+  `evaluate_detections` to <output>/eval.json;
+- without: trains `--epochs` epochs (the config's `epochs` when 0) of the
+  JAX CLI's four synthetic batches (`detection/engine.py`: frozen
+  BatchNorm, targets padded to `--max-targets`, `--matcher` host, auction
+  or auto, AdamW with the config's per-module learning rates and its
+  lr_drop epoch, the global-norm clip), evaluates after each epoch and
+  writes the best weights to <output>/best.pth (a torch.save of the state
+  dict; the JAX CLI pickles its variables as best.pkl). `--dtype bfloat16`
+  trains with f32 weights and a bf16 forward under autocast.
 
-Training (no `--eval`, and the flags that only training reads) and COCO
-data (`--coco-path`) raise NotImplementedError: the criterion, the
-matchers, contrastive denoising, the engine and the COCO loader and
-transforms come with the detection training slice, and COCO evaluation on
-real images waits for val2017.
+COCO data (`--coco-path`) raises NotImplementedError: the COCO loader and
+transforms come with the next detection slice, and COCO evaluation on real
+images waits for val2017.
 """
 from __future__ import annotations
 
@@ -24,16 +32,14 @@ import argparse
 import json
 import logging
 import os
-from typing import Dict, Iterable, List, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 log = logging.getLogger("fastervit_tpu_torch.detection")
-
-_TRAINING = ("{} is a training flag: detection training (the criterion, the "
-             "matchers, contrastive denoising, the engine) comes with the "
-             "detection training slice")
+_TRAIN_BATCHES = 4   # synthetic training batches an epoch, as the JAX CLI's
 
 
 def parse_args(argv=None):
@@ -48,22 +54,24 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=0,
                    help="override config batch_size")
     p.add_argument("--image-size", type=int, default=512,
-                   help="square evaluation canvas")
+                   help="square canvas")
     p.add_argument("--epochs", type=int, default=0,
-                   help="training only (raises)")
+                   help="training epochs (0: the config's epochs)")
     p.add_argument("--eval", action="store_true", help="evaluation only")
     p.add_argument("--checkpoint", default="",
                    help="reference DINO .pth checkpoint to load")
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data (no COCO needed)")
     p.add_argument("--max-targets", type=int, default=20,
-                   help="training only (raises)")
+                   help="targets an image are padded (and cut) to")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="model dtype (bfloat16 on the card)")
+                   help="compute dtype (bfloat16 on the card; training "
+                        "keeps f32 weights under autocast)")
     p.add_argument("--matcher", default="auto",
                    choices=["auto", "host", "auction"],
-                   help="training only (raises)")
+                   help="host: scipy's Hungarian; auction: on the device; "
+                        "auto: the auction on the card, host on the CPU")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu, which runs the plain "
                         "versions of the kernels")
@@ -96,21 +104,28 @@ def synthetic_batches(n_batches: int, batch_size: int, image_size: int,
 
 
 @torch.no_grad()
-def run_eval(det, batches, num_select: int = 300) -> Dict[str, float]:
+def run_eval(det, batches, num_select: int = 300,
+             dtype: Optional[torch.dtype] = None) -> Dict[str, float]:
     """COCO-protocol evaluation over (NHWC images, targets) batches
     (reference engine.py evaluate + PostProcess): the detector in eval mode
-    on its device and dtype, `postprocess`, `evaluate_detections`."""
+    on its device, in its parameters' dtype or, given a bf16 `dtype` beside
+    f32 parameters, under autocast; `postprocess`, `evaluate_detections`."""
     from fastervit_tpu_torch.detection.coco_eval import evaluate_detections
     from fastervit_tpu_torch.detection.dino import postprocess
     from fastervit_tpu_torch.ops.boxes import box_cxcywh_to_xyxy
+    from fastervit_tpu_torch.train.steps import _autocast
 
     p = next(det.parameters())
+    amp = dtype if dtype is not None and p.dtype == torch.float32 \
+        else torch.float32
+    det.eval()
     preds, gts = [], []
     for imgs, targets in batches:
         x = torch.from_numpy(imgs).permute(0, 3, 1, 2).to(p.device, p.dtype)
         sizes = torch.from_numpy(np.stack([t["orig_size"] for t in targets]))
-        results = postprocess(det(x), sizes.to(p.device),
-                              num_select=num_select)
+        with _autocast(p.device, amp):
+            out = det(x)
+        results = postprocess(out, sizes.to(p.device), num_select=num_select)
         results = {k: v.cpu().numpy() for k, v in results.items()}
         for bi, t in enumerate(targets):
             preds.append({k: v[bi] for k, v in results.items()})
@@ -124,19 +139,12 @@ def run_eval(det, batches, num_select: int = 300) -> Dict[str, float]:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
-    for flag, set_ in (("--epochs", args.epochs), ("--matcher",
-                                                    args.matcher != "auto"),
-                       ("--max-targets", args.max_targets != 20)):
-        if set_:
-            raise NotImplementedError(_TRAINING.format(flag))
-    if not args.eval:
-        raise NotImplementedError(
-            "detection training (no --eval) comes with the detection "
-            "training slice; pass --eval")
     if args.coco_path or not args.synthetic:
         raise NotImplementedError(
             "COCO data (coco_data.py, transforms.py) is not ported yet: it "
-            "waits for val2017 on the machine; pass --synthetic")
+            "comes with the next detection slice (ROADMAP queue 1 item 1), "
+            "and COCO evaluation waits for val2017 on the machine; pass "
+            "--synthetic")
     from fastervit_tpu_torch.detection.convert import load_dino_checkpoint
     from fastervit_tpu_torch.detection.dino import build_dino_from_config
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -150,22 +158,67 @@ def main(argv=None):
             pass
         cfg.merge_from_dict({k: v})
     size = args.image_size
+    dtype = getattr(torch, args.dtype)
+    # training keeps f32 weights and computes in bf16 under autocast
     det = build_dino_from_config(cfg, resolution=(size, size),
-                                 dtype=getattr(torch, args.dtype),
+                                 dtype=dtype if args.eval else torch.float32,
                                  device=args.device)
     if args.checkpoint:
         load_dino_checkpoint(det, args.checkpoint)
         log.info("loaded reference checkpoint %s", args.checkpoint)
-    det.eval()
     batch_size = args.batch_size or int(cfg.get("batch_size", 2))
-    batches = synthetic_batches(2, batch_size, size, det.num_classes, seed=1)
-    stats = run_eval(det, batches,
-                     num_select=int(cfg.get("num_select", 300)))
-    log.info("eval: %s", stats)
+    num_select = int(cfg.get("num_select", 300))
+
+    def val_batches():
+        return synthetic_batches(2, batch_size, size, det.num_classes, seed=1)
+
     os.makedirs(args.output, exist_ok=True)
-    with open(os.path.join(args.output, "eval.json"), "w") as f:
-        json.dump(stats, f)
-    return stats
+    if args.eval:
+        stats = run_eval(det.eval(), val_batches(), num_select=num_select)
+        log.info("eval: %s", stats)
+        with open(os.path.join(args.output, "eval.json"), "w") as f:
+            json.dump(stats, f)
+        return stats
+    return train(args, cfg, det, dtype, batch_size, val_batches, num_select)
+
+
+def train(args, cfg, det, dtype, batch_size, val_batches,
+          num_select: int) -> Dict[str, float]:
+    """The training path (JAX main.py:175-219): per-module learning rates
+    dropped ×0.1 at the config's lr_drop epoch (its steps from the four
+    synthetic batches an epoch), an evaluation after each epoch, the best
+    weights by mAP written to <output>/best.pth."""
+    from fastervit_tpu_torch.detection.engine import (
+        DetectionTrainState, create_detection_optimizer,
+        train_detection_epoch)
+
+    epochs = args.epochs or int(cfg.get("epochs", 12))
+    steps_per_epoch = _TRAIN_BATCHES
+    optimizer = create_detection_optimizer(
+        det, lr=float(cfg.get("lr", 1e-4)),
+        lr_backbone=float(cfg.get("lr_backbone", 1e-5)),
+        weight_decay=float(cfg.get("weight_decay", 1e-4)),
+        clip_norm=float(cfg.get("clip_max_norm", 0.1)),
+        lr_linear_proj_mult=float(cfg.get("lr_linear_proj_mult", 1.0)),
+        linear_proj_names=tuple(cfg.get("lr_linear_proj_names", [])),
+        drop_step=int(cfg.get("lr_drop", 11)) * steps_per_epoch)
+    state = DetectionTrainState(det, optimizer)
+    best, path = -1.0, os.path.join(args.output, "best.pth")
+    for epoch in range(epochs):
+        t0 = time.time()
+        metrics = train_detection_epoch(
+            state, synthetic_batches(_TRAIN_BATCHES, batch_size,
+                                     args.image_size, det.num_classes),
+            max_targets=args.max_targets, matcher=args.matcher, dtype=dtype)
+        log.info("epoch %d: loss %.4f (%.0fs)", epoch, metrics["loss"],
+                 time.time() - t0)
+        stats = run_eval(det, val_batches(), num_select=num_select,
+                         dtype=dtype)
+        log.info("epoch %d eval: %s", epoch, stats)
+        if stats["mAP"] >= best:
+            best = stats["mAP"]
+            torch.save(det.state_dict(), path)
+    return {"best_mAP": best, "loss": metrics["loss"] if epochs else None}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Deformable-DETR transformer with DINO's two-stage query selection and
-iterative box refinement, for inference: the PyTorch port of
+iterative box refinement: the PyTorch port of
 fastervit_tpu/detection/transformer.py (reference downstream/
 object_detection/dino/models/dino/deformable_transformer.py: encoder :446,
 decoder :596, two-stage selection :327-431).
@@ -35,9 +35,15 @@ tables and `level_embed` stay f32 whatever dtype the module is cast to
 the reference boxes and every reported box (`enc_boxes`, `interm_boxes`,
 `init_proposals`, `boxes`) are f32 beside bf16 activations and logits;
 the position embedding is summed in f32 and cast once.
-Padding masks, contrastive denoising (dn_*) and MOTR's track queries
-(track_*) come with the detection training and tracking slices; their
-entry points raise.
+
+With `use_checkpoint`, each encoder and decoder layer runs under
+torch.utils.checkpoint (non-reentrant) while gradients are on, and its
+activations are recomputed in the backward, as the JAX transformer wraps
+its layers in nn.remat (transformer.py:406-407, 518-519).
+
+Padding masks and contrastive denoising (dn_*) come with the next
+detection slice, MOTR's track queries (track_*) with the tracking slice;
+their entry points raise.
 """
 from __future__ import annotations
 
@@ -48,12 +54,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from fastervit_tpu_torch.ops.msda import MSDeformAttnModule, normalize_shapes
 
-_LATER = ("{} comes with the detection training slice (padding masks, "
-          "contrastive denoising) or the tracking slice (MOTR's track "
-          "queries); the port serves unpadded inputs")
+_LATER = ("{} is not ported yet: padding masks and contrastive denoising "
+          "come with the next detection slice (ROADMAP queue 1 item 1), "
+          "MOTR's track queries with the tracking slice; the port trains "
+          "and serves unpadded inputs without denoising queries")
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -291,11 +299,12 @@ class DeformableTransformer(nn.Module):
                  dim: int = 256, n_heads: int = 8, n_points: int = 4,
                  enc_layers: int = 6, dec_layers: int = 6,
                  ffn_dim: int = 2048, num_queries: int = 900,
-                 num_classes: int = 91):
+                 num_classes: int = 91, use_checkpoint: bool = False):
         super().__init__()
         shapes = normalize_shapes(spatial_shapes)
         self.spatial_shapes, self.dim = shapes, dim
         self.num_queries = num_queries
+        self.use_checkpoint = use_checkpoint
         n_levels = len(shapes)
         self.level_embed = nn.Parameter(torch.empty(n_levels, dim))
         self.encoder = TransformerEncoder(
@@ -337,6 +346,13 @@ class DeformableTransformer(nn.Module):
                 self._buffers[name] = value
         return self
 
+    def _run(self, layer: nn.Module, *args) -> torch.Tensor:
+        """layer(*args), recomputed in the backward under use_checkpoint."""
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(layer, *args,
+                                                     use_reentrant=False)
+        return layer(*args)
+
     def encode(self, srcs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """srcs: (B, S, C) flattened multi-scale features. Returns the
         encoder memory, the projected two-stage memory `out_memory`, the
@@ -353,7 +369,7 @@ class DeformableTransformer(nn.Module):
         ref = self.ref_points.expand(b, -1, -1, -1)
         memory = srcs
         for layer in self.encoder.layers:
-            memory = layer(memory, pos, ref, self.spatial_shapes)
+            memory = self._run(layer, memory, pos, ref, self.spatial_shapes)
         out_memory = memory * self.proposal_valid.to(memory.dtype)[None, :,
                                                                    None]
         out_memory = self.enc_output_norm(self.enc_output(out_memory))
@@ -406,7 +422,8 @@ class DeformableTransformer(nn.Module):
             # Dense casts its input
             qp = dec.ref_point_head(gen_sineembed(
                 ref_input[:, :, 0], self.dim // 2).to(tgt.dtype))
-            tgt = layer(tgt, qp, ref_input, memory, self.spatial_shapes)
+            tgt = self._run(layer, tgt, qp, ref_input, memory,
+                            self.spatial_shapes)
             hidden = dec.norm(tgt)
             # the refinement chain runs on the unnormed output
             # (deformable_transformer.py:761-765), the reported boxes on the

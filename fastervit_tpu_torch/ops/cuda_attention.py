@@ -4,9 +4,9 @@ the Hopper counterparts of fastervit_tpu/ops/pallas_attention.py's
 csrc/window_mhsa_bwd.cu), and of pallas_flash_attention.py's `_fwd_kernel`
 (K3, csrc/window_mhsa_long.cu) and `_flash_backward` (K4,
 csrc/window_mhsa_long_bwd.cu). The same library holds K5, the
-multi-scale deformable attention forward (csrc/msda_fwd.cu), and the MSDA
-gather probes' kernels P3a-c and P4a-d (csrc/msda_probe.cu), which
-`ops/cuda_msda.py` binds, and K6, the fused HAT sub-block
+multi-scale deformable attention forward (csrc/msda_fwd.cu), K7, its
+backward (csrc/msda_bwd.cu), and the MSDA gather probes' kernels P3a-c
+and P4a-d (csrc/msda_probe.cu), which `ops/cuda_msda.py` binds, and K6, the fused HAT sub-block
 (csrc/hat_block.cu), which `ops/cuda_hat_block.py` binds. The long-window
 attention probes' kernels are bound here too: P1, the chunked online-softmax
 attention of scripts/attn_online_probe.py (csrc/attn_online.cu), and P2,
@@ -355,6 +355,10 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.msda_forward.restype = ctypes.c_int
+        lib.msda_backward.argtypes = (  # K7, bound in ops/cuda_msda.py
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        lib.msda_backward.restype = ctypes.c_int
         # the MSDA probes, bound in ops/cuda_msda.py: all but P4d (wide
         # mode, the first walk) take a ProbePlan's seven ints
         lib.msda_probe_packed.argtypes = (  # P4a

@@ -1,21 +1,26 @@
 """Binding and launch of K5, the hand-written multi-scale deformable
 attention forward (csrc/msda_fwd.cu), the Hopper counterpart of
-fastervit_tpu/ops/msda_pallas.py::fused_bilinear_gather, and of the MSDA
-gather probes' kernels (csrc/msda_probe.cu): P3a `fused_gather_cuda`, P3b
-`fused_gather_p4_cuda`, P3c `fused_gather_per_head_cuda`, P4a
-`packed_gather_cuda`, P4b `pair_staticr_cuda`, P4c `packed_coeff_cuda` and
-P4d `packed_wide_cuda`, the counterparts of scripts/msda_pallas_probe.py's,
+fastervit_tpu/ops/msda_pallas.py::fused_bilinear_gather; of K7, its
+backward (csrc/msda_bwd.cu), a col2im that computes fastervit_tpu/ops/
+msda.py::_msda_core_bwd (XLA in the JAX package, so no Pallas kernel to
+mirror); and of the MSDA gather probes' kernels (csrc/msda_probe.cu): P3a
+`fused_gather_cuda`, P3b `fused_gather_p4_cuda`, P3c
+`fused_gather_per_head_cuda`, P4a `packed_gather_cuda`, P4b
+`pair_staticr_cuda`, P4c `packed_coeff_cuda` and P4d `packed_wide_cuda`,
+the counterparts of scripts/msda_pallas_probe.py's,
 scripts/msda_packed_probe.py's and scripts/msda_packed_probe2.py's Pallas
-kernels. K5 runs the plan of `msda_plan`, P3a-c and P4a-c that of
-`probe_plan`; each C entry point checks its plan and refuses one that no
-instance of its kernel runs.
+kernels. K5 runs the plan of `msda_plan`, K7 that of `msda_bwd_plan`,
+P3a-c and P4a-c that of `probe_plan`; each C entry point checks its plan
+and refuses one that no instance of its kernel runs.
 
 The kernels are built with K1-K4 into one library by
 `cuda_attention.build()` and loaded by its `_library()`. A failed build, an
-unsupported shape or dtype, an input that needs a gradient, or a failed
-launch raises; nothing falls back to the plain versions
-(`ops.msda.msda_reference`, `ops.msda_probes`). The module imports on a
-machine with no nvcc and no card.
+unsupported shape or dtype, or a failed launch raises; nothing falls back
+to the plain versions (`ops.msda.msda_reference`,
+`ops.msda.msda_backward_reference`, `ops.msda_probes`). K5 and K7 are
+called by `ops.msda.MSDeformAttnFunction`; K5 called directly on inputs
+that need a gradient raises, since its output would drop it. The module
+imports on a machine with no nvcc and no card.
 """
 from __future__ import annotations
 
@@ -157,9 +162,10 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     (`msda_plan` of D, the dtype and value's address) in
     `ms_deform_attn_cuda.last_plan`.
 
-    Forward only: inputs that need a gradient raise NotImplementedError,
-    since the MSDA backward (a col2im kernel) is the detection training
-    slice's, and a forward that dropped gradients would train nothing."""
+    Called with gradients on and an input that needs one, it raises
+    ValueError: its output would carry no gradient. `ops.msda.
+    ms_deform_attn` runs it inside `MSDeformAttnFunction`, whose backward is
+    K7 (`ms_deform_attn_backward_cuda`)."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     loc, weights = sampling_locations, attention_weights
     check_supported(value.shape, shapes, loc.shape, weights.shape)
@@ -177,11 +183,10 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("inputs must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "K5 is the MSDA forward only: its backward (a col2im kernel, the "
-            "port of fastervit_tpu/ops/msda.py::_msda_core_bwd) comes with "
-            "the detection training slice; run inference under "
-            "torch.no_grad()")
+        raise ValueError(
+            "K5 (ms_deform_attn_cuda) alone drops the gradient its inputs "
+            "need: call fastervit_tpu_torch.ops.msda.ms_deform_attn, whose "
+            "backward is K7")
     n, s, m, d = value.shape
     q, p = loc.shape[1], loc.shape[4]
     out = torch.empty((n, q, m * d), dtype=value.dtype, device=value.device)
@@ -207,6 +212,86 @@ def ms_deform_attn_cuda(value: torch.Tensor, spatial_shapes: Sequence,
 
 ms_deform_attn_cuda.launches = 0
 ms_deform_attn_cuda.last_plan = None  # the MsdaPlan of the latest launch
+
+
+def msda_bwd_plan(d: int, dtype: torch.dtype, value_ptr_alignment: int,
+                  grad_ptr_alignment: int) -> MsdaPlan:
+    """The plan of K7 for heads of D channels in `dtype` (that of value,
+    weights, grad_out and dweights), a `value` and a `grad_out` whose
+    addresses are multiples of the given alignments in bytes: K5's plan
+    (`msda_plan`) for the narrower of the two, since K7 reads both in
+    vectors of V elements. Its dvalue adds land on an f32 buffer at V
+    floats a vector: 16-byte vector atomics for V 4 and 8 (two a vector),
+    8-byte for V 2, scalar for V 1 (csrc/msda_bwd.cu::add_f32)."""
+    return msda_plan(d, dtype, min(value_ptr_alignment, grad_ptr_alignment))
+
+
+def ms_deform_attn_backward_cuda(value: torch.Tensor, spatial_shapes: Sequence,
+                                 sampling_locations: torch.Tensor,
+                                 attention_weights: torch.Tensor,
+                                 grad_output: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """MSDA backward on the card (K7): the gradients (dvalue, dloc,
+    dweights) of `ms_deform_attn_cuda`'s output with respect to its three
+    inputs, given grad_output (N, Q, M·D) in value's dtype. It takes what
+    K5 takes (value and weights both f32 or both bf16, the locations f32
+    or, beside bf16 values, bf16; D <= 64; contiguous, on one card).
+    Returns dvalue in value's dtype (summed in an f32 buffer with atomics,
+    then rounded once), dloc in the locations' dtype and dweights in the
+    weights'. Counts its launches in `ms_deform_attn_backward_cuda.
+    launches` and keeps the latest launch's MsdaPlan (`msda_bwd_plan`) in
+    `ms_deform_attn_backward_cuda.last_plan`."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    loc, weights, g = sampling_locations, attention_weights, grad_output
+    check_supported(value.shape, shapes, loc.shape, weights.shape)
+    tensors = (value, loc, weights, g)
+    if value.device.type != "cuda" or any(t.device != value.device
+                                          for t in tensors):
+        raise ValueError("inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if (value.dtype not in _DTYPES or weights.dtype != value.dtype
+            or g.dtype != value.dtype
+            or loc.dtype not in (value.dtype, torch.float32)):
+        raise TypeError("K7 takes value, attention weights and grad_output "
+                        "all float32 or all bfloat16, with float32 "
+                        "locations or locations in value's dtype; got "
+                        f"{[t.dtype for t in tensors]}")
+    n, s, m, d = value.shape
+    q, p = loc.shape[1], loc.shape[4]
+    if tuple(g.shape) != (n, q, m * d):
+        raise ValueError(f"grad_output must be {(n, q, m * d)}, got "
+                         f"{tuple(g.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+    dvalue = torch.zeros(value.shape, dtype=torch.float32,
+                         device=value.device)
+    dloc = torch.zeros(loc.shape, dtype=torch.float32, device=value.device)
+    dweights = torch.zeros_like(weights)
+    if n * q:
+        how = msda_bwd_plan(d, value.dtype,
+                            pointer_alignment(value.data_ptr()),
+                            pointer_alignment(g.data_ptr()))
+        loc32 = loc.float()  # the kernel's locations are f32, read as float2
+        if loc32.data_ptr() % 8:
+            loc32 = loc32.clone()
+        levels = _level_table(shapes, value.device)
+        lib = cuda_attention._library()
+        with torch.cuda.device(value.device):
+            err = lib.msda_backward(
+                value.data_ptr(), levels.data_ptr(), loc32.data_ptr(),
+                weights.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
+                dloc.data_ptr(), dweights.data_ptr(), n, q, s, m, d,
+                len(shapes), p, int(value.dtype == torch.bfloat16),
+                how.as_c(), torch.cuda.current_stream().cuda_stream)
+        cuda_attention._raise_on(err, "msda_backward")
+        ms_deform_attn_backward_cuda.launches += 1
+        ms_deform_attn_backward_cuda.last_plan = how
+    return dvalue.to(value.dtype), dloc.to(loc.dtype), dweights
+
+
+ms_deform_attn_backward_cuda.launches = 0
+ms_deform_attn_backward_cuda.last_plan = None  # the latest launch's MsdaPlan
 
 
 # The MSDA gather probes' kernels, P3a-c and P4a-d (csrc/msda_probe.cu)

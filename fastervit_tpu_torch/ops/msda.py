@@ -1,12 +1,16 @@
 """Multi-scale deformable attention (MSDA), PyTorch port of
-fastervit_tpu/ops/msda.py's forward.
+fastervit_tpu/ops/msda.py's forward and backward.
 
-`ms_deform_attn` is the single dispatch point: a CUDA tensor goes to K5,
-the hand-written kernel `csrc/msda_fwd.cu` (through `cuda_msda`), a CPU
-tensor to `msda_reference`, the plain version. There is no fallback from
+`ms_deform_attn` is the single dispatch point. It runs through
+`MSDeformAttnFunction`, the counterpart of the JAX package's custom VJP
+(`_msda_core`): a CUDA tensor goes forward through K5, the hand-written
+kernel `csrc/msda_fwd.cu`, and backward through K7, `csrc/msda_bwd.cu`
+(both bound in `cuda_msda`); a CPU tensor goes through the plain versions
+`msda_reference` and `msda_backward_reference`. There is no fallback from
 one to the other. The TPU package's backend switch (`set_msda_backend`,
-its Pallas-below-4096-queries threshold) and its GSPMD query sharding are
-TPU workarounds and have no counterpart: on the card every call is K5.
+its Pallas-below-4096-queries threshold), its query chunking and its GSPMD
+query sharding are TPU workarounds and have no counterpart: on the card
+every call is K5 forward and K7 backward.
 
 Layouts are the JAX package's: value (N, S, M, D) with S = Σ H·W over the
 levels; sampling locations (N, Q, M, L, P, 2) as normalised (x, y);
@@ -16,9 +20,6 @@ Sampling follows `_level_geometry` (msda.py:56-73), grid_sample's
 align_corners=False with zero padding: x = loc_x·W − 0.5, y = loc_y·H −
 0.5; a corner outside the map adds 0, and a sample whose top-left corner
 (x0, y0) lies outside [−1, W−1] × [−1, H−1] adds exactly 0.
-
-Only the forward is here: the MSDA backward (msda.py:184-233, XLA in the
-JAX package) belongs to the detection training slice.
 """
 from __future__ import annotations
 
@@ -69,6 +70,27 @@ def _padded_level_map(v: torch.Tensor, n: int, h: int, w: int, m: int,
     return vm.reshape(n * m, h + 2, w + 2, d)
 
 
+def _level_patches(v: torch.Tensor, ll: torch.Tensor, h: int, w: int):
+    """One level's geometry and corner patches. v: the level's value
+    (N, H·W, M, D); ll: its locations (N, Q, M, P, 2). Returns fx, fy,
+    valid (`_level_geometry`), the flat index of each sample's four
+    corners in the zero-padded (H+2)·(W+2) map of its (n, m),
+    (N·M, Q·P, 4), and the corner rows (N, Q, M, P, 4, D) in the compute
+    dtype, in the order (top left, top right, bottom left, bottom
+    right)."""
+    n, _, m, d = v.shape
+    q, p = ll.shape[1], ll.shape[3]
+    vm = _padded_level_map(v, n, h, w, m, d).reshape(
+        n * m, (h + 2) * (w + 2), d)
+    fx, fy, valid, iy, ix = _level_geometry(ll, h, w)
+    base = (iy * (w + 2) + ix).permute(0, 2, 1, 3).reshape(n * m, q * p)
+    corners = torch.stack([base, base + 1, base + w + 2, base + w + 3], -1)
+    patches = torch.gather(vm, 1, corners.reshape(n * m, q * p * 4)[..., None]
+                           .expand(-1, -1, d))
+    patches = patches.reshape(n, m, q, p, 4, d).permute(0, 2, 1, 3, 4, 5)
+    return fx, fy, valid, corners, patches.to(_compute_dtype(v.dtype))
+
+
 def msda_reference(value: torch.Tensor, spatial_shapes: Sequence,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
@@ -80,24 +102,15 @@ def msda_reference(value: torch.Tensor, spatial_shapes: Sequence,
     (N·M, Q·P, 2, 2, D) patches in the compute dtype."""
     shapes = normalize_shapes(spatial_shapes)
     n, s, m, d = value.shape
-    q, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    q = sampling_locations.shape[1]
     cdt = _compute_dtype(value.dtype)
     acc = torch.zeros((n, q, m, d), dtype=cdt, device=value.device)
     start = 0
     for lvl, (h, w) in enumerate(shapes):
-        v = value[:, start:start + h * w]
+        fx, fy, valid, _, patches = _level_patches(
+            value[:, start:start + h * w], sampling_locations[:, :, :, lvl],
+            h, w)                                     # (N, Q, M, P, 4, D)
         start += h * w
-        vm = _padded_level_map(v, n, h, w, m, d).reshape(
-            n * m, (h + 2) * (w + 2), d)
-        fx, fy, valid, iy, ix = _level_geometry(
-            sampling_locations[:, :, :, lvl], h, w)
-        # flat index of each patch's top-left corner, (N·M, Q·P)
-        base = (iy * (w + 2) + ix).permute(0, 2, 1, 3).reshape(n * m, q * p)
-        corners = torch.stack([base, base + 1, base + w + 2, base + w + 3],
-                              -1).reshape(n * m, q * p * 4)
-        patches = torch.gather(vm, 1, corners[..., None].expand(-1, -1, d))
-        patches = patches.reshape(n, m, q, p, 4, d).permute(0, 2, 1, 3, 4, 5)
-        patches = patches.to(cdt)                     # (N, Q, M, P, 4, D)
         interp = ((1 - fy) * (1 - fx) * patches[..., 0, :]
                   + (1 - fy) * fx * patches[..., 1, :]
                   + fy * (1 - fx) * patches[..., 2, :]
@@ -110,29 +123,166 @@ def msda_reference(value: torch.Tensor, spatial_shapes: Sequence,
     return acc.reshape(n, q, m * d).to(value.dtype)
 
 
+def msda_backward_reference(value: torch.Tensor, spatial_shapes: Sequence,
+                            sampling_locations: torch.Tensor,
+                            attention_weights: torch.Tensor,
+                            grad_out: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of K7: a port of fastervit_tpu/ops/msda.py::
+    _msda_core_bwd, the gradients of `msda_reference`'s output with
+    respect to value, the sampling locations and the attention weights,
+    given grad_out (N, Q, M·D).
+
+    Per level, with the forward's geometry and corner patches:
+    dweights = ⟨interp, g⟩; dloc = (Σ_D g·w·∂interp/∂x · W, the same in y
+    · H), the chain rule through x = loc_x·W − 0.5; dvalue adds each
+    corner's bilinear weight times g·w·valid into the zero-padded level map
+    with `index_add_` (the JAX package's one-hot matmuls,
+    `_scatter_as_matmuls`, stand in for a scatter the TPU lacks) and crops
+    the border. Computed in f32 for bf16 inputs (f64 kept); returns dvalue
+    in value's dtype, dloc in the locations' and dweights in the weights'
+    dtype."""
+    shapes = normalize_shapes(spatial_shapes)
+    loc, w = sampling_locations, attention_weights
+    n, s, m, d = value.shape
+    q = loc.shape[1]
+    cdt = _compute_dtype(value.dtype)
+    g4 = grad_out.reshape(n, q, m, d).to(cdt)
+    dval_parts, dloc_parts, dw_parts = [], [], []
+    start = 0
+    for lvl, (h, wd) in enumerate(shapes):
+        fx, fy, valid, corners, patches = _level_patches(
+            value[:, start:start + h * wd], loc[:, :, :, lvl], h, wd)
+        start += h * wd
+        fx, fy, valid = fx.to(cdt), fy.to(cdt), valid.to(cdt)
+        c00, c01, c10, c11 = patches.unbind(4)
+        # attention-weight gradient: dL/dw = <interp, g>
+        interp = ((1 - fy) * (1 - fx) * c00 + (1 - fy) * fx * c01
+                  + fy * (1 - fx) * c10 + fy * fx * c11) * valid
+        dw_parts.append(torch.einsum("nqmpd,nqmd->nqmp", interp, g4))
+        wl = w[:, :, :, lvl].to(cdt)                  # (N, Q, M, P)
+        gq = g4[:, :, :, None, :] * wl[..., None]     # (N, Q, M, P, D)
+        # sampling-location gradient, through x = loc_x·W − 0.5
+        ddx = ((1 - fy) * (c01 - c00) + fy * (c11 - c10)) * valid
+        ddy = ((1 - fx) * (c10 - c00) + fx * (c11 - c01)) * valid
+        dloc_parts.append(torch.stack([(gq * ddx).sum(-1) * wd,
+                                       (gq * ddy).sum(-1) * h], -1))
+        # value gradient: each corner's weight times g·w·valid, added into
+        # the padded map of its (n, m), then the border cropped
+        rows = (gq * valid).permute(0, 2, 1, 3, 4)     # (N, M, Q, P, D)
+        cw = torch.stack([(1 - fy) * (1 - fx), (1 - fy) * fx,
+                          fy * (1 - fx), fy * fx], 4)  # (N, Q, M, P, 4, 1)
+        cw = cw.permute(0, 2, 1, 3, 4, 5)              # (N, M, Q, P, 4, 1)
+        terms = (rows[:, :, :, :, None, :] * cw).reshape(-1, d)
+        hp, wp = h + 2, wd + 2
+        offset = torch.arange(n * m, device=value.device) * (hp * wp)
+        index = (corners + offset[:, None, None]).reshape(-1)
+        dvm = torch.zeros((n * m * hp * wp, d), dtype=cdt,
+                          device=value.device)
+        dvm.index_add_(0, index, terms)
+        dv = dvm.reshape(n, m, hp, wp, d)[:, :, 1:-1, 1:-1]
+        dval_parts.append(dv.permute(0, 2, 3, 1, 4).reshape(n, h * wd, m, d))
+    if start != s:
+        raise ValueError(f"spatial shapes {shapes} cover {start} tokens, "
+                         f"value has {s}")
+    dvalue = torch.cat(dval_parts, 1).to(value.dtype)
+    dloc = torch.stack(dloc_parts, 3).to(loc.dtype)
+    dw = torch.stack(dw_parts, 3).to(w.dtype)
+    return dvalue, dloc, dw
+
+
+def dvalue_order_bound(value: torch.Tensor, spatial_shapes: Sequence,
+                       sampling_locations: torch.Tensor,
+                       attention_weights: torch.Tensor,
+                       grad_out: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """How far two summation orders of dvalue may lie apart, element by
+    element: c·2⁻²⁴·Σ|terms|, with Σ|terms| the plain backward's dvalue on
+    |g| and |w| (the corner weights are non-negative) in f32 and c the most
+    (sample, corner) contributions any element of dvalue receives. Returns
+    (the bound, f32, value's shape; c). K7 adds dvalue's terms with
+    atomics, in an order that changes from run to run."""
+    shapes = normalize_shapes(spatial_shapes)
+    loc = sampling_locations
+    n, _, m, _ = value.shape
+    q, p = loc.shape[1], loc.shape[4]
+    terms = msda_backward_reference(
+        value.float(), shapes, loc, attention_weights.abs().float(),
+        grad_out.abs().float())[0]
+    if not n * q * p * m:
+        return terms, 0
+    counts = []
+    for lvl, (h, w) in enumerate(shapes):
+        _, _, valid, iy, ix = _level_geometry(loc[:, :, :, lvl], h, w)
+        wp = w + 2
+        base = iy * wp + ix                            # (N, Q, M, P)
+        corners = torch.stack([base, base + 1, base + wp, base + wp + 1], -1)
+        nm = (torch.arange(n, device=loc.device)[:, None] * m
+              + torch.arange(m, device=loc.device)[None])   # (N, M)
+        index = corners + nm[:, None, :, None, None] * ((h + 2) * wp)
+        keep = valid[..., 0].bool()[..., None].expand_as(index)
+        c = torch.bincount(index[keep], minlength=n * m * (h + 2) * wp)
+        counts.append(int(c.reshape(n, m, h + 2, wp)[:, :, 1:-1, 1:-1].max()))
+    c = max(counts)
+    return c * 2.0 ** -24 * terms, c
+
+
 def normalize_shapes(spatial_shapes: Sequence) -> Shapes:
     """The levels' (H, W) as a tuple of int pairs."""
     return tuple((int(h), int(w)) for h, w in spatial_shapes)
 
 
+def _on_device(what: str, value: torch.Tensor, kernel, plain, *args):
+    """`kernel` for a CUDA tensor, `plain` for a CPU one, else raise."""
+    if value.device.type == "cuda":
+        return kernel(value, *args)
+    if value.device.type == "cpu":
+        return plain(value, *args)
+    raise NotImplementedError(f"{what} has no path for device "
+                              f"{value.device}")
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA with its gradient, the counterpart of the JAX package's custom
+    VJP `_msda_core` (msda.py:175-237). Forward: K5
+    (`cuda_msda.ms_deform_attn_cuda`) on a CUDA tensor, `msda_reference` on
+    a CPU one. Backward: K7 (`cuda_msda.ms_deform_attn_backward_cuda`) on a
+    CUDA tensor, `msda_backward_reference` on a CPU one. Either kernel
+    raises on what it does not take; nothing falls back to the plain
+    versions. No gradient flows to the spatial shapes."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        shapes = normalize_shapes(spatial_shapes)
+        ctx.shapes = shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return _on_device("MSDA", value, cuda_msda.ms_deform_attn_cuda,
+                          msda_reference, shapes, sampling_locations,
+                          attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, weights = ctx.saved_tensors
+        dvalue, dloc, dweights = _on_device(
+            "the MSDA backward", value,
+            cuda_msda.ms_deform_attn_backward_cuda, msda_backward_reference,
+            ctx.shapes, loc, weights, grad_out.contiguous())
+        return dvalue, None, dloc, dweights
+
+
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """MSDA forward (fastervit_tpu/ops/msda.py::ms_deform_attn).
-    value: (N, S, M, D); spatial_shapes: the levels' (H, W), static;
-    sampling_locations: (N, Q, M, L, P, 2) normalised (x, y);
-    attention_weights: (N, Q, M, L, P). Returns (N, Q, M·D) in value's
-    dtype. CUDA tensors launch K5 (`cuda_msda.ms_deform_attn_cuda`), which
-    raises on what it does not take and on inputs that need a gradient;
-    CPU tensors take `msda_reference`."""
-    if value.device.type == "cuda":
-        return cuda_msda.ms_deform_attn_cuda(value, spatial_shapes,
-                                             sampling_locations,
-                                             attention_weights)
-    if value.device.type == "cpu":
-        return msda_reference(value, spatial_shapes, sampling_locations,
-                              attention_weights)
-    raise NotImplementedError(f"MSDA has no path for device {value.device}")
+    """MSDA (fastervit_tpu/ops/msda.py::ms_deform_attn), differentiable in
+    value, the locations and the weights. value: (N, S, M, D);
+    spatial_shapes: the levels' (H, W), static; sampling_locations:
+    (N, Q, M, L, P, 2) normalised (x, y); attention_weights:
+    (N, Q, M, L, P). Returns (N, Q, M·D) in value's dtype. Runs through
+    `MSDeformAttnFunction`: K5 and K7 on CUDA tensors (which raise on what
+    they do not take), the plain versions on CPU tensors."""
+    return MSDeformAttnFunction.apply(value, spatial_shapes,
+                                      sampling_locations, attention_weights)
 
 
 @functools.lru_cache(maxsize=64)
@@ -221,6 +371,8 @@ class MSDeformAttnModule(nn.Module):
         else:
             raise ValueError(f"reference points of shape "
                              f"{tuple(reference_points.shape)}")
+        # in value's dtype, as JAX's bf16 module hands its MSDA bf16
+        # weights: under autocast the softmax is f32 and the value bf16
         out = ms_deform_attn(value, spatial_shapes, loc.contiguous(),
-                             weights.contiguous())
+                             weights.to(value.dtype).contiguous())
         return self.output_proj(out)

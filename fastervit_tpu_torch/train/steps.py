@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -97,20 +97,24 @@ def create_optimizer(params: Iterable[torch.Tensor],
 
 
 @torch.no_grad()
-def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
+def optimizer_step(optimizer: torch.optim.Optimizer,
+                   lr: Union[float, Sequence[float]],
                    clip_grad: float) -> torch.Tensor:
     """Clip the gradients as optax.clip_by_global_norm does (scale by
-    max_norm / max(norm, max_norm); no clip when clip_grad is 0), set the
-    learning rate, step. Returns the global norm of the unclipped gradients
-    as a device scalar."""
+    max_norm / max(norm, max_norm) over all groups; no clip when clip_grad
+    is 0), set the learning rate (one for every group, or one a group, in
+    the optimizer's order), step. Returns the global norm of the unclipped
+    gradients as a device scalar."""
     grads = [p.grad for group in optimizer.param_groups
              for p in group["params"] if p.grad is not None]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     if clip_grad:
         scale = clip_grad / torch.clamp(norm, min=clip_grad)
         torch._foreach_mul_(grads, scale)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
+    lrs = ([lr] * len(optimizer.param_groups) if isinstance(lr, (int, float))
+           else list(lr))
+    for group, group_lr in zip(optimizer.param_groups, lrs, strict=True):
+        group["lr"] = group_lr
     optimizer.step()
     return norm
 

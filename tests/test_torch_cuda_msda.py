@@ -214,10 +214,16 @@ def test_dispatch_and_module_launch_kernel(cuda):
 
 @pytest.mark.cuda
 def test_inputs_that_need_a_gradient_raise(cuda):
+    """K5 called alone on inputs that need a gradient raises (its output
+    would drop it); through ms_deform_attn they reach K5 and then K7."""
     shapes = ((6, 8),)
     value, loc, w = make_inputs(1, 5, 2, 8, 2, shapes, cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ms_deform_attn(value.requires_grad_(), shapes, loc, w)
+    with pytest.raises(ValueError, match="gradient"):
+        cuda_msda.ms_deform_attn_cuda(value.requires_grad_(), shapes, loc, w)
+    bwd = cuda_msda.ms_deform_attn_backward_cuda.launches
+    ms_deform_attn(value, shapes, loc, w).sum().backward()
+    assert cuda_msda.ms_deform_attn_backward_cuda.launches == bwd + 1
+    assert value.grad is not None and value.grad.shape == value.shape
     with torch.no_grad():
         assert ms_deform_attn(value, shapes, loc, w).shape == (1, 5, 16)
 

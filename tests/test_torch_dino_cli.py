@@ -1,7 +1,9 @@
 """The port's detection CLI on the CPU: `--eval --synthetic --device cpu`
 builds DINO-4scale with a narrow FasterViT-0 backbone at a small canvas,
 loads a reference-layout checkpoint, evaluates two synthetic batches and
-writes eval.json; training flags and COCO data raise."""
+writes eval.json; without `--eval` it trains one synthetic epoch with
+either matcher, evaluates and writes best.pth; any run on COCO data
+(`--coco-path`, or no `--synthetic`) raises."""
 import json
 
 import pytest
@@ -47,11 +49,34 @@ def test_eval_synthetic_writes_eval_json(tmp_path):
     (("--coco-path", "/data/coco"), "COCO")],
     ids=["no_eval", "epochs", "matcher", "coco_path"])
 def test_training_and_coco_raise(tmp_path, extra, match):
+    """Training and evaluation on COCO data raise until the COCO loader is
+    ported: a training run (no --eval, --epochs, --matcher) without
+    --synthetic, and any run with --coco-path, name COCO."""
     argv = _argv(tmp_path, *extra)
+    if match != "COCO":
+        argv.remove("--synthetic")
     if not extra:
         argv.remove("--eval")
-    with pytest.raises(NotImplementedError, match=match or "training"):
+    with pytest.raises(NotImplementedError, match="COCO"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("matcher", ["host", "auction"])
+def test_training_one_synthetic_epoch_writes_best(tmp_path, matcher):
+    argv = _argv(tmp_path, "--epochs", "1", "--matcher", matcher,
+                 "--max-targets", "4")
+    argv.remove("--eval")
+    result = cli.main(argv)
+    assert result["loss"] == result["loss"] and result["loss"] > 0
+    sd = torch.load(tmp_path / "out" / "best.pth")
+    cfg = PyConfig.fromfile(CONFIG)
+    cfg.merge_from_list(OPTIONS)
+    det = build_dino_from_config(cfg, resolution=(128, 128), device="cpu")
+    det.load_state_dict(sd, strict=True)
+    # the weights moved from their seed-0 init
+    init = build_dino_from_config(cfg, resolution=(128, 128), device="cpu")
+    assert not torch.equal(sd["transformer.level_embed"],
+                           init.state_dict()["transformer.level_embed"])
 
 
 def test_coco_eval_matches_jax_and_counts_unmatched_classes():

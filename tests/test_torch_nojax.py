@@ -3,8 +3,10 @@ running it live and baked and through the fused HAT block (ops.hat_block,
 ops.cuda_hat_block), a long-window attention call, the weights bridge,
 a train step with gradient checkpointing, a checkpoint saved and restored,
 the detection modules (a tiny DINO detector built from a config file, run
-and post-processed, the MSDA and box ops, the evaluator, the weights bridge
-and the CLI), the long-window attention probes (ops.attention_probes and
+and post-processed, the MSDA and box ops with the MSDA backward, the
+evaluator, the weights bridge, the CLI, and detection training: the
+engine's two-phase and fused steps with remat, the auction matcher and the
+criterion), the long-window attention probes (ops.attention_probes and
 both probe modules, run with --device cpu), the MSDA gather probes
 (ops.msda_probes with P4b-d, msda_pallas_probe, msda_packed_probe and
 msda_packed_probe2, run with --device cpu), the turns probes of K6 and
@@ -78,6 +80,24 @@ with torch.no_grad():
 assert post["boxes"].shape == (1, 5, 4)
 assert boxes.box_iou(post["boxes"][0], post["boxes"][0])[0].shape == (5, 5)
 assert detection_cli.parse_args(["--config", "c.py", "--eval"]).eval
+from fastervit_tpu_torch.detection import engine, matcher_device
+cfg.merge_from_dict({"use_checkpoint": True})
+det = dino.build_dino_from_config(cfg, resolution=(64, 64), device="cpu")
+assert det.transformer.use_checkpoint
+state = engine.DetectionTrainState(det, engine.create_detection_optimizer(
+    det, linear_proj_names=("sampling_offsets",), drop_step=1))
+tgt = engine.targets_on(engine.pad_targets(
+    [{"labels": [1], "boxes": [[0.5, 0.5, 0.2, 0.2]]}], 2), "cpu")
+for make in (engine.make_detection_train_step,
+             engine.make_fused_detection_train_step):
+    m = make(ema_decay=0.9)(state, torch.zeros(1, 3, 64, 64), tgt)
+    assert np.isfinite(m["loss"].item()) and state.ema_model is not None
+assert state.step == 2
+assert dino.criterion(det.eval()(torch.zeros(1, 3, 64, 64)),
+                      [{"labels": [1], "boxes": [[0.5, 0.5, 0.2, 0.2]]}],
+                      det.num_classes)["loss"].item() > 0
+assert matcher_device.auction_match(torch.rand(5, 3),
+                                    torch.ones(3, dtype=torch.bool)).shape == (3,)
 from fastervit_tpu_torch.ops import attention_probes
 from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
 q = torch.zeros(1, 2, 32, 8)
@@ -137,3 +157,32 @@ def test_fused_hat_block_off_the_cpu_never_takes_the_plain_version(
     with pytest.raises(NotImplementedError, match="no path"):
         hat_block.fused_hat_block(x, params, torch.zeros(1, 4, 4), 1, 0.1)
 
+
+
+def test_msda_off_the_cpu_never_takes_the_plain_backward(monkeypatch):
+    """A tensor that is not on the CPU never reaches the plain MSDA
+    backward: on the card the autograd function's backward launches K7
+    (tests/test_torch_cuda_msda_bwd.py), on any other device it raises."""
+    import pytest
+    import torch
+    from fastervit_tpu_torch.ops import msda
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain backward ran off the CPU")
+
+    monkeypatch.setattr(msda, "msda_backward_reference", refuse)
+    monkeypatch.setattr(msda, "msda_reference", refuse)
+    shapes = ((2, 3),)
+    value = torch.zeros(1, 6, 2, 4, device="meta")
+    loc = torch.zeros(1, 5, 2, 1, 2, 2, device="meta")
+    w = torch.zeros(1, 5, 2, 1, 2, device="meta")
+
+    class Ctx:
+        saved_tensors = (value, loc, w)
+
+    Ctx.shapes = shapes
+    with pytest.raises(NotImplementedError, match="no path"):
+        msda.MSDeformAttnFunction.backward(
+            Ctx(), torch.zeros(1, 5, 8, device="meta"))
+    with pytest.raises(NotImplementedError, match="no path"):
+        msda.ms_deform_attn(value.requires_grad_(), shapes, loc, w)
