@@ -168,11 +168,16 @@ Phases, each of which raises on failure:
      samples, N = 0, Q = 0) and with value and grad_out one element into
      their storage (scalar loads): dloc and dweights within TOL_K7 of
      their largest entry (bf16 dweights one bf16 rounding more) and bit
-     for bit over two launches, dvalue (f32 atomics) within its order
-     bound c·2^-24·Σ|terms| against the plain version and between two
-     launches; ptxas' registers and spills of every instance, the served
-     ones without spills; kernel, plain version, autograd through the
-     grid_sample form and bound timed at the encoder and decoder calls;
+     for bit over two launches, dvalue (f32 atomics and the tile's
+     flushes) within its order bound c·2^-24·Σ|terms| against the plain
+     version and between two launches; every launch's plan held to
+     msda_bwd_plan, the encoder calls' on route smem tiling level 3; its
+     C entry point's refusal of 4 wrong plans (a tile over a block's
+     shared memory, a tile that is not the coarsest suffix, runs that miss
+     rows, misaligned vectors); ptxas' registers and spills of every
+     instance, the served ones without spills; kernel, plain version,
+     autograd through the grid_sample form and bound timed at the encoder
+     (uniform and coherent locations) and decoder calls;
  30. one fp32 DINO-4scale train step (faster_vit_4_21k_224, use_checkpoint,
      b1 480x640, given assignments), card against CPU, the CPU's step on
      the card's MSDA cells and ReLU branches (PinLog): the loss and every
@@ -181,7 +186,9 @@ Phases, each of which raises on failure:
  31. the detection training path: that detector as configured, f32 weights
      under bf16 autocast, b2 800x1333, the fused step (auction): one step's
      launches by route and plan (K1 and K2 on the tensor cores, every K5
-     and K7 launch bf16 on vector loads), 10 steps timed after 2, peak
+     and K7 launch bf16 on vector loads, every K7 launch on its
+     msda_bwd_plan, the 6 at the encoder on route smem), 10 steps timed
+     after 2, peak
      memory, one step profiled to chiprun_out/dino_train_profile.json, then
      the loss finite and falling over 30 steps on the batch;
  32. the detection training CLI (--synthetic --dtype bfloat16 --epochs 1,
@@ -348,9 +355,25 @@ TOL_DINO_BF16 = 5e-2
 # element into their storage. dloc and dweights against the plain version
 # relative to each tensor's largest entry (f32, the sums over D in another
 # order); bf16 dweights also one bf16 rounding of the entry; dvalue within
-# the order bound of msda.dvalue_order_bound (plus one bf16 rounding)
+# the order bound of msda.dvalue_order_bound, c counting the launch's tile
+# flushes (plus one bf16 rounding)
 TOL_K7 = 2e-5
 K7_SERVED_INSTANCES = ("<bf16, V 8, G 4, NV 1>", "<float, V 4, G 8, NV 1>")
+# the levels msda_bwd_plan tiles at DINO-4scale's encoder call (D 32)
+K7_ENCODER_TILED = (3,)
+# wrong K7 plans its C entry point must refuse, each a change to the bf16
+# decoder call's own plan (and whether the value it is handed lies one
+# element into its storage)
+K7_WRONG_PLANS = [
+    ("a tile over a block's shared memory (levels 1-3, 707 KB)",
+     dict(tiled=(1, 2, 3), tile_bytes=(50 * 84 + 25 * 42 + 13 * 21) * 128),
+     False),
+    ("a tile of level 2 without level 3, not the coarsest suffix",
+     dict(tiled=(2,), tile_bytes=25 * 42 * 128), False),
+    ("runs that miss rows (too short for the grid's rounds)", "short_runs",
+     False),
+    ("16-byte vectors on a value one element into its storage", {}, True),
+]
 # the DINO-4scale train step: fp32 card against CPU at phase 19's b1
 # 480x640, the loss relative to itself and each gradient relative to its
 # tensor's largest entry (floor: 1e-5 of the largest of all): f32 with TF32
@@ -694,8 +717,11 @@ class K5Plans:
 
     def __enter__(self):
         self.count = collections.Counter()
+        self.off_plan, self.encoder = [], collections.Counter()
         orig, count = getattr(self.cm, self.kernel), self.count
         self.orig = orig
+        k7 = self.label == "K7"
+        off_plan, encoder, cm = self.off_plan, self.encoder, self.cm
 
         class Counted:
             launches = property(
@@ -709,8 +735,16 @@ class K5Plans:
                 before = orig.launches
                 out = orig(value, *args)
                 if orig.launches > before:
-                    count[(str(value.dtype).split(".")[-1],
-                           orig.last_plan)] += 1
+                    plan = orig.last_plan
+                    count[(str(value.dtype).split(".")[-1], plan)] += 1
+                    if k7:
+                        # K7's launch against msda_bwd_plan of its inputs;
+                        # the encoder's (Q = S) plans kept apart
+                        want = k7_plan(cm, value, *args)
+                        if plan != want:
+                            off_plan.append((plan, want))
+                        if args[1].shape[1] == value.shape[1]:
+                            encoder[plan] += 1
                 return out
 
         setattr(self.cm, self.kernel, Counted())
@@ -733,6 +767,30 @@ class K5Plans:
         check(not (vector and scalar), f"{what}: {scalar} bf16 "
                                        f"{self.label} launches on scalar "
                                        "loads (V 1)")
+        check(not self.off_plan, f"{what}: K7 launches off msda_bwd_plan "
+                                 f"(ran, planned): {self.off_plan}")
+
+    def check_encoder(self, launches: int, what: str) -> None:
+        """At least `launches` K7 launches at DINO's encoder calls (Q = S),
+        every one on route smem with K7_ENCODER_TILED's levels."""
+        ran = sum(self.encoder.values())
+        tiled = {(p.route, p.tiled) for p in self.encoder}
+        print(f"{what}: {ran} K7 launches at the encoder calls, on "
+              f"(route, tiled levels) {sorted(tiled)}")
+        check(ran >= launches and tiled == {("smem", K7_ENCODER_TILED)},
+              f"{what}: K7's encoder launches {dict(self.encoder)}, "
+              f"expected {launches} on route smem tiling levels "
+              f"{K7_ENCODER_TILED}")
+
+
+def k7_plan(cuda_msda, value, shapes, loc, w, g):
+    """msda_bwd_plan of K7's inputs, as its wrapper makes it."""
+    n, _, m, d = value.shape
+    return cuda_msda.msda_bwd_plan(
+        d, value.dtype, cuda_msda.pointer_alignment(value.data_ptr()),
+        cuda_msda.pointer_alignment(g.data_ptr()),
+        tuple((int(h), int(w_)) for h, w_ in shapes), loc.shape[1], n * m,
+        cuda_msda._sm_count(value.device))
 
 
 def check_short_plan(kernel, cuda_attention, bf16: bool, seq: int,
@@ -3599,14 +3657,19 @@ def reset_train_launches(cuda_attention, cuda_msda) -> None:
     cuda_msda.ms_deform_attn_backward_cuda.launches = 0
 
 
-def k7_check(kernel, plain, msda, value, shapes, loc, w, g) -> dict:
+def k7_check(cuda_msda, kernel, plain, msda, value, shapes, loc, w,
+             g) -> dict:
     """K7 against its plain version on these inputs, and a second launch
     against the first, to the bounds of TOL_K7; returns the errors."""
     got = kernel(value, shapes, loc, w, g)
     torch.cuda.synchronize()
+    plan = kernel.last_plan
     bf16 = value.dtype == torch.bfloat16
     want = plain(value.float(), shapes, loc, w.float(), g.float())
-    bound, c = msda.dvalue_order_bound(value, shapes, loc, w, g)
+    # c counts the tile flushes of the launch's plan too
+    bound, c = msda.dvalue_order_bound(
+        value, shapes, loc, w, g,
+        cuda_msda.msda_bwd_flushes(plan, loc.shape[1]))
     tiny = torch.finfo(torch.float32).tiny
     # the kernel's bf16 dvalue is its f32 sum rounded once: half a bf16
     # step, at most 2^-8 of the value, from the f32 sum
@@ -3629,19 +3692,17 @@ def k7_check(kernel, plain, msda, value, shapes, loc, w, g) -> dict:
             measured, "dvalue_bound_max": bound.max().item(),
             "dloc_rel": dl_err, "dweights_over_bound": dw_ratio,
             "same_bits": same, "rerun_over_bound": rerun_ratio,
-            "plan": kernel.last_plan}
+            "plan": plan}
 
 
-def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
-    """K7 against its plain version at K5's served and odd shapes, f32 and
-    bf16 (beside f32 locations), and on a value and grad_out one element
-    into their storage; two launches compared; ptxas' registers and spills
-    of every instance (none in the served ones); then kernel, plain
-    version, autograd through the grid_sample form and the bound timed in
-    bf16 at the encoder and decoder calls."""
+
+def k7_checks(cuda_msda, msda, gen):
+    """K7 against its plain version at K5's served and odd shapes and with
+    value and grad_out one element into their storage, f32 and bf16, two
+    launches compared; returns the worst of each tensor against its bound
+    and bf16 dvalue's largest error."""
     kernel = cuda_msda.ms_deform_attn_backward_cuda
     plain = msda.msda_backward_reference
-    gen = torch.Generator(device="cuda").manual_seed(40)
     worst = {"dvalue_over_bound": 0.0, "dloc_rel": 0.0,
              "dweights_over_bound": 0.0, "rerun_over_bound": 0.0}
     err16 = 0.0
@@ -3657,7 +3718,7 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
                       and not any(t.abs().sum() for t in got),
                       f"K7 on an empty input {(n, q)}")
                 continue
-            r = k7_check(kernel, plain, msda, *args)
+            r = k7_check(cuda_msda, kernel, plain, msda, *args)
             print(f"K7 ms_deform_attn_backward N={n} Q={q} M={m} D={d} P={p} "
                   f"{str(dtype).split('.')[-1]} levels {shapes}: dvalue "
                   f"max|err| {r['dvalue_max_abs_err']:.3e}, at most "
@@ -3686,9 +3747,9 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
         value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
         g = torch.randn(n, q, m * d, device="cuda", generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
-            r = k7_check(kernel, plain, msda, at_element_offset(value.to(dtype)),
-                         shapes, loc, w.to(dtype),
-                         at_element_offset(g.to(dtype)))
+            r = k7_check(cuda_msda, kernel, plain, msda,
+                         at_element_offset(value.to(dtype)), shapes, loc,
+                         w.to(dtype), at_element_offset(g.to(dtype)))
             print(f"K7 ms_deform_attn_backward N={n} Q={q} M={m} D={d} "
                   f"{dtype}, value and grad_out one element into their "
                   f"storage: plan (G, V) ({r['plan'].lanes}, {r['plan'].vec})"
@@ -3700,6 +3761,65 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
                   and r["dweights_over_bound"] <= 1 and r["same_bits"],
                   f"K7 on an offset value at {(n, q, m, d, p, dtype)}: {r}")
         del value, loc, w, g
+    return worst, err16
+
+
+def k7_refuses_wrong_plans(cuda_msda, gen) -> None:
+    """K7's C entry point, handed each plan of K7_WRONG_PLANS in place of
+    msda_bwd_plan's, refuses it: the call raises and counts no launch."""
+    kernel = cuda_msda.ms_deform_attn_backward_cuda
+    n, q, m, d, p, shapes, _ = K5_SERVED[1]
+    value, loc, w = msda_inputs(n, q, m, d, p, shapes, gen)
+    v16, w16 = value.bfloat16(), w.bfloat16()
+    g16 = torch.randn(n, q, m * d, device="cuda", generator=gen).bfloat16()
+    shifted = at_element_offset(v16)
+    make = cuda_msda.msda_bwd_plan
+    served = make(d, torch.bfloat16, 16, 16, shapes, q, n * m,
+                  cuda_msda._sm_count(v16.device))
+    try:
+        for what, change, offset in K7_WRONG_PLANS:
+            if change == "short_runs":
+                change = dict(run=(n * q * m - 1)
+                              // (served.blocks * served.rounds))
+            plan = served._replace(**change)
+            cuda_msda.msda_bwd_plan = lambda *_: plan
+            before = kernel.launches
+            try:
+                kernel(shifted if offset else v16, shapes, loc, w16, g16)
+                refused = False
+            except RuntimeError as err:
+                refused = "msda_backward" in str(err)
+            check(refused and kernel.launches == before,
+                  f"K7 ran {what}: {plan}, which its C entry point must "
+                  "refuse")
+    finally:
+        cuda_msda.msda_bwd_plan = make
+    torch.cuda.synchronize()
+    print(f"K7's C entry point refuses {len(K7_WRONG_PLANS)} wrong plans ("
+          + "; ".join(what for what, *_ in K7_WRONG_PLANS)
+          + "), each counting no launch")
+
+
+def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
+    """K7 against its plain version at K5's served and odd shapes, f32 and
+    bf16 (beside f32 locations), and on a value and grad_out one element
+    into their storage; two launches compared; every launch's plan held to
+    msda_bwd_plan, the encoder call's on route smem; its C entry point's
+    refusal of wrong plans; ptxas' registers and spills of every instance
+    (none in the served ones); then kernel, plain version, autograd through
+    the grid_sample form and the bound timed in bf16 at the encoder and
+    decoder calls (uniform locations; the encoder also coherent)."""
+    from fastervit_tpu_torch.probes import msda_turns
+    plain = msda.msda_backward_reference
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    with K5Plans(cuda_msda, "ms_deform_attn_backward_cuda") as plans:
+        worst, err16 = k7_checks(cuda_msda, msda, gen)
+    # two launches a check, f32 and bf16
+    plans.check(4 * (sum(n * q > 0 for n, q, *_ in K5_SERVED + K5_ODD)
+                     + len(K5_OFFSET)), "phase 29's K7 checks")
+    plans.check_encoder(4, "phase 29's K7 checks")
+    k7_refuses_wrong_plans(cuda_msda, gen)
+    kernel = cuda_msda.ms_deform_attn_backward_cuda
     instances = ptxas_k5_instances(ptx_log, "msda_bwd_kernel")
     served = {i: instances.get(i) for i in K7_SERVED_INSTANCES}
     check(all(r is not None and not r["spill_stores"]
@@ -3725,8 +3845,11 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
             lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True),
             10)
         served_plan = kernel.last_plan
-        check(served_plan.vec > 1, f"K7's served bf16 call on scalar loads: "
-                                   f"{served_plan}")
+        check(served_plan.vec > 1
+              and served_plan == k7_plan(cuda_msda, v16, shapes, loc, w16,
+                                         g16),
+              f"K7's served bf16 call ran {served_plan}, not its "
+              "msda_bwd_plan on vector loads")
         samples = n * q * m * len(shapes) * p
         # value, grad_out, loc and weights read once, dvalue, dloc and
         # dweights written once: bf16 but for the f32 locations and dloc
@@ -3760,6 +3883,19 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
               f"form {lib_ms:.4f} ms, bound {bound:.4f} ms "
               f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32, {by}; "
               f"the f32 buffer adds {buffer_mb:.1f} MB) per call")
+        if q == sum(h * w_ for h, w_ in shapes):
+            # the encoder's coherent locations, timed beside the uniform
+            loc_c = msda_turns.locations("coherent", n, q, m, p, shapes, gen)
+            ms_c = time_ms(lambda: kernel(v16, shapes, loc_c, w16, g16),
+                           iters=20)
+            row["coherent"] = {"ms": ms_c,
+                               "g_samples_s": samples / ms_c / 1e6}
+            print(f"K7 ms_deform_attn_backward N={n} Q={q} bf16, coherent "
+                  f"locations (each query's samples near its own token): "
+                  f"kernel {ms_c:.4f} ms "
+                  f"({row['coherent']['g_samples_s']:.1f} G samples/s) per "
+                  "call")
+            del loc_c
         per_call[f"({n},{q},{m},{d},{p})"] = row
         del v16, loc, w16, g16, leaves, out
     print(f"K7 ms_deform_attn_backward over one DINO-4scale bf16 "
@@ -4043,6 +4179,7 @@ def dino_train_phase(cuda_attention, cuda_msda, dino, engine, detection_cli,
           f"{dict(routes.k1)}, K2 routes {dict(routes.k2)}")
     k5_plans.check(24, "DINO bf16 train step", vector=True)
     k7_plans.check(12, "DINO bf16 train step", vector=True)
+    k7_plans.check_encoder(6, "DINO bf16 train step")
     check(calls[0] == 17 and calls[2] == 12 and calls[4] == 24
           and calls[5] == 12 and calls[1] + calls[3] == 29
           and all(calls[i] > 0 for i in (0, 2, 4, 5)),

@@ -1,5 +1,6 @@
 // V contiguous channels of an element type, loaded and stored as one 2- to
-// 16-byte vector; shared by the MSDA kernels (msda_fwd.cu, msda_probe.cu).
+// 16-byte vector; shared by the MSDA kernels (msda_fwd.cu, msda_bwd.cu,
+// msda_probe.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,6 +47,10 @@ struct Vec {
   // from global memory, by the read-only path
   __device__ __forceinline__ void load(const T* p) {
     bits = __ldg(reinterpret_cast<const B*>(p));
+  }
+  // from global memory, read once (evict-first: __ldcs)
+  __device__ __forceinline__ void load_cs(const T* p) {
+    bits = __ldcs(reinterpret_cast<const B*>(p));
   }
   // from shared memory (or any generic address)
   __device__ __forceinline__ void load_plain(const T* p) {

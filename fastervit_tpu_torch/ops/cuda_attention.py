@@ -357,7 +357,7 @@ def _library() -> ctypes.CDLL:
         lib.msda_forward.restype = ctypes.c_int
         lib.msda_backward.argtypes = (  # K7, bound in ops/cuda_msda.py
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+            + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
         lib.msda_backward.restype = ctypes.c_int
         # the MSDA probes, bound in ops/cuda_msda.py: all but P4d (wide
         # mode, the first walk) take a ProbePlan's seven ints

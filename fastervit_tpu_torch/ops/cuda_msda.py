@@ -214,16 +214,153 @@ ms_deform_attn_cuda.launches = 0
 ms_deform_attn_cuda.last_plan = None  # the MsdaPlan of the latest launch
 
 
+# K7's launch (csrc/msda_bwd.cu): at most 16 warps a block and an SM, in
+# one block or two (at most 128 registers a thread); a tile of at most a
+# block's 232,448 bytes of shared memory less its static 7,168 (the level
+# table, 1,024, and 12 bytes of results a thread)
+_BWD_MAX_WARPS = 16
+_BWD_STATIC_BYTES = 1_024 + 12 * 32 * _BWD_MAX_WARPS
+BWD_MAX_TILE_BYTES = 232_448 - _BWD_STATIC_BYTES
+_SMS = 132  # an H100's SMs, the plans' default card
+# the plan's choices, measured at DINO-4scale's encoder and decoder calls
+# (PERF.md, PR 18; probes/msda_turns.py --backward --sweep): the tile takes
+# the coarsest levels that fit TILE_BLOCKS blocks an SM (2: level 3 at D
+# 32, 35 KB, two blocks of 8 warps; Hopper adds a float into shared memory
+# by a compare-and-swap loop, slower than L2's vector atomics, so a tile
+# pays for a quarter of the adds and not for half: levels 2 and 3 in one
+# block of 16 warps were slower than no tile), and only where a head's
+# rows fill a round of the grid's chunks at least TILE_ROUNDS times (the
+# decoder's 900 do not); a round of the grid's runs covers about
+# HEADS_IN_FLIGHT heads, so that the maps the atomics reach stay in L2
+_BWD_TILE_BLOCKS = 2
+_BWD_TILE_ROUNDS = 1
+_BWD_HEADS_IN_FLIGHT = 1
+
+
+class MsdaBwdPlan(NamedTuple):
+    """How K7 runs (csrc/msda_bwd.cu): K5's lanes a (n, q, m) row (G),
+    channels a vector (V), channels a lane and rows a warp (32/G); warps a
+    block; the persistent grid of `blocks`, which take the runs of `run`
+    consecutive (n, m, q) rows in turn, `rounds` runs a block; the route,
+    "smem" (an f32 tile of dvalue in shared memory for the `tiled` levels,
+    a suffix of the coarsest, `tile_bytes` of one head's rows) or "l2"
+    (every dvalue add a global atomic); and the blocks an SM that the tile
+    and the warps allow. The C entry point checks it and refuses what no
+    instance of the kernel runs."""
+    lanes: int
+    vec: int
+    channels: int
+    rows_per_warp: int
+    warps: int
+    blocks: int
+    run: int
+    rounds: int
+    route: str
+    tiled: Tuple[int, ...]
+    tile_bytes: int
+    blocks_per_sm: int
+
+    def as_c(self):
+        """The eleven ints the C entry point takes (msda_bwd.cu::Plan): the
+        route as 0 ("l2") or 1 ("smem"), the tiled levels as a bit mask."""
+        return (ctypes.c_int * 11)(
+            *self[:8], int(self.route == "smem"),
+            sum(1 << level for level in self.tiled), self.tile_bytes)
+
+
+def _bwd_plan(d: int, dtype: torch.dtype, ptr_alignment: int,
+              shapes: Tuple, queries: int, heads: int, sm_count: int,
+              tile_blocks: int, tile_rounds: float,
+              heads_in_flight: float) -> MsdaBwdPlan:
+    """K7's plan with the choices given: the tile holds the longest suffix
+    of the levels whose f32 rows fit tile_blocks blocks an SM, where a
+    head's Q rows fill tile_rounds rounds of the grid's chunks (none at
+    tile_rounds = inf); the grid, at most blocks-an-SM × sm_count blocks and
+    a chunk of rows a warp, takes runs of whole chunks a warp, a round of
+    them about heads_in_flight heads of Q rows."""
+    lanes, vec, per_lane = _lane_group(d, dtype, ptr_alignment)
+    rows_per_warp = 32 // lanes
+    limit = min(BWD_MAX_TILE_BYTES, _SM_SMEM_BYTES // tile_blocks
+                - _BLOCK_SMEM_RESERVE - _BWD_STATIC_BYTES)
+    tiled, tile_bytes = (), 0
+    for level in reversed(range(len(shapes))):
+        h, w = shapes[level]
+        if tile_bytes + h * w * d * 4 > limit:
+            break
+        tiled, tile_bytes = (level,) + tiled, tile_bytes + h * w * d * 4
+    per_sm = 2
+    if tiled:
+        per_sm = min(2, _SM_SMEM_BYTES // (
+            tile_bytes + _BWD_STATIC_BYTES + _BLOCK_SMEM_RESERVE))
+    warps = _BWD_MAX_WARPS // per_sm
+    if queries < tile_rounds * per_sm * sm_count * warps * rows_per_warp:
+        tiled, tile_bytes, per_sm = (), 0, 2
+        warps = _BWD_MAX_WARPS // per_sm
+    rows, chunk = queries * heads, warps * rows_per_warp
+    blocks = min(per_sm * sm_count, -(-rows // chunk))
+    run = rounds = 0
+    if blocks:
+        # rounds of about heads_in_flight heads' rows, runs of whole
+        # chunks a warp, the fewest blocks that then hold every row
+        rounds = -(-rows // max(1, int(heads_in_flight * queries)))
+        run = -(-rows // (rounds * blocks * chunk)) * chunk
+        blocks = min(blocks, -(-rows // run))
+        rounds = -(-rows // (blocks * run))
+    if run > _INT32_MAX or rounds > _INT32_MAX:
+        raise ValueError(f"{rows} rows exceed K7's 32-bit runs")
+    return MsdaBwdPlan(lanes, vec, per_lane, rows_per_warp, warps, blocks,
+                       run, rounds, "smem" if tiled else "l2", tiled,
+                       tile_bytes, per_sm)
+
+
+@functools.lru_cache(maxsize=None)
 def msda_bwd_plan(d: int, dtype: torch.dtype, value_ptr_alignment: int,
-                  grad_ptr_alignment: int) -> MsdaPlan:
+                  grad_ptr_alignment: int, shapes: Tuple, queries: int,
+                  heads: int, sm_count: int = _SMS) -> MsdaBwdPlan:
     """The plan of K7 for heads of D channels in `dtype` (that of value,
     weights, grad_out and dweights), a `value` and a `grad_out` whose
-    addresses are multiples of the given alignments in bytes: K5's plan
-    (`msda_plan`) for the narrower of the two, since K7 reads both in
-    vectors of V elements. Its dvalue adds land on an f32 buffer at V
-    floats a vector: 16-byte vector atomics for V 4 and 8 (two a vector),
-    8-byte for V 2, scalar for V 1 (csrc/msda_bwd.cu::add_f32)."""
-    return msda_plan(d, dtype, min(value_ptr_alignment, grad_ptr_alignment))
+    addresses are multiples of the given alignments in bytes, the levels'
+    (H, W) `shapes`, and N·M `heads` of Q `queries` rows each, on a card of
+    sm_count SMs.
+
+    Lanes, V and channels a lane are K5's (`msda_plan`) for the narrower of
+    the two alignments, since K7 reads both in vectors of V elements (bf16
+    D 32: G 4, V 8; f32: G 8, V 4). Its dvalue adds land on an f32 buffer
+    in vectors of min(V, 4) floats: 16-byte vector atomics for V 4 and 8,
+    8-byte for V 2, scalar for V 1 (csrc/msda_bwd.cu::add_f32).
+    Route "smem" where the coarsest level's f32 rows of one head fit two
+    blocks an SM and a head's rows fill a round of the grid's chunks: the
+    tile takes the longest suffix of the levels that fits (DINO-4scale's
+    encoder call at D 32: level 3, 34,944 bytes). Else route "l2" (the
+    decoder's 900 queries a head). Two blocks of 8 warps an SM either way.
+    The grid is at most the SMs' blocks and no more than gives each warp a
+    chunk of 32/G rows; its runs hold whole chunks a warp, a round of them
+    about one head's rows."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"K7 takes float32 or bfloat16, got {dtype}")
+    if not 1 <= d <= MAX_CHANNELS:
+        raise NotImplementedError(f"K7 takes 1 to {MAX_CHANNELS} channels a "
+                                  f"head, got {d}")
+    return _bwd_plan(d, dtype, min(value_ptr_alignment, grad_ptr_alignment),
+                     tuple(shapes), queries, heads, sm_count,
+                     _BWD_TILE_BLOCKS, _BWD_TILE_ROUNDS, _BWD_HEADS_IN_FLIGHT)
+
+
+def msda_bwd_flushes(plan: MsdaBwdPlan, queries: int) -> int:
+    """The most tile flushes one element of dvalue receives under `plan`
+    with Q queries a head: the runs that meet one head (its Q rows), at
+    most ⌈Q / run⌉ + 1, on route "smem"; 0 on route "l2"."""
+    if plan.route != "smem":
+        return 0
+    return min(plan.blocks, -(-queries // plan.run) + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_shapes(shapes: Tuple):
+    """The levels' (H, W) as the C int array K7's entry point checks its
+    plan against."""
+    return (ctypes.c_int * (2 * len(shapes)))(*(x for hw in shapes
+                                               for x in hw))
 
 
 def ms_deform_attn_backward_cuda(value: torch.Tensor, spatial_shapes: Sequence,
@@ -240,8 +377,8 @@ def ms_deform_attn_backward_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     Returns dvalue in value's dtype (summed in an f32 buffer with atomics,
     then rounded once), dloc in the locations' dtype and dweights in the
     weights'. Counts its launches in `ms_deform_attn_backward_cuda.
-    launches` and keeps the latest launch's MsdaPlan (`msda_bwd_plan`) in
-    `ms_deform_attn_backward_cuda.last_plan`."""
+    launches` and keeps the latest launch's MsdaBwdPlan (`msda_bwd_plan`)
+    in `ms_deform_attn_backward_cuda.last_plan`."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     loc, weights, g = sampling_locations, attention_weights, grad_output
     check_supported(value.shape, shapes, loc.shape, weights.shape)
@@ -271,7 +408,8 @@ def ms_deform_attn_backward_cuda(value: torch.Tensor, spatial_shapes: Sequence,
     if n * q:
         how = msda_bwd_plan(d, value.dtype,
                             pointer_alignment(value.data_ptr()),
-                            pointer_alignment(g.data_ptr()))
+                            pointer_alignment(g.data_ptr()), shapes, q,
+                            n * m, _sm_count(value.device))
         loc32 = loc.float()  # the kernel's locations are f32, read as float2
         if loc32.data_ptr() % 8:
             loc32 = loc32.clone()
@@ -283,7 +421,8 @@ def ms_deform_attn_backward_cuda(value: torch.Tensor, spatial_shapes: Sequence,
                 weights.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
                 dloc.data_ptr(), dweights.data_ptr(), n, q, s, m, d,
                 len(shapes), p, int(value.dtype == torch.bfloat16),
-                how.as_c(), torch.cuda.current_stream().cuda_stream)
+                _host_shapes(shapes), how.as_c(),
+                torch.cuda.current_stream().cuda_stream)
         cuda_attention._raise_on(err, "msda_backward")
         ms_deform_attn_backward_cuda.launches += 1
         ms_deform_attn_backward_cuda.last_plan = how
@@ -291,7 +430,7 @@ def ms_deform_attn_backward_cuda(value: torch.Tensor, spatial_shapes: Sequence,
 
 
 ms_deform_attn_backward_cuda.launches = 0
-ms_deform_attn_backward_cuda.last_plan = None  # the latest launch's MsdaPlan
+ms_deform_attn_backward_cuda.last_plan = None  # the latest MsdaBwdPlan
 
 
 # The MSDA gather probes' kernels, P3a-c and P4a-d (csrc/msda_probe.cu)

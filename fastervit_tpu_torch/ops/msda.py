@@ -195,12 +195,15 @@ def msda_backward_reference(value: torch.Tensor, spatial_shapes: Sequence,
 def dvalue_order_bound(value: torch.Tensor, spatial_shapes: Sequence,
                        sampling_locations: torch.Tensor,
                        attention_weights: torch.Tensor,
-                       grad_out: torch.Tensor) -> Tuple[torch.Tensor, int]:
+                       grad_out: torch.Tensor,
+                       flushes: int = 0) -> Tuple[torch.Tensor, int]:
     """How far two summation orders of dvalue may lie apart, element by
     element: c·2⁻²⁴·Σ|terms|, with Σ|terms| the plain backward's dvalue on
     |g| and |w| (the corner weights are non-negative) in f32 and c the most
-    (sample, corner) contributions any element of dvalue receives. Returns
-    (the bound, f32, value's shape; c). K7 adds dvalue's terms with
+    (sample, corner) contributions any element of dvalue receives plus
+    `flushes`, the partial sums added on top of them (K7's route "smem":
+    the tiles of the runs that meet a head, `cuda_msda.msda_bwd_flushes`).
+    Returns (the bound, f32, value's shape; c). K7 adds dvalue's terms with
     atomics, in an order that changes from run to run."""
     shapes = normalize_shapes(spatial_shapes)
     loc = sampling_locations
@@ -223,7 +226,7 @@ def dvalue_order_bound(value: torch.Tensor, spatial_shapes: Sequence,
         keep = valid[..., 0].bool()[..., None].expand_as(index)
         c = torch.bincount(index[keep], minlength=n * m * (h + 2) * wp)
         counts.append(int(c.reshape(n, m, h + 2, wp)[:, :, 1:-1, 1:-1].max()))
-    c = max(counts)
+    c = max(counts) + flushes
     return c * 2.0 ** -24 * terms, c
 
 

@@ -30,12 +30,29 @@ instances). With --profile, one bf16 call's device time is split by
 kernel (torch.profiler), to tell the kernel's time from the host's. It
 prints one JSON object, with the card's name and power limit,
 and writes it to --out if given. It needs a CUDA device.
+
+With --backward it times K7, the MSDA backward, instead, at the same calls
+of a DINO-4scale bf16 b2 800x1333 train step (6 encoder and 6 decoder
+calls), given grad_out N(0, 1): the wrapper as the model calls it (the f32
+dvalue buffer's zeroing and cast included), in both location modes and
+both dtypes, each launch's plan and ptxas' registers and spills of the
+served instances. It writes the SHA-256 of dloc and dweights, which keep
+their bits across trees, and holds dvalue, in each process, to the plain
+version's order bound (`ops/msda.py::dvalue_order_bound`, c counting the
+tree's tile flushes where it has them, plus one bf16 rounding); it fails
+if dvalue leaves it. --sweep (the change's tree) times K7 at both calls
+and modes in bf16 under each candidate plan of `cuda_msda._bwd_plan`,
+the choices behind `msda_bwd_plan`:
+
+    python fastervit_tpu_torch/probes/msda_turns.py --backward --sweep \\
+        --out out/msda_bwd_sweep.json
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -122,12 +139,133 @@ def sha256(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()
 
 
+# K7's candidate plans for --sweep: (label, _bwd_plan's choices: blocks an
+# SM the tile must fit, rounds of the grid's chunks a head's rows must fill
+# for a tile (inf: never), heads of rows a round of runs covers; ALL: one
+# run a block, the first design's grid)
+ALL, NEVER = 1e9, float("inf")
+SWEEP = (("smem level 3, 2x8 warps, a head a round (the plan)",
+          dict(tile_blocks=2, tile_rounds=1, heads_in_flight=1)),
+         ("smem level 3, 2x8, also at the decoder",
+          dict(tile_blocks=2, tile_rounds=0, heads_in_flight=1)),
+         ("smem level 3, 2x8, 4 heads a round",
+          dict(tile_blocks=2, tile_rounds=1, heads_in_flight=4)),
+         ("smem level 3, 2x8, one run a block",
+          dict(tile_blocks=2, tile_rounds=1, heads_in_flight=ALL)),
+         ("smem levels 2-3, 1x16 warps, a head a round",
+          dict(tile_blocks=1, tile_rounds=1, heads_in_flight=1)),
+         ("l2, 2x8 warps, a head a round",
+          dict(tile_blocks=2, tile_rounds=NEVER, heads_in_flight=1)),
+         ("l2, 2x8 warps, one run a block",
+          dict(tile_blocks=2, tile_rounds=NEVER, heads_in_flight=ALL)))
+
+
+def k7_ptxas(lib: Path) -> dict:
+    """Registers and spill stores of K7's served instances (bf16 V 8 G 4,
+    f32 V 4 G 8), from the build's ptxas log."""
+    out, cur = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            cur = None
+            for name, mangled in (("bf16", "13__nv_bfloat16Li8ELi4ELi1E"),
+                                  ("f32", "fLi4ELi8ELi1E")):
+                if "msda_bwd_kernelI" + mangled in entry.group(1):
+                    cur = out.setdefault(name, {})
+            continue
+        if cur is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores")):
+                hit = re.search(pat, line)
+                if hit:
+                    cur[key] = int(hit.group(1))
+    return out
+
+
+def backward(args, cuda_attention, cuda_msda, lib: Path) -> dict:
+    """K7 timed, its dloc and dweights hashed and its dvalue held to the
+    order bound at each call, mode and dtype (see the docstring)."""
+    from fastervit_tpu_torch.ops import msda
+    kernel = cuda_msda.ms_deform_attn_backward_cuda
+    flushes = getattr(cuda_msda, "msda_bwd_flushes", None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"kernel": "K7", "ptxas": k7_ptxas(lib), "calls": {}}
+    sums = {mode: {name: 0.0 for name in DTYPES} for mode in MODES}
+    sweep = {label: {} for label, _ in SWEEP} if args.sweep else None
+    for call, q, count in CALLS:
+        out["calls"][call] = {"Q": q, "calls": count}
+        for mode in MODES:
+            value, loc, w = inputs(q, mode, gen)
+            g = torch.randn(N, q, M * D, device="cuda", generator=gen)
+            row = {"sha256": {}}
+            for name, dtype in DTYPES.items():
+                v, wt, gt = value.to(dtype), w.to(dtype), g.to(dtype)
+                got = kernel(v, LEVELS, loc, wt, gt)
+                plan = kernel.last_plan
+                row["sha256"][name] = {"dloc": sha256(got[1]),
+                                       "dweights": sha256(got[2])}
+                # dvalue against the plain version's f32 sum
+                want = msda.msda_backward_reference(
+                    v.float(), LEVELS, loc, wt.float(), gt.float())[0]
+                extra = {"flushes": flushes(plan, q)} if flushes else {}
+                bound, c = msda.dvalue_order_bound(v, LEVELS, loc, wt, gt,
+                                                   **extra)
+                if dtype == torch.bfloat16:
+                    bound = bound + 2 ** -8 * (want.abs() + bound)
+                over = ((got[0].float() - want).abs()
+                        / bound.clamp(min=torch.finfo(torch.float32).tiny)
+                        ).max().item()
+                if over > 1:
+                    sys.exit(f"K7's dvalue at {call} {mode} {name} is "
+                             f"{over:.3f} of its order bound")
+                ms = _time_ms(lambda: kernel(v, LEVELS, loc, wt, gt))
+                row[name] = {"ms": ms, "dvalue_over_bound": over, "c": c,
+                             "plan": plan._asdict()}
+                sums[mode][name] += count * ms
+                if args.profile and name == "bf16":
+                    row[name]["kernels_us"] = kernels_us(
+                        lambda: kernel(v, LEVELS, loc, wt, gt))
+                if sweep is not None and name == "bf16":
+                    make = cuda_msda.msda_bwd_plan
+                    try:
+                        for label, how in SWEEP:
+                            cuda_msda.msda_bwd_plan = (
+                                lambda d_, dt, va, ga, shapes, q_, heads,
+                                sms, how=how: cuda_msda._bwd_plan(
+                                    d_, dt, min(va, ga), shapes, q_, heads,
+                                    sms, **how))
+                            same = kernel(v, LEVELS, loc, wt, gt)
+                            if not (torch.equal(same[1], got[1])
+                                    and torch.equal(same[2], got[2])):
+                                sys.exit(f"K7 under plan {label} changed "
+                                         "dloc or dweights")
+                            sweep[label].setdefault(call, {})[mode] = {
+                                "ms": _time_ms(lambda: kernel(
+                                    v, LEVELS, loc, wt, gt)),
+                                "plan": kernel.last_plan._asdict()}
+                    finally:
+                        cuda_msda.msda_bwd_plan = make
+                del v, wt, gt, got, want, bound
+            out["calls"][call][mode] = row
+            del value, loc, w, g
+    out["sum12_ms"] = sums
+    if sweep is not None:
+        out["sweep"] = sweep
+    out["per"] = ("one DINO-4scale b2 800x1333 train step: 6 encoder calls "
+                  "(Q = 22,223) and 6 decoder calls (Q = 900)")
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".",
                     help="the checkout whose fastervit_tpu_torch is timed")
     ap.add_argument("--profile", action="store_true",
                     help="also split one bf16 call's device time by kernel")
+    ap.add_argument("--backward", action="store_true",
+                    help="time K7, the MSDA backward, instead of K5")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --backward: also time K7's candidate plans")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
@@ -137,7 +275,12 @@ def main(argv=None) -> dict:
     from fastervit_tpu_torch.ops import cuda_attention, cuda_msda
     if not Path(cuda_msda.__file__).resolve().is_relative_to(root):
         sys.exit(f"imported {cuda_msda.__file__}, not from {root}")
-    cuda_attention.build()
+    lib = cuda_attention.build()
+    if args.backward:
+        out = {"root": str(root), "iters": ITERS, "shape": {
+            "N": N, "M": M, "D": D, "P": P, "levels": LEVELS},
+            **backward(args, cuda_attention, cuda_msda, lib)}
+        return _report(out, args)
     kernel = cuda_msda.ms_deform_attn_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -172,6 +315,12 @@ def main(argv=None) -> dict:
     out["sum12_ms"] = sums
     out["per"] = ("one DINO-4scale b2 800x1333 forward: 6 encoder calls "
                   "(Q = 22,223) and 6 decoder calls (Q = 900)")
+    return _report(out, args)
+
+
+def _report(out: dict, args) -> dict:
+    """out with the card's name and power limit, printed as one JSON line
+    and written to --out if given."""
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -12,7 +12,8 @@ Tolerances, each with its reason:
   of the plain version's f32 sum, plus that f32 bound;
 - dvalue adds its terms with atomics, in an order that changes from run to
   run: within the order bound c·2⁻²⁴·Σ|terms| of `ops.msda.
-  dvalue_order_bound` (plus one bf16 rounding for bf16).
+  dvalue_order_bound`, c counting the tile flushes of the launch's plan
+  (`cuda_msda.msda_bwd_flushes`) (plus one bf16 rounding for bf16).
 Two launches give dloc and dweights bit for bit, dvalue within that
 bound."""
 import numpy as np
@@ -72,6 +73,12 @@ def rel_to_largest(got, want):
             / want.float().abs().max().clamp(min=1e-30)).item()
 
 
+def flushes(q):
+    """The tile flushes an element of dvalue took in K7's latest launch."""
+    return cuda_msda.msda_bwd_flushes(
+        cuda_msda.ms_deform_attn_backward_cuda.last_plan, q)
+
+
 def check_against_plain(value, shapes, loc, w, g):
     """K7 on these inputs against the plain version, to the bounds in the
     module docstring; returns K7's outputs."""
@@ -88,7 +95,7 @@ def check_against_plain(value, shapes, loc, w, g):
         assert all(not t.abs().sum() for t in got)
         return got
     dv, dl, dw = got
-    bound, c = dvalue_order_bound(value, shapes, loc, w, g)
+    bound, c = dvalue_order_bound(value, shapes, loc, w, g, flushes(q))
     want32 = msda_backward_reference(value.float(), shapes, loc, w.float(),
                                      g.float())
     if value.dtype == torch.bfloat16:
@@ -117,11 +124,12 @@ def test_kernel_matches_plain(cuda, dtype, n, q, m, d, p, shapes):
         plan = cuda_msda.ms_deform_attn_backward_cuda.last_plan
         assert plan == cuda_msda.msda_bwd_plan(
             d, dtype, cuda_msda.pointer_alignment(value.data_ptr()),
-            cuda_msda.pointer_alignment(g.data_ptr()))
+            cuda_msda.pointer_alignment(g.data_ptr()), shapes, q, n * m,
+            cuda_msda._sm_count(value.device))
         again = cuda_msda.ms_deform_attn_backward_cuda(value, shapes, loc, w,
                                                        g)
         assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
-        bound, _ = dvalue_order_bound(value, shapes, loc, w, g)
+        bound, _ = dvalue_order_bound(value, shapes, loc, w, g, flushes(q))
         if dtype == torch.bfloat16:
             # two f32 sums rounded to bf16: one bf16 step apart at most
             bound = bound + 2 ** -7 * got[0].float().abs()

@@ -180,3 +180,37 @@ def test_dvalue_order_bound_counts_contributions():
     assert c == 3
     assert torch.allclose(bound.flatten(),
                           torch.tensor([3.5 * 3 * 2 ** -24, 0, 0, 0]))
+
+
+@pytest.mark.parametrize("run", [7, 24, 80], ids=lambda r: f"run{r}")
+def test_dvalue_order_bound_counts_run_partials(run):
+    """K7's route "smem": each block sums its run's terms for a head in a
+    tile, and the runs' partial sums meet in the f32 buffer. Summing each
+    run of `run` (n, m, q) rows alone (the plain version's index_add_ over
+    its rows) and then the partials from the last run to the first stays
+    within the bound whose c counts the runs that meet a head."""
+    n, q, m, d, p = 2, 40, 2, 8, 3
+    shapes = ((6, 5), (3, 3), (2, 2))
+    value, loc, w = (torch.from_numpy(t) for t in _inputs(
+        n, q, m, d, p, shapes, seed=14))
+    g = torch.from_numpy(_grad((n, q, m * d), 15))
+    want = msda_backward_reference(value, shapes, loc, w, g)[0]
+    rows = n * m * q
+    partials, met = [], [0] * (n * m)
+    for lo in range(0, rows, run):
+        keep = torch.zeros(n, m, q, dtype=torch.bool)
+        keep.view(-1)[lo:lo + run] = True
+        for head in {r // q for r in range(lo, min(lo + run, rows))}:
+            met[head] += 1
+        mask = keep.permute(0, 2, 1)[..., None].expand(n, q, m, d)
+        g_run = torch.where(mask.reshape(n, q, m * d), g, torch.zeros(()))
+        partials.append(msda_backward_reference(value, shapes, loc, w,
+                                                g_run)[0])
+    got = torch.zeros_like(want)
+    for part in reversed(partials):
+        got = got + part
+    flushes = max(met)
+    bound, c = dvalue_order_bound(value, shapes, loc, w, g, flushes)
+    _, c0 = dvalue_order_bound(value, shapes, loc, w, g)
+    assert c == c0 + flushes
+    assert ((got - want).abs() <= bound).all()
