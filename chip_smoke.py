@@ -191,7 +191,29 @@ Phases, each of which raises on failure:
      after 2, peak
      memory, one step profiled to chiprun_out/dino_train_profile.json, then
      the loss finite and falling over 30 steps on the batch;
- 32. the detection training CLI (--synthetic --dtype bfloat16 --epochs 1,
+ 30, again: the fp32 train step card against CPU with contrastive
+     denoising (the config's dn queries, 5 groups, 200 queries) on a
+     480x512 image padded onto the 480x640 canvas, every gradient
+     (label_enc's included) to phase 30's bound;
+ 32. padded serving: that detector in fp32 at batch 2 on the 800x1333
+     canvas, an all-False mask against no mask (encoder outputs and every
+     decoder layer on one selection, TF32 off); then in bf16 at batch 2 on
+     COCO evaluation's mixed-size batch (an 800x1333 image and an 800x1066
+     one padded onto the canvas by pad_to_canvas): 17 K1, 12 K3 and 12 K5
+     launches a forward (6 at the encoder's Q, 6 at the decoder's 900),
+     each bf16 K5 on a vector plan, outputs finite, 10 batches timed, peak
+     memory; then phase 19's fp32 card against CPU on a 480x512 image
+     padded onto the 480x640 canvas;
+ 33. the detection training path with contrastive denoising on the padded
+     800x1333 batch: f32 weights under bf16 autocast, use_checkpoint, the
+     auction, the config's dn queries drawn each step (targets padded to
+     20: 5 groups, 200 queries, decoder calls at Q 1,100), the matching
+     loss on the last 900 slots plus the denoising loss: one step's
+     launches by route, plan and Q (K1 17, K2 + K4 29, K3 12, K5 24, K7
+     12; half of K5's and K7's at Q 1,100), 10 steps timed after 2, peak
+     memory, one step profiled to chiprun_out/dino_cdn_train_profile.json,
+     the loss finite and falling over 30 steps;
+ 34. the detection training CLI (--synthetic --dtype bfloat16 --epochs 1,
      800x800) with --matcher auction and --matcher host, its best.pth
      under TMPDIR, 48 K7 and 120 K5 launches each.
 It prints one JSON line on the kernels and, as its last line,
@@ -349,6 +371,19 @@ TOL_DINO_FP32 = 1e-4
 # the 23 backbone blocks and 6 encoder layers (MSDA's sampling locations
 # and the reference boxes stay f32, as in the JAX detector): a few percent
 TOL_DINO_BF16 = 5e-2
+# COCO evaluation's batch on the canvas: image 0 fills it, image 1 is a 4:3
+# image at short side 800, padded right by pad_to_canvas; phase 19's
+# 480x640 canvas with one 480x512 image on it, for fp32 card against CPU
+DINO_PAD_VALID = (DINO_CANVAS, (800, 1066))
+DINO_SMALL_CANVAS, DINO_SMALL_VALID = (480, 640), (480, 512)
+# fp32 with TF32 off, an all-False mask against no mask, relative to each
+# output's largest entry: the masked tables are the constant ones up to
+# the order of their sums (the position embedding's f32 against f64)
+TOL_DINO_MASK = 1e-5
+# contrastive denoising in training: targets padded to 20 a image (the JAX
+# CLI's --max-targets), so the config's dn_number of 100 makes 5 groups of
+# 2 x 20 dn queries, 200 in front of the 900 matching ones
+DINO_DN_TARGETS = 20
 # K7, the MSDA backward, at K5's shapes (K5_SERVED: the encoder and decoder
 # calls, 6 each a train step; K5_ODD: D 1-64, a 1x1 level, border and far
 # outside samples, N = 0, Q = 0) and K5_OFFSET's, value and grad_out one
@@ -718,7 +753,9 @@ class K5Plans:
     def __enter__(self):
         self.count = collections.Counter()
         self.off_plan, self.encoder = [], collections.Counter()
+        self.queries = collections.Counter()
         orig, count = getattr(self.cm, self.kernel), self.count
+        queries = self.queries
         self.orig = orig
         k7 = self.label == "K7"
         off_plan, encoder, cm = self.off_plan, self.encoder, self.cm
@@ -737,6 +774,7 @@ class K5Plans:
                 if orig.launches > before:
                     plan = orig.last_plan
                     count[(str(value.dtype).split(".")[-1], plan)] += 1
+                    queries[args[1].shape[1]] += 1
                     if k7:
                         # K7's launch against msda_bwd_plan of its inputs;
                         # the encoder's (Q = S) plans kept apart
@@ -769,6 +807,14 @@ class K5Plans:
                                        "loads (V 1)")
         check(not self.off_plan, f"{what}: K7 launches off msda_bwd_plan "
                                  f"(ran, planned): {self.off_plan}")
+
+    def check_queries(self, want: dict, what: str) -> None:
+        """The launches by query count Q (the encoder's Q = S, the
+        decoder's the queries it runs) are `want`'s."""
+        print(f"{what}: {self.label} launches by Q {dict(self.queries)}")
+        check(dict(self.queries) == want, f"{what}: {self.label} launches "
+                                          f"by Q {dict(self.queries)}, "
+                                          f"expected {want}")
 
     def check_encoder(self, launches: int, what: str) -> None:
         """At least `launches` K7 launches at DINO's encoder calls (Q = S),
@@ -2186,24 +2232,48 @@ def k5_phase(cuda_msda, msda, ptx_log: str) -> dict:
             "per_call": per_call}
 
 
-def dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg) -> None:
+def padded_batch(transforms, images: torch.Tensor, valid):
+    """images (B, 3, H, W) -> (the batch with image i cut to its top-left
+    valid[i] (h, w) and padded back onto the H x W canvas by
+    transforms.pad_to_canvas, its (B, H, W) mask), on images' device."""
+    x = images.permute(0, 2, 3, 1).cpu().numpy()
+    batch, mask = transforms.pad_to_canvas(
+        [x[i, :h, :w] for i, (h, w) in enumerate(valid)],
+        tuple(images.shape[-2:]))
+    return (torch.from_numpy(batch).permute(0, 3, 1, 2).contiguous()
+            .to(images.device), torch.from_numpy(mask).to(images.device))
+
+
+def dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg,
+                    transforms=None) -> None:
     """The served detector in fp32, batch 1, 480x640: the card (kernel
     path) against the CPU (plain path) on the same weights, step by step;
-    both decoders run on the CPU's two-stage selection."""
+    both decoders run on the CPU's two-stage selection. Given `transforms`,
+    the batch is a 480x512 image padded onto the canvas, and its mask runs
+    through the encoder and decoder."""
     t0 = time.perf_counter()
     det_cpu = dino.build_dino_from_config(
-        cfg, resolution=(480, 640), device="cpu",
+        cfg, resolution=DINO_SMALL_CANVAS, device="cpu",
         generator=torch.Generator().manual_seed(31)).eval()
     det = copy.deepcopy(det_cpu).to("cuda")
     build_s = time.perf_counter() - t0
-    x = torch.randn(1, 3, 480, 640, generator=torch.Generator().manual_seed(32))
+    x = torch.randn(1, 3, *DINO_SMALL_CANVAS,
+                    generator=torch.Generator().manual_seed(32))
+    mask, what = None, ""
+    if transforms is not None:
+        x, pad = padded_batch(transforms, x, [DINO_SMALL_VALID])
+        mask = dino.level_padding_mask(pad, det_cpu.spatial_shapes)
+        what = (f", a {DINO_SMALL_VALID[0]}x{DINO_SMALL_VALID[1]} image "
+                "padded onto it, its mask through the encoder and decoder")
     runs, seconds = {}, {}
     with torch.no_grad():
         for where, m in (("cpu", det_cpu), ("card", det)):
             t0 = time.perf_counter()
             before = detection_launches(cuda_attention, cuda_msda)
-            feats = m.features(x.to(where if where == "cpu" else "cuda"))
-            enc = m.transformer.encode(m.project(feats))
+            dev = "cpu" if where == "cpu" else "cuda"
+            feats = m.features(x.to(dev))
+            enc = m.transformer.encode(m.project(feats), None if mask is None
+                                       else mask.to(dev))
             runs[where] = (feats, enc, m.transformer.select(enc))
             seconds[where] = time.perf_counter() - t0
         topk = runs["cpu"][2]
@@ -2238,8 +2308,8 @@ def dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg) -> None:
     gap = ((scores[card_topk[diff]] - scores[topk[0][diff]]).abs().max()
            .item() if len(diff) else 0.0)
     worst = max(errs, key=errs.get)
-    print(f"DINO-4scale faster_vit_4_21k_224 fp32 b1 480x640, card vs CPU, "
-          f"max|err| / max|CPU| per tensor (tol {TOL_DINO_FP32}): "
+    print(f"DINO-4scale faster_vit_4_21k_224 fp32 b1 480x640{what}, card "
+          f"vs CPU, max|err| / max|CPU| per tensor (tol {TOL_DINO_FP32}): "
           + ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
           + f"; worst {worst}; two-stage selection: {len(diff)} of {k} "
           f"positions differ (largest score gap {gap:.2e}; margin between "
@@ -4010,8 +4080,70 @@ class PinLog:
         self.msda.ms_deform_attn, torch.nn.functional.relu = self.orig
 
 
+def dn_settings(cfg) -> dict:
+    """The config's contrastive-denoising settings (configs/dino/*.py:
+    use_dn, dn_number, dn_label_noise_ratio, dn_box_noise_scale,
+    dn_labelbook_size), which the caller hands to the detector's build and
+    to prepare_cdn."""
+    check(bool(cfg.get("use_dn", False)), "the config sets use_dn")
+    return {"dn_labelbook_size": int(cfg["dn_labelbook_size"]),
+            "dn_number": int(cfg["dn_number"]),
+            "label_noise_ratio": float(cfg["dn_label_noise_ratio"]),
+            "box_noise_scale": float(cfg["dn_box_noise_scale"])}
+
+
+def draw_cdn(dino, generator, tgt, det, dn_cfg):
+    """prepare_cdn's queries for the padded targets `tgt` at the config's
+    settings, drawn from `generator`, on tgt's device."""
+    return dino.prepare_cdn(generator, tgt, det.num_classes, det.num_queries,
+                            dn_number=dn_cfg["dn_number"],
+                            label_noise_ratio=dn_cfg["label_noise_ratio"],
+                            box_noise_scale=dn_cfg["box_noise_scale"])
+
+
+def make_cdn_train_step(engine, dino, steps, matcher_device,
+                        dtype=torch.float32):
+    """train_step(state, images, pad_mask, tgt, dn, meta, assignment=None)
+    -> metrics: a DINO train step with contrastive denoising on a padded
+    batch, composed as the JAX tests compose it (the JAX engine has no CDN
+    step): the detector in eval mode (frozen BatchNorm) with the dn queries
+    and the mask, under autocast for a bf16 `dtype` over f32 weights; the
+    set criterion given assignments (`engine.detection_loss`) on the last
+    num_queries slots of every layer and the interm layer, the
+    assignments given or by the on-device auction; plus `dino.cdn_loss` on
+    the first meta['n_dn'] slots; backward, the clip, AdamW."""
+    def train_step(state, images, pad_mask, tgt, dn, meta, assignment=None):
+        model = state.model.eval()
+        state.optimizer.zero_grad()
+        with steps._autocast(images.device, dtype):
+            out = model(images, dn=dn, pad_mask=pad_mask)
+        out = engine._f32(out)
+        n_dn = meta["n_dn"]
+        main = {"logits": [t[:, n_dn:] for t in out["logits"]],
+                "boxes": [t[:, n_dn:] for t in out["boxes"]],
+                "interm_logits": out["interm_logits"],
+                "interm_boxes": out["interm_boxes"]}
+        if assignment is None:
+            costs = engine.compute_costs(main, tgt,
+                                         len(engine.loss_layers(main)[0]))
+            assignment = matcher_device.solve_assignments_device(
+                costs, tgt["mask"])
+        assignment = torch.as_tensor(assignment).to(images.device)
+        loss, parts = engine.detection_loss(main, tgt, assignment,
+                                            model.num_classes)
+        dn_parts = dino.cdn_loss(out, tgt, meta, model.num_classes)
+        total = loss + dn_parts["loss_dn"]
+        total.backward()
+        grad_norm = state.optimizer.step(state.step)
+        state.step += 1
+        return {"loss": total.detach(), "loss_ce": parts["loss_ce"].detach(),
+                "loss_dn": dn_parts["loss_dn"].detach(),
+                "grad_norm": grad_norm}
+    return train_step
+
+
 def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
-                         detection_cli, cfg) -> None:
+                         detection_cli, cfg, cdn=None) -> None:
     """One fp32 DINO-4scale train step (the config's use_checkpoint on),
     card against CPU, batch 1, 480x640, on the same weights, targets and
     assignments (solved once from the CPU's costs): the loss and every
@@ -4021,11 +4153,17 @@ def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
     border) or a ReLU input on the other side of 0 (within rounding of the
     kink) would change the gradients upstream of it by a whole term, so the
     CPU's step takes the card's branches through its own autograd path
-    (PinLog); how many of its own would have differed is printed."""
+    (PinLog); how many of its own would have differed is printed. Given
+    `cdn` (transforms, steps and matcher_device), the step is
+    make_cdn_train_step's: a 480x512 image padded onto the canvas, and the
+    config's dn queries (T = DINO_DN_TARGETS), label_enc's gradient
+    included."""
     t0 = time.perf_counter()
+    dn_cfg = dn_settings(cfg) if cdn is not None else {}
     det_cpu = dino.build_dino_from_config(
-        cfg, resolution=(480, 640), device="cpu",
-        generator=torch.Generator().manual_seed(41))
+        cfg, resolution=DINO_SMALL_CANVAS, device="cpu",
+        generator=torch.Generator().manual_seed(41),
+        dn_labelbook_size=dn_cfg.get("dn_labelbook_size"))
     # at the init the offset heads' kernels are zero, so every sample sits
     # on the lattice of its reference point plus the directional bias:
     # on a cell border exactly, where the bilinear gradient jumps and f32
@@ -4039,15 +4177,34 @@ def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
                 w.copy_(torch.randn(w.shape, generator=gen)
                         / math.sqrt(w.shape[1]))
     det = copy.deepcopy(det_cpu).to("cuda")
-    x = torch.randn(1, 3, 480, 640, generator=torch.Generator().manual_seed(42))
-    tgt = dino_targets(detection_cli, 1, 43, 20, engine, "cpu")
+    x = torch.randn(1, 3, *DINO_SMALL_CANVAS,
+                    generator=torch.Generator().manual_seed(42))
+    tgt = dino_targets(detection_cli, 1, 43, DINO_DN_TARGETS, engine, "cpu")
+    pad = flat = dn = meta = None
+    what = ""
+    if cdn is not None:
+        transforms, steps, matcher_device = cdn
+        x, pad = padded_batch(transforms, x, [DINO_SMALL_VALID])
+        flat = dino.level_padding_mask(pad, det_cpu.spatial_shapes)
+        dn, meta = draw_cdn(dino, torch.Generator().manual_seed(49), tgt,
+                            det_cpu, dn_cfg)
+        what = (f", a {DINO_SMALL_VALID[0]}x{DINO_SMALL_VALID[1]} image "
+                f"padded onto it, {meta['n_dn']} dn queries in "
+                f"{meta['groups']} groups")
+
+    def on(t, dev):
+        return None if t is None else (
+            {k: v.to(dev) for k, v in t.items()} if isinstance(t, dict)
+            else t.to(dev))
+
     # both decoders on the CPU's two-stage selection: at a near-tie the
     # card's top-k swaps queries, and every decoder gradient then differs
     with torch.no_grad():
         topk, scores = {}, None
         for where, m in (("cpu", det_cpu), ("card", det)):
+            dev = "cpu" if where == "cpu" else "cuda"
             enc = m.eval().transformer.encode(m.project(m.features(
-                x.to("cpu" if where == "cpu" else "cuda"))))
+                x.to(dev))), on(flat, dev))
             topk[where] = m.transformer.select(enc).cpu()
             if where == "cpu":
                 scores = enc["enc_logits"].max(-1).values[0]
@@ -4062,7 +4219,10 @@ def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
         pinned = topk["cpu"].to("cpu" if where == "cpu" else "cuda")
         m.transformer.select = lambda enc, pinned=pinned: pinned
     with torch.no_grad():
-        out = det_cpu(x)
+        out = det_cpu(x, dn=dn, pad_mask=pad)
+        if meta is not None:    # the matching queries, after the dn ones
+            out = {k: [t[:, meta["n_dn"]:] for t in v] if k in (
+                "logits", "boxes") else v for k, v in out.items()}
         layers = len(engine.loss_layers(out)[0])
         assignment = engine.solve_assignments(
             engine.compute_costs(out, tgt, layers), tgt["mask"])
@@ -4072,15 +4232,19 @@ def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
         dev = "cpu" if where == "cpu" else "cuda"
         state = engine.DetectionTrainState(m, detection_optimizer(engine, m,
                                                                   cfg))
-        step = engine.make_detection_train_step()
         t1 = time.perf_counter()
         before = train_launches(cuda_attention, cuda_msda)
         replay = logs["card"] if where == "cpu" else None
         with RouteLog(cuda_attention) as log_routes, \
                 PinLog(msda, replay) as log:
-            metrics[where] = step(state, x.to(dev),
-                                  {k: v.to(dev) for k, v in tgt.items()},
-                                  assignment)
+            if cdn is None:
+                metrics[where] = engine.make_detection_train_step()(
+                    state, x.to(dev), on(tgt, dev), assignment)
+            else:
+                metrics[where] = make_cdn_train_step(
+                    engine, dino, steps, matcher_device)(
+                    state, x.to(dev), on(pad, dev), on(tgt, dev),
+                    on(dn, dev), meta, assignment)
             torch.cuda.synchronize()
         if where == "card":
             calls = tuple(a - b for a, b in zip(
@@ -4109,8 +4273,8 @@ def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
         err = (grads["card"][name] - ref).abs().max().item()
         errs[name] = err / max(ref.abs().max().item(), floor)
     ranked = sorted(errs.items(), key=lambda kv: -kv[1])
-    print(f"DINO-4scale faster_vit_4_21k_224 fp32 train step b1 480x640 "
-          f"(use_checkpoint, given assignments), card vs CPU: loss "
+    print(f"DINO-4scale faster_vit_4_21k_224 fp32 train step b1 480x640"
+          f"{what} (use_checkpoint, given assignments), card vs CPU: loss "
           f"{loss['card']:.6f} / {loss['cpu']:.6f}, relative |dloss| "
           f"{dloss:.3e} (tol {TOL_DINO_STEP_LOSS}); gradients' max|err| / "
           f"max|CPU| (floor {floor:.2e}), the 12 largest: "
@@ -4140,6 +4304,13 @@ def dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
           f"DINO fp32 step launches {calls}, expected K1 17, K3 12, K5 24 "
           "(each layer's forward again under use_checkpoint), K7 12 and "
           "29 of K2 and K4")
+    if cdn is not None:
+        label_enc = errs["transformer.label_enc.weight"]
+        print(f"  label_enc's gradient: card vs CPU {label_enc:.2e} of its "
+              f"largest entry, "
+              f"{grads['cpu']['transformer.label_enc.weight'].abs().max():.3e}")
+        check(grads["cpu"]["transformer.label_enc.weight"].abs().max() > 0,
+              "label_enc's gradient is non-zero")
     del det_cpu, det, grads, logs
     gc.collect()
     torch.cuda.empty_cache()
@@ -4242,6 +4413,226 @@ def dino_train_phase(cuda_attention, cuda_msda, dino, engine, detection_cli,
     return {"launches": calls, "ms": ms, "peak": peak, "profile": prof}
 
 
+def dino_padded_serving_phase(cuda_attention, cuda_msda, dino, transforms,
+                              cfg) -> dict:
+    """The served detector on COCO evaluation's mixed-size batch: first in
+    fp32 (TF32 off) at batch 2 on the unpadded 800x1333 canvas, an
+    all-False mask against no mask (the encoder's outputs, then both
+    decoders on the unmasked selection); then in bf16 at batch 2 on a
+    batch of an 800x1333 image and an 800x1066 one padded onto the canvas
+    by pad_to_canvas: launches by route and plan, outputs finite, 10
+    batches timed after 2, peak memory."""
+    det = dino.build_dino_from_config(
+        cfg, resolution=DINO_CANVAS,
+        generator=torch.Generator().manual_seed(51)).eval()
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    x = torch.randn(DINO_BATCH, 3, *DINO_CANVAS, device="cuda", generator=gen)
+    s = sum(h * w for h, w in det.spatial_shapes)
+    with torch.no_grad():
+        src = det.project(det.features(x))
+        enc = det.transformer.encode(src)
+        enc_m = det.transformer.encode(src, torch.zeros(
+            DINO_BATCH, s, dtype=torch.bool, device="cuda"))
+        topk = det.transformer.select(enc)
+        diff = int((det.transformer.select(enc_m) != topk).sum())
+        out = det.transformer.decode(enc, topk)
+        out_m = det.transformer.decode(enc_m, topk)
+    errs = {k: rel_to_largest(enc_m[k], enc[k])
+            for k in ("memory", "enc_logits")}
+    errs["enc_boxes"] = rel_to_largest(torch.sigmoid(enc_m["enc_unsig"]),
+                                       torch.sigmoid(enc["enc_unsig"]))
+    for key in ("interm_logits", "interm_boxes", "init_proposals"):
+        errs[key] = rel_to_largest(out_m[key], out[key])
+    for i in range(len(out["logits"])):
+        errs[f"logits {i}"] = rel_to_largest(out_m["logits"][i],
+                                             out["logits"][i])
+        errs[f"boxes {i}"] = rel_to_largest(out_m["boxes"][i],
+                                            out["boxes"][i])
+    worst = max(errs, key=errs.get)
+    print(f"DINO-4scale faster_vit_4_21k_224 fp32 b{DINO_BATCH} "
+          f"{DINO_CANVAS[0]}x{DINO_CANVAS[1]}, an all-False mask against no "
+          f"mask, max|diff| / max|unmasked| (tol {TOL_DINO_MASK}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; worst {worst}; the masked selection differs at {diff} of "
+          f"{topk.numel()} positions (both decoders on the unmasked one)")
+    check(errs[worst] <= TOL_DINO_MASK,
+          f"DINO all-False mask against no mask: {worst} off by "
+          f"{errs[worst]}")
+    del src, enc, enc_m, out, out_m
+
+    det16 = det.to(torch.bfloat16)  # the same weights, now bf16
+    x16, pad = padded_batch(transforms, x, DINO_PAD_VALID)
+    x16 = x16.bfloat16()
+    del x
+    sizes = torch.tensor(DINO_PAD_VALID, device="cuda")
+    with torch.no_grad():
+        reset_launches(cuda_attention, cuda_msda)
+        with RouteLog(cuda_attention) as routes, \
+                K5Plans(cuda_msda) as plans:
+            out = det16(x16, pad_mask=pad)
+            torch.cuda.synchronize()
+        calls = detection_launches(cuda_attention, cuda_msda)
+        post = dino.postprocess(out, sizes)
+    what = (f"DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} "
+            f"{DINO_CANVAS[0]}x{DINO_CANVAS[1]} padded batch (images "
+            f"{DINO_PAD_VALID})")
+    routes.check(17, 0, "wgmma", what)
+    plans.check(12, what, vector=True)
+    plans.check_queries({s: 6, det16.num_queries: 6}, what)
+    q, kc = det16.num_queries, det16.num_classes
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 out["logits"] + out["boxes"] + list(post.values()))
+    print(f"{what}: K1, K3, K5 launches per forward {calls}; outputs and "
+          f"detections finite: {finite}")
+    check(calls == (17, 12, 12), f"padded DINO serving K1, K3, K5 launches "
+                                 f"{calls}, expected 17, 12, 12")
+    check(finite and out["logits"][-1].shape == (DINO_BATCH, q, kc)
+          and post["boxes"].shape == (DINO_BATCH, 300, 4),
+          "padded DINO bf16 outputs finite, of the expected shapes")
+    del out, post
+
+    run = lambda: det16(x16, pad_mask=pad)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(10):
+            run()
+        end.record()
+        end.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 10
+        ms = start.elapsed_time(end) / 10
+        peak = torch.cuda.max_memory_allocated()
+    print(f"{what} eager: {ms:.3f} ms per batch (CUDA events over 10 "
+          f"batches after 2; host {wall_ms:.3f} ms), "
+          f"{DINO_BATCH * 1000 / ms:.2f} img/s; peak memory "
+          f"{peak / 2**20:.1f} MiB [{card()}]")
+    del det16, x16, det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": calls, "ms": ms, "peak": peak}
+
+
+def dino_cdn_train_phase(cuda_attention, cuda_msda, dino, engine, steps,
+                         matcher_device, transforms, detection_cli,
+                         cfg) -> dict:
+    """The training path with contrastive denoising on a padded batch: the
+    served detector as configured (use_checkpoint, label_enc), f32
+    weights and a bf16 forward by autocast, batch 2 on the 800x1333 canvas
+    (an 800x1333 image and an 800x1066 one padded onto it), targets padded
+    to DINO_DN_TARGETS, the config's dn queries drawn afresh each step
+    (5 groups, 200 queries: the decoder runs at Q 1,100),
+    make_cdn_train_step with the auction: one step's launches by route,
+    plan and Q, 10 steps timed after 2, peak memory, one step profiled;
+    then steps up to DINO_LOSS_STEPS, over which the loss falls."""
+    dn_cfg = dn_settings(cfg)
+    det = dino.build_dino_from_config(
+        cfg, resolution=DINO_CANVAS,
+        generator=torch.Generator().manual_seed(54),
+        dn_labelbook_size=dn_cfg["dn_labelbook_size"])
+    check(det.transformer.use_checkpoint and det.label_enc is not None,
+          "the config's use_checkpoint, and label_enc")
+    state = engine.DetectionTrainState(det, detection_optimizer(engine, det,
+                                                                cfg))
+    step = make_cdn_train_step(engine, dino, steps, matcher_device,
+                               torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    x = torch.randn(DINO_BATCH, 3, *DINO_CANVAS, device="cuda", generator=gen)
+    x, pad = padded_batch(transforms, x, DINO_PAD_VALID)
+    tgt = dino_targets(detection_cli, DINO_BATCH, 56, DINO_DN_TARGETS, engine,
+                       "cuda")
+    draws = torch.Generator().manual_seed(57)
+    losses = []
+
+    def run():
+        dn, meta = draw_cdn(dino, draws, tgt, det, dn_cfg)
+        m = step(state, x, pad, tgt, dn, meta)
+        losses.append((m["loss"], m["loss_ce"], m["loss_dn"]))
+        return meta
+
+    s = sum(h * w for h, w in det.spatial_shapes)
+    reset_train_launches(cuda_attention, cuda_msda)
+    with RouteLog(cuda_attention) as routes, \
+            K5Plans(cuda_msda) as k5_plans, \
+            K5Plans(cuda_msda, "ms_deform_attn_backward_cuda") as k7_plans:
+        meta = run()
+        torch.cuda.synchronize()
+    calls = train_launches(cuda_attention, cuda_msda)
+    q = meta["n_dn"] + det.num_queries
+    what = (f"DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} 800x1333 "
+            f"padded train step with CDN ({meta['n_dn']} dn queries in "
+            f"{meta['groups']} groups, decoder Q {q})")
+    print(f"{what}: K1, K2, K3, K4, K5, K7 launches per step {calls}; K1 "
+          f"routes {dict(routes.k1)}, K2 routes {dict(routes.k2)}")
+    check(meta["n_dn"] == 200 and meta["groups"] == 5,
+          f"CDN groups {meta}, expected 5 groups, 200 dn queries")
+    k5_plans.check(24, what, vector=True)
+    k7_plans.check(12, what, vector=True)
+    k7_plans.check_encoder(6, what)
+    k5_plans.check_queries({s: 12, q: 12}, what)
+    k7_plans.check_queries({s: 6, q: 6}, what)
+    check(calls[0] == 17 and calls[2] == 12 and calls[4] == 24
+          and calls[5] == 12 and calls[1] + calls[3] == 29,
+          f"CDN train step launches {calls}, expected K1 17, K3 12, K5 24, "
+          "K7 12 and 29 of K2 and K4")
+    check(set(routes.k1) == {"wgmma"} and set(routes.k2) <= {"wgmma"},
+          f"CDN step's K1 and K2 routes {dict(routes.k1)}, {dict(routes.k2)}")
+    check(all(dtype == "bfloat16" for dtype, _ in k5_plans.count)
+          and all(dtype == "bfloat16" for dtype, _ in k7_plans.count),
+          "every K5 and K7 launch of the CDN step in bf16")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(DINO_TRAIN_STEPS):
+        run()
+    end.record()
+    end.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / DINO_TRAIN_STEPS
+    ms = start.elapsed_time(end) / DINO_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    smi = card()
+    print(f"{what}: {ms:.3f} ms a step (CUDA events over {DINO_TRAIN_STEPS} "
+          f"steps after 2, each with its draw of the dn queries; host "
+          f"{wall_ms:.3f} ms), {DINO_BATCH * 1000 / ms:.2f} img/s; peak "
+          f"memory {peak / 2**20:.1f} MiB [{smi}]")
+    prof = profile_device(run, 1, f"DINO-4scale faster_vit_4_21k_224 bf16 "
+                          f"b{DINO_BATCH} 800x1333 padded CDN train step", ms,
+                          smi, "dino_cdn_train_profile.json")
+    while len(losses) < DINO_LOSS_STEPS:
+        run()
+    values, ce, dn_loss = ([t.item() for t in col] for col in zip(*losses))
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    print(f"DINO bf16 CDN train steps on one padded batch: the loss over "
+          f"{len(values)} steps {[round(v, 3) for v in values]} (mean of "
+          f"the first 3 {mean(values[:3]):.3f}, of the last 5 "
+          f"{mean(values[-5:]):.3f}); the class loss means "
+          f"{mean(ce[:3]):.3f} -> {mean(ce[-5:]):.3f}, the dn loss "
+          f"{mean(dn_loss[:3]):.3f} -> {mean(dn_loss[-5:]):.3f}")
+    check(all(math.isfinite(v) for v in values + ce + dn_loss),
+          f"CDN losses {values}")
+    check(mean(values[-5:]) < mean(values[:3]),
+          f"CDN loss did not fall over {len(values)} steps (mean of the last "
+          f"5 against the first 3): {values}")
+    del det, state, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": calls, "ms": ms, "peak": peak, "profile": prof}
+
+
 def dino_train_cli_phase(cuda_attention, cuda_msda, detection_cli) -> None:
     """The training CLI on the card: one synthetic epoch of the served
     config at 800x800 in bf16 (4 steps of batch 2, then 2 evaluation
@@ -4278,8 +4669,9 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(1)
     import fastervit_tpu_torch as fvt
-    from fastervit_tpu_torch.detection import dino, engine
+    from fastervit_tpu_torch.detection import dino, engine, matcher_device
     from fastervit_tpu_torch.detection import main as detection_cli
+    from fastervit_tpu_torch.detection import transforms
     from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
     from fastervit_tpu_torch.ops import attention_probes, cuda_hat_block
     from fastervit_tpu_torch.ops import hat_block, msda, msda_probes
@@ -4484,9 +4876,13 @@ def main() -> None:
     # 29. K7, the MSDA backward, against its plain version
     k7 = k7_phase(cuda_msda, msda, ptx_log)
 
-    # 30. the fp32 DINO train step, card against CPU
+    # 30. the fp32 DINO train step, card against CPU; then again with
+    #     contrastive denoising on a padded batch
     dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
                          detection_cli, cfg)
+    dino_step_fp32_phase(cuda_attention, cuda_msda, msda, dino, engine,
+                         detection_cli, cfg,
+                         cdn=(transforms, steps, matcher_device))
 
     # 31. the detection training path: DINO-4scale bf16 b2 800x1333
     trained_det = dino_train_phase(cuda_attention, cuda_msda, dino, engine,
@@ -4498,7 +4894,32 @@ def main() -> None:
         "train step of the detection training path (use_checkpoint: K5 "
         "twice a layer)")
 
-    # 32. the detection training CLI, with each matcher
+    # 32. padded DINO serving: an all-False mask against no mask (fp32),
+    #     the padded fp32 b1 480x640 batch card against CPU, then COCO
+    #     evaluation's mixed-size bf16 b2 batch on the 800x1333 canvas
+    padded = dino_padded_serving_phase(cuda_attention, cuda_msda, dino,
+                                       transforms, cfg)
+    with K5Plans(cuda_msda) as plans:
+        dino_fp32_phase(cuda_attention, cuda_msda, dino, cfg, transforms)
+    plans.check(12, "DINO fp32 b1 padded forward (phase 32)")
+    k5["launches_padded_serving"] = padded["launches"][2]
+    k5["launches_padded_serving_in"] = (
+        f"one DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} forward of "
+        f"a padded 800x1333 batch (images {DINO_PAD_VALID})")
+
+    # 33. the detection training path with contrastive denoising on a
+    #     padded batch
+    cdn_trained = dino_cdn_train_phase(cuda_attention, cuda_msda, dino,
+                                       engine, steps, matcher_device,
+                                       transforms, detection_cli, cfg)
+    k5["launches_cdn_training"] = cdn_trained["launches"][4]
+    k7["launches_cdn_training"] = cdn_trained["launches"][5]
+    k5["launches_cdn_training_in"] = k7["launches_cdn_training_in"] = (
+        f"one DINO-4scale faster_vit_4_21k_224 bf16 b{DINO_BATCH} 800x1333 "
+        "padded train step with 200 dn queries (half the K5 and K7 "
+        "launches at the decoder's Q 1,100)")
+
+    # 34. the detection training CLI, with each matcher
     dino_train_cli_phase(cuda_attention, cuda_msda, detection_cli)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,

@@ -9,13 +9,16 @@ inverse of fastervit_tpu/detection/convert.py (`dino_torch_key`,
 self-attention are packed into nn.MultiheadAttention's in_proj_weight, and
 the shared decoder heads are written under every name the port's (and
 upstream's) module tree lists them: `transformer.decoder.{bbox,class}_embed.
-{i}` and `{bbox,class}_embed.{i}` for each decoder layer i.
+{i}` and `{bbox,class}_embed.{i}` for each decoder layer i; so is the
+denoising label embedding, JAX's `transformer/label_enc`, whose variables
+a JAX init with dn queries holds: `label_enc.weight` (upstream's name) and
+`transformer.label_enc.weight`, untransposed.
 
 `load_dino_checkpoint(model, path)` loads a reference DINO checkpoint,
 whose keys are the port's own, with the leniency of the JAX package's
 `convert_dino_state_dict`: keys the file lacks or holds at another shape
-keep their values, with a warning. The shared heads load from whichever of
-their names the file has.
+keep their values, with a warning. The shared heads and the label
+embedding load from whichever of their names the file has.
 
 Plain Python, numpy and torch; nothing of the JAX package is imported.
 """
@@ -36,6 +39,8 @@ _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
               "embedding": "weight", "mean": "running_mean",
               "var": "running_var"}
 _SHARED_HEADS = ("bbox_embed", "class_embed")
+# tables flax and torch store alike, (rows, features): no transpose
+_UNTRANSPOSED = ("level_embed", "tgt_embed.weight", "label_enc.weight")
 
 
 def dino_torch_key(parts: Tuple[str, ...]) -> Optional[str]:
@@ -62,6 +67,8 @@ def dino_torch_key(parts: Tuple[str, ...]) -> Optional[str]:
         return {"level_embed": "transformer.level_embed",
                 "tgt_embed": "transformer.tgt_embed.weight"}.get(leaf)
     p0, rest = parts[0], parts[1:]
+    if p0 == "label_enc":
+        return f"label_enc.{name}"
     if p0.startswith("encoder_"):
         base = f"transformer.encoder.layers.{p0[len('encoder_'):]}."
         if rest[0] == "self_attn":
@@ -133,7 +140,10 @@ def dino_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         if key is None:
             raise KeyError(f"no port key for {'/'.join(path)}")
         arr = np.array(val, dtype=np.float32)
-        if not key.endswith(("level_embed", "tgt_embed.weight")):
+        if key == "label_enc.weight":
+            # the transformer's module, under its own name too
+            sd["transformer.label_enc.weight"] = arr
+        if not key.endswith(_UNTRANSPOSED):
             if arr.ndim == 2:
                 arr = arr.T
             elif arr.ndim == 4:
@@ -164,8 +174,12 @@ def _fill_shared_heads(model: torch.nn.Module,
     """`sd` with every name of the model's shared decoder heads filled from
     whichever of them `sd` holds (its transformer.decoder.*.0 name first,
     as the JAX converter reads it, then the top-level one, then any other
-    layer's copy)."""
+    layer's copy), and the label embedding's transformer name from
+    upstream's top-level `label_enc.weight`."""
     sd = dict(sd)
+    own = model.state_dict()
+    if "transformer.label_enc.weight" in own and "label_enc.weight" in sd:
+        sd.setdefault("transformer.label_enc.weight", sd["label_enc.weight"])
     pattern = re.compile(r"^(transformer\.decoder\.)?(bbox_embed|class_embed)"
                          r"\.(\d+)\.(.+)$")
     found: Dict[Tuple[str, str], Any] = {}
@@ -176,7 +190,7 @@ def _fill_shared_heads(model: torch.nn.Module,
     for k in order:
         m = pattern.match(k)
         found.setdefault((m.group(2), m.group(4)), sd[k])
-    for k in model.state_dict():
+    for k in own:
         m = pattern.match(k)
         if m and k not in sd and (m.group(2), m.group(4)) in found:
             sd[k] = found[(m.group(2), m.group(4))]
@@ -188,11 +202,13 @@ def load_dino_checkpoint(model: torch.nn.Module, path: str) -> LoadResult:
     inside `model` or `state_dict`, possibly with `module.` prefixes) into
     the port's DINODetector, leniently (`utils.convert.
     load_state_dict_lenient`): keys the file lacks or holds at another
-    shape keep their values, with a warning, and keys the port has no use
-    for (the denoising label embedding `label_enc`) are reported and
-    skipped, as fastervit_tpu's convert_dino_state_dict does. The file is
-    unpickled in full (weights_only=False), as the JAX package's loader
-    does: load only files you trust."""
+    shape keep their values, with a warning, and keys the model has no
+    use for are reported and skipped, as fastervit_tpu's
+    convert_dino_state_dict does. Upstream's denoising label embedding
+    `label_enc.weight` loads into a detector built with dn_labelbook_size
+    (both of its names) and is reported and skipped by one without. The
+    file is unpickled in full (weights_only=False), as the JAX package's
+    loader does: load only files you trust."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if not isinstance(ckpt, dict):
         raise RuntimeError(f"no state_dict found in {path}")

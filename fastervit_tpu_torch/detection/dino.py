@@ -1,8 +1,9 @@
 """DINO detector on a FasterViT pyramid backbone, and its set criterion:
 the PyTorch port of fastervit_tpu/detection/dino.py's DINODetector
-(:28-100), build_dino_from_config (:103-122), sigmoid_focal_loss and
-criterion (:235-295) and postprocess (:298-313); reference
-downstream/object_detection/dino/models/dino/dino.py.
+(:28-100), build_dino_from_config (:103-122), contrastive denoising
+(`prepare_cdn` and `cdn_loss`, :125-230), sigmoid_focal_loss and criterion
+(:235-295) and postprocess (:298-313); reference downstream/
+object_detection/dino/models/dino/dino.py and dn_components.py.
 
     import torch
     from fastervit_tpu_torch.detection.dino import (build_dino_from_config,
@@ -14,6 +15,12 @@ downstream/object_detection/dino/models/dino/dino.py.
     with torch.no_grad():
         out = det(images)            # (B, 3, 800, 1333) on the card
         dets = postprocess(out, sizes, num_select=300)
+
+A batch of images of mixed sizes goes onto the canvas with its padding
+mask (`detection/transforms.py::pad_to_canvas`, True at padded pixels):
+`det(images, pad_mask=mask)`; each level's mask is the canvas mask resized
+to the level by nearest neighbour at half-pixel centres, as
+jax.image.resize(..., "nearest") takes it.
 
 Training goes through `detection/engine.py` (the criterion given
 assignments, the matchers, AdamW with per-module learning rates).
@@ -29,24 +36,32 @@ loads with no converter (`detection/convert.py::load_dino_checkpoint`).
 
 The input projections' GroupNorm keeps flax's default eps of 1e-6, as the
 JAX detector has it (upstream's nn.GroupNorm(32, 256) takes 1e-5;
-ROADMAP §3). Contrastive denoising and padding masks come with the next
-detection slice.
+ROADMAP §3).
+
+Contrastive denoising (DINO's CDN) in training: `prepare_cdn` draws noised
+copies of the padded targets' labels and boxes from a torch.Generator
+(`cdn_draws`, then the deterministic `cdn_from_draws`, so that the same
+draws give the same queries), `det(images, dn=dn)` puts them in front of
+the matching queries, and `cdn_loss` scores them with the known
+assignment. The detector needs `label_enc` for them: build it with
+`dn_labelbook_size` (the config's, when its use_dn is set).
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fastervit_tpu_torch.detection.transformer import (_LATER,
-                                                       DeformableTransformer)
+from fastervit_tpu_torch.detection.transformer import DeformableTransformer
 from fastervit_tpu_torch.models.config import FasterViTConfig
 from fastervit_tpu_torch.models.fastervit import FasterViTPyramid, level_shapes
 from fastervit_tpu_torch.models.registry import _init_weights, get_config
-from fastervit_tpu_torch.ops.boxes import box_cxcywh_to_xyxy
+from fastervit_tpu_torch.ops.boxes import (aligned_generalized_box_iou,
+                                           box_cxcywh_to_xyxy)
 from fastervit_tpu_torch.ops.msda import MSDeformAttnModule
 
 
@@ -64,18 +79,36 @@ def feature_shapes(height: int, width: int,
     return tuple(shapes)
 
 
+def level_padding_mask(pad_mask: torch.Tensor,
+                       spatial_shapes: Sequence[Tuple[int, int]]
+                       ) -> torch.Tensor:
+    """The canvas mask (B, H, W) bool, True at padded pixels -> each level's
+    mask, flattened and concatenated over the levels: (B, S). A level's
+    mask is the canvas mask resized to it by nearest neighbour at
+    half-pixel centres ("nearest-exact"), which is what the JAX detector's
+    jax.image.resize(..., "nearest") takes (dino.py:64-71); "nearest"
+    would sample the top-left neighbour and move the edge by a cell."""
+    m = pad_mask[:, None].float()
+    return torch.cat([
+        F.interpolate(m, size=(h, w), mode="nearest-exact").flatten(1) > 0.5
+        for h, w in spatial_shapes], 1)
+
+
 class DINODetector(nn.Module):
     """Backbone pyramid -> input projections (1x1 conv + GroupNorm for the
     backbone levels, 3x3 stride-2 conv + GroupNorm for the extra levels, the
     first on the raw last backbone map) -> deformable transformer ->
     per-layer class and box predictions. Built for the canvas
-    `backbone_cfg.resolution`; input (B, 3, H, W) at that canvas."""
+    `backbone_cfg.resolution`; input (B, 3, H, W) at that canvas. With
+    `dn_labelbook_size`, the transformer's denoising label embedding
+    `label_enc`, also listed under upstream's top-level name."""
 
     def __init__(self, backbone_cfg: FasterViTConfig, num_classes: int = 91,
                  dim: int = 256, num_queries: int = 900, enc_layers: int = 6,
                  dec_layers: int = 6, num_feature_levels: int = 4,
                  return_interm_indices: Sequence[int] = (1, 2, 3),
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False,
+                 dn_labelbook_size: Optional[int] = None):
         super().__init__()
         self.canvas = tuple(backbone_cfg.resolution)
         self.num_classes, self.num_queries = num_classes, num_queries
@@ -98,10 +131,13 @@ class DINODetector(nn.Module):
         self.transformer = DeformableTransformer(
             self.spatial_shapes, dim=dim, enc_layers=enc_layers,
             dec_layers=dec_layers, num_queries=num_queries,
-            num_classes=num_classes, use_checkpoint=use_checkpoint)
-        # the shared heads, under upstream's top-level names too
+            num_classes=num_classes, use_checkpoint=use_checkpoint,
+            dn_labelbook_size=dn_labelbook_size)
+        # the shared heads and the label embedding, under upstream's
+        # top-level names too
         self.bbox_embed = self.transformer.decoder.bbox_embed
         self.class_embed = self.transformer.decoder.class_embed
+        self.label_enc = self.transformer.label_enc
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The backbone's normalised maps {"res2": ..., "res5": ...},
@@ -127,13 +163,21 @@ class DINODetector(nn.Module):
 
     def forward(self, images: torch.Tensor, dn: Optional[Dict] = None,
                 pad_mask: Optional[torch.Tensor] = None) -> Dict:
-        """images: (B, 3, H, W). Returns the transformer's outputs
-        (`DeformableTransformer.decode`)."""
-        if dn is not None:
-            raise NotImplementedError(_LATER.format("contrastive denoising"))
+        """images: (B, 3, H, W); dn: `prepare_cdn`'s queries ({'labels',
+        'boxes', 'attn_mask'}) or None; pad_mask: (B, H, W) bool, True at
+        padded pixels, or None (no pixel padded). Returns the
+        transformer's outputs (`DeformableTransformer.decode`), the dn
+        queries' first."""
+        mask = None
         if pad_mask is not None:
-            raise NotImplementedError(_LATER.format("a padding mask"))
-        return self.transformer(self.project(self.features(images)))
+            if tuple(pad_mask.shape[-2:]) != self.canvas:
+                raise ValueError(f"mask of {tuple(pad_mask.shape[-2:])}: the "
+                                 f"detector was built for {self.canvas}")
+            mask = level_padding_mask(pad_mask, self.spatial_shapes)
+        dn = dn or {}
+        return self.transformer(self.project(self.features(images)), mask,
+                                dn.get("labels"), dn.get("boxes"),
+                                dn.get("attn_mask"))
 
 
 def _focal_bias() -> float:
@@ -171,6 +215,8 @@ def init_weights(det: DINODetector, generator: torch.Generator) -> None:
     tr = det.transformer
     for p in (tr.level_embed, tr.tgt_embed.weight):
         p.copy_(torch.randn(p.shape, generator=generator))
+    if tr.label_enc is not None:      # flax Embed's variance_scaling init
+        trunc_normal(tr.label_enc.weight, 1.0 / math.sqrt(tr.dim))
     for head in (tr.enc_out_class_embed, tr.decoder.class_embed[0]):
         head.bias.fill_(_focal_bias())
     for mlp in (tr.enc_out_bbox_embed, tr.decoder.bbox_embed[0]):
@@ -183,7 +229,8 @@ def init_weights(det: DINODetector, generator: torch.Generator) -> None:
 def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),
                            dtype: torch.dtype = torch.float32,
                            device: Any = "cuda",
-                           generator: Optional[torch.Generator] = None
+                           generator: Optional[torch.Generator] = None,
+                           dn_labelbook_size: Optional[int] = None
                            ) -> DINODetector:
     """Build a DINODetector from a PyConfig (configs/dino/*.py; the
     reference's build_dino(args)) for a canvas of `resolution` (H, W; the
@@ -197,9 +244,11 @@ def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),
     enc_layers, dec_layers, num_feature_levels, return_interm_indices,
     use_checkpoint: each transformer layer recomputed in the backward, as
     the JAX detector's remat); like it, it keeps 8 heads, 4 points and an
-    FFN of 2048. Returns the module in training mode; call `.eval()` for
-    inference (and for training, which runs on frozen BatchNorm
-    statistics: `detection/engine.py`)."""
+    FFN of 2048. The dn settings are the caller's: `dn_labelbook_size`
+    (the config's, where its use_dn is set) gives the detector `label_enc`
+    for `prepare_cdn`'s queries. Returns the module in training mode; call
+    `.eval()` for inference (and for training, which runs on frozen
+    BatchNorm statistics: `detection/engine.py`)."""
     h, w = (resolution, resolution) if isinstance(resolution, int) \
         else resolution
     backbone_cfg = get_config(cfg["backbone"], resolution=(h, w),
@@ -215,7 +264,8 @@ def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),
             num_feature_levels=cfg.get("num_feature_levels", 4),
             return_interm_indices=tuple(cfg.get("return_interm_indices",
                                                 [1, 2, 3])),
-            use_checkpoint=bool(cfg.get("use_checkpoint", False)))
+            use_checkpoint=bool(cfg.get("use_checkpoint", False)),
+            dn_labelbook_size=dn_labelbook_size)
     if device.type != "meta":
         init_weights(det, generator if generator is not None
                      else torch.Generator().manual_seed(0))
@@ -286,3 +336,145 @@ def criterion(outputs: Dict, targets: List[Dict], num_classes: int,
         outputs, tgt, assignment, num_classes, weight_class=weight_class,
         weight_bbox=weight_bbox, weight_giou=weight_giou)
     return {**parts, "loss": loss}
+
+
+# ------------- contrastive denoising (DINO's CDN, dn_components) -------------
+
+def cdn_groups(t: int, dn_number: int = 100,
+               dn_groups: Optional[int] = None) -> int:
+    """The number of denoising groups for targets padded to t a image:
+    dn_number // t (at least 1), so that the dn slots stay near
+    2·dn_number (reference dn_components.py:35-47), unless given."""
+    return dn_groups if dn_groups is not None else max(1, dn_number
+                                                       // max(t, 1))
+
+
+def cdn_draws(generator: torch.Generator, batch: int, groups: int, t: int,
+              num_classes: int) -> Dict[str, torch.Tensor]:
+    """The four random draws of `prepare_cdn`, on the generator's device,
+    each of layout (B, G, 2, T[, 4]) (group-major, positives then
+    negatives), as the JAX prepare_cdn draws them (dino.py:157-176):
+    'rand_labels' uniform in [0, num_classes), 'flip' uniform in [0, 1)
+    (a label is replaced where it is below label_noise_ratio / 2), 'signs'
+    in {0, 1} for each box corner coordinate, and 'parts' uniform in
+    [0, 1), the size of each corner's jitter."""
+    shape = (batch, groups, 2, t)
+    dev = generator.device
+    return {"rand_labels": torch.randint(0, num_classes, shape,
+                                         generator=generator, device=dev),
+            "flip": torch.rand(shape, generator=generator, device=dev),
+            "signs": torch.randint(0, 2, shape + (4,), generator=generator,
+                                   device=dev),
+            "parts": torch.rand(shape + (4,), generator=generator,
+                                device=dev)}
+
+
+def cdn_from_draws(draws: Dict[str, torch.Tensor], tgt_padded: Dict,
+                   num_classes: int, num_queries: int,
+                   label_noise_ratio: float = 0.5,
+                   box_noise_scale: float = 1.0) -> Tuple[Dict, Dict]:
+    """The denoising queries of padded targets (`engine.pad_targets`, as
+    tensors or numpy) from `cdn_draws`' draws, with prepare_for_cdn's
+    semantics (reference dn_components.py:20-137; JAX dino.py:127-196):
+    - each group holds one positive and one negative copy of every target
+      slot, layout (B, G, 2, T), the dn slots before the matching queries;
+    - a label is replaced by a random class with probability
+      label_noise_ratio / 2; padded slots take the 'no object' index
+      num_classes;
+    - each xyxy corner moves by part·sign·(w/2, h/2)·box_noise_scale, the
+      negatives' part plus 1 (so they land further out), clamped to
+      [0, 1], then back to cxcywh clamped to [1e-3, 1 - 1e-3];
+    - the allow-mask (True: may attend): the matching queries see no dn
+      slot, the dn groups do not see each other, and the dn slots see the
+      matching queries.
+    Returns (dn {'labels' (B, N_dn) long, 'boxes' (B, N_dn, 4) f32,
+    'attn_mask' (N_dn + num_queries,)*2 bool}, meta {'n_dn', 'groups',
+    't'}), on the targets' device."""
+    labels = torch.as_tensor(tgt_padded["labels"])
+    dev = labels.device
+    boxes = torch.as_tensor(tgt_padded["boxes"], device=dev).float()
+    mask = torch.as_tensor(tgt_padded["mask"], device=dev)
+    draws = {k: v.to(dev) for k, v in draws.items()}
+    b, g, _, t = draws["flip"].shape
+
+    lbl = labels.long()[:, None, None, :].expand(b, g, 2, t)
+    flip = draws["flip"] < (label_noise_ratio * 0.5)
+    lbl = torch.where(flip, draws["rand_labels"].long(), lbl)
+    lbl = torch.where(mask[:, None, None, :], lbl, num_classes)
+
+    bx = boxes[:, None, None].expand(b, g, 2, t, 4)
+    xyxy = torch.cat([bx[..., :2] - bx[..., 2:] / 2,
+                      bx[..., :2] + bx[..., 2:] / 2], -1)
+    diff = torch.cat([bx[..., 2:] / 2, bx[..., 2:] / 2], -1)
+    sign = draws["signs"].float() * 2.0 - 1.0
+    part = draws["parts"].float().clone()
+    part[:, :, 1] += 1.0                      # negatives push further out
+    xyxy = (xyxy + sign * part * diff * box_noise_scale).clamp(0.0, 1.0)
+    bx = torch.cat([(xyxy[..., :2] + xyxy[..., 2:]) / 2,
+                    xyxy[..., 2:] - xyxy[..., :2]], -1).clamp(1e-3,
+                                                              1 - 1e-3)
+
+    n_dn = g * 2 * t
+    q_total = n_dn + num_queries
+    allow = np.zeros((q_total, q_total), bool)
+    allow[n_dn:, n_dn:] = True
+    allow[:n_dn, n_dn:] = True
+    for gi in range(g):
+        s0 = gi * 2 * t
+        allow[s0:s0 + 2 * t, s0:s0 + 2 * t] = True
+    dn = {"labels": lbl.reshape(b, n_dn), "boxes": bx.reshape(b, n_dn, 4),
+          "attn_mask": torch.from_numpy(allow).to(dev)}
+    return dn, {"n_dn": n_dn, "groups": g, "t": t}
+
+
+def prepare_cdn(generator: torch.Generator, tgt_padded: Dict,
+                num_classes: int, num_queries: int, dn_number: int = 100,
+                label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0,
+                dn_groups: Optional[int] = None) -> Tuple[Dict, Dict]:
+    """DINO's denoising queries for padded targets (JAX dino.py::
+    prepare_cdn): `cdn_groups` groups (dn_number // T), the draws from
+    `generator` (`cdn_draws`), the queries from them (`cdn_from_draws`).
+    Returns (dn, meta) for `DINODetector.forward(..., dn=dn)` and
+    `cdn_loss`."""
+    b, t = tuple(torch.as_tensor(tgt_padded["labels"]).shape)
+    draws = cdn_draws(generator, b, cdn_groups(t, dn_number, dn_groups), t,
+                      num_classes)
+    return cdn_from_draws(draws, tgt_padded, num_classes, num_queries,
+                          label_noise_ratio, box_noise_scale)
+
+
+def cdn_loss(outputs: Dict, tgt: Dict[str, torch.Tensor], meta: Dict,
+             num_classes: int, weight_bbox: float = 5.0,
+             weight_giou: float = 2.0) -> Dict[str, torch.Tensor]:
+    """The denoising loss with the known assignment (JAX dino.py::
+    cdn_loss): over every decoder layer's first meta['n_dn'] slots, the
+    positive slot (g, 0, k) regresses to target slot k, and the negatives
+    and padded slots are background; the focal class loss, L1 and GIoU,
+    each over max(1, valid targets)·groups. tgt: padded targets as
+    tensors. Returns loss_ce_dn, loss_bbox_dn, loss_giou_dn and loss_dn
+    (their sum at the box weights)."""
+    labels, boxes, mask = tgt["labels"].long(), tgt["boxes"], tgt["mask"]
+    b, t = labels.shape
+    g, n_dn = meta["groups"], meta["n_dn"]
+    num_boxes = mask.sum().clamp(min=1) * g
+    pos_t = (F.one_hot(labels, num_classes).float()
+             * mask[..., None])[:, None]                   # (B, 1, T, K)
+    onehot = torch.stack([pos_t.expand(b, g, t, num_classes),
+                          pos_t.new_zeros(b, g, t, num_classes)], 2)
+    gt = box_cxcywh_to_xyxy(boxes)[:, None].expand(b, g, t, 4)
+    total = {"loss_ce_dn": 0.0, "loss_bbox_dn": 0.0, "loss_giou_dn": 0.0}
+    for logits, pred in zip(outputs["logits"], outputs["boxes"]):
+        logits = logits[:, :n_dn].reshape(b, g, 2, t, -1)
+        pb = pred[:, :n_dn].reshape(b, g, 2, t, 4)[:, :, 0]    # positives
+        total["loss_ce_dn"] = total["loss_ce_dn"] + sigmoid_focal_loss(
+            logits, onehot).sum() / num_boxes
+        l1 = (pb - boxes[:, None]).abs().sum(-1)
+        total["loss_bbox_dn"] = total["loss_bbox_dn"] + torch.where(
+            mask[:, None], l1, 0.0).sum() / num_boxes
+        giou = aligned_generalized_box_iou(box_cxcywh_to_xyxy(pb), gt)
+        total["loss_giou_dn"] = total["loss_giou_dn"] + torch.where(
+            mask[:, None], 1 - giou, 0.0).sum() / num_boxes
+    total["loss_dn"] = (total["loss_ce_dn"]
+                        + weight_bbox * total["loss_bbox_dn"]
+                        + weight_giou * total["loss_giou_dn"])
+    return total

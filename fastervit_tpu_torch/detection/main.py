@@ -1,30 +1,35 @@
-"""DINO detection CLI of the port: training and evaluation on synthetic
-data (fastervit_tpu/detection/main.py:28-219).
+"""DINO detection CLI of the port: training and evaluation on COCO-format
+or synthetic data (fastervit_tpu/detection/main.py:28-219).
 
     python -m fastervit_tpu_torch.detection.main --synthetic \\
         --config configs/dino/dino_4scale_faster_vit_4_21k_224.py \\
         --image-size 800 --batch-size 2 --dtype bfloat16 --epochs 1 \\
         --matcher auction --output out/
+    python -m fastervit_tpu_torch.detection.main --coco-path /data/coco \\
+        --config configs/dino/dino_4scale_faster_vit_4_21k_224.py --eval
 
 builds the detector from the config (python files with `_base_`
 inheritance; `--options` takes dotted overrides such as num_select=100) on a
 square canvas of `--image-size`, on the card unless `--device cpu`,
 optionally loads a reference DINO checkpoint (`--checkpoint`), then:
-- with `--eval`: runs the JAX CLI's synthetic evaluation batches through
-  it and `postprocess` and writes the COCO metrics of
-  `evaluate_detections` to <output>/eval.json;
+- with `--eval`: runs the evaluation batches through it and
+  `postprocess` and writes the COCO metrics of `evaluate_detections` to
+  <output>/eval.json;
 - without: trains `--epochs` epochs (the config's `epochs` when 0) of the
-  JAX CLI's four synthetic batches (`detection/engine.py`: frozen
-  BatchNorm, targets padded to `--max-targets`, `--matcher` host, auction
-  or auto, AdamW with the config's per-module learning rates and its
-  lr_drop epoch, the global-norm clip), evaluates after each epoch and
-  writes the best weights to <output>/best.pth (a torch.save of the state
-  dict; the JAX CLI pickles its variables as best.pkl). `--dtype bfloat16`
-  trains with f32 weights and a bf16 forward under autocast.
+  training batches (`detection/engine.py`: frozen BatchNorm, targets
+  padded to `--max-targets`, `--matcher` host, auction or auto, AdamW with
+  the config's per-module learning rates and its lr_drop epoch, the
+  global-norm clip), evaluates after each epoch and writes the best
+  weights to <output>/best.pth (a torch.save of the state dict; the JAX
+  CLI pickles its variables as best.pkl). `--dtype bfloat16` trains with
+  f32 weights and a bf16 forward under autocast.
 
-COCO data (`--coco-path`) raises NotImplementedError: the COCO loader and
-transforms come with the next detection slice, and COCO evaluation on real
-images waits for val2017.
+The batches: with `--synthetic`, the JAX CLI's (four training batches an
+epoch, two evaluation batches); else COCO's from `--coco-path` (a root
+holding train2017/, val2017/ and annotations/instances_{train,val}2017.json;
+`detection/coco_data.py::CocoDetectionDataset`), each image squashed to
+the square canvas as the JAX CLI squashes it, so no batch needs a padding
+mask.
 """
 from __future__ import annotations
 
@@ -49,19 +54,20 @@ def parse_args(argv=None):
     p.add_argument("--options", nargs="*", default=[],
                    help="dotted config overrides, e.g. num_select=100")
     p.add_argument("--coco-path", default="",
-                   help="COCO root (not ported yet: use --synthetic)")
+                   help="COCO root (expects {train,val}2017 + annotations)")
     p.add_argument("--output", default="./output_dino")
     p.add_argument("--batch-size", type=int, default=0,
                    help="override config batch_size")
     p.add_argument("--image-size", type=int, default=512,
-                   help="square canvas")
+                   help="square canvas (COCO images squashed to it)")
     p.add_argument("--epochs", type=int, default=0,
                    help="training epochs (0: the config's epochs)")
     p.add_argument("--eval", action="store_true", help="evaluation only")
     p.add_argument("--checkpoint", default="",
                    help="reference DINO .pth checkpoint to load")
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic data (no COCO needed)")
+                   help="synthetic data (no COCO needed; it takes "
+                        "precedence over --coco-path)")
     p.add_argument("--max-targets", type=int, default=20,
                    help="targets an image are padded (and cut) to")
     p.add_argument("--dtype", default="float32",
@@ -139,12 +145,10 @@ def run_eval(det, batches, num_select: int = 300,
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
-    if args.coco_path or not args.synthetic:
-        raise NotImplementedError(
-            "COCO data (coco_data.py, transforms.py) is not ported yet: it "
-            "comes with the next detection slice (ROADMAP queue 1 item 1), "
-            "and COCO evaluation waits for val2017 on the machine; pass "
-            "--synthetic")
+    if not args.synthetic and not args.coco_path:
+        raise ValueError("no data: pass --coco-path (a COCO root) or "
+                         "--synthetic")
+    from fastervit_tpu_torch.detection.coco_data import CocoDetectionDataset
     from fastervit_tpu_torch.detection.convert import load_dino_checkpoint
     from fastervit_tpu_torch.detection.dino import build_dino_from_config
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -169,8 +173,18 @@ def main(argv=None):
     batch_size = args.batch_size or int(cfg.get("batch_size", 2))
     num_select = int(cfg.get("num_select", 300))
 
+    def coco(split: str) -> CocoDetectionDataset:
+        return CocoDetectionDataset(
+            os.path.join(args.coco_path, f"{split}2017"),
+            os.path.join(args.coco_path, "annotations",
+                         f"instances_{split}2017.json"),
+            image_size=(size, size))
+
     def val_batches():
-        return synthetic_batches(2, batch_size, size, det.num_classes, seed=1)
+        if args.synthetic:
+            return synthetic_batches(2, batch_size, size, det.num_classes,
+                                     seed=1)
+        return coco("val").batches(batch_size)
 
     os.makedirs(args.output, exist_ok=True)
     if args.eval:
@@ -179,21 +193,31 @@ def main(argv=None):
         with open(os.path.join(args.output, "eval.json"), "w") as f:
             json.dump(stats, f)
         return stats
-    return train(args, cfg, det, dtype, batch_size, val_batches, num_select)
+    train_ds = None if args.synthetic else coco("train")
+
+    def train_batches():
+        if args.synthetic:
+            return synthetic_batches(_TRAIN_BATCHES, batch_size, size,
+                                     det.num_classes)
+        return train_ds.batches(batch_size)
+
+    steps_per_epoch = (_TRAIN_BATCHES if args.synthetic
+                       else max(1, len(train_ds) // batch_size))
+    return train(args, cfg, det, dtype, train_batches, steps_per_epoch,
+                 val_batches, num_select)
 
 
-def train(args, cfg, det, dtype, batch_size, val_batches,
-          num_select: int) -> Dict[str, float]:
+def train(args, cfg, det, dtype, train_batches, steps_per_epoch: int,
+          val_batches, num_select: int) -> Dict[str, float]:
     """The training path (JAX main.py:175-219): per-module learning rates
-    dropped ×0.1 at the config's lr_drop epoch (its steps from the four
-    synthetic batches an epoch), an evaluation after each epoch, the best
-    weights by mAP written to <output>/best.pth."""
+    dropped ×0.1 at the config's lr_drop epoch (steps_per_epoch steps an
+    epoch), an evaluation after each epoch, the best weights by mAP
+    written to <output>/best.pth."""
     from fastervit_tpu_torch.detection.engine import (
         DetectionTrainState, create_detection_optimizer,
         train_detection_epoch)
 
     epochs = args.epochs or int(cfg.get("epochs", 12))
-    steps_per_epoch = _TRAIN_BATCHES
     optimizer = create_detection_optimizer(
         det, lr=float(cfg.get("lr", 1e-4)),
         lr_backbone=float(cfg.get("lr_backbone", 1e-5)),
@@ -207,9 +231,8 @@ def train(args, cfg, det, dtype, batch_size, val_batches,
     for epoch in range(epochs):
         t0 = time.time()
         metrics = train_detection_epoch(
-            state, synthetic_batches(_TRAIN_BATCHES, batch_size,
-                                     args.image_size, det.num_classes),
-            max_targets=args.max_targets, matcher=args.matcher, dtype=dtype)
+            state, train_batches(), max_targets=args.max_targets,
+            matcher=args.matcher, dtype=dtype)
         log.info("epoch %d: loss %.4f (%.0fs)", epoch, metrics["loss"],
                  time.time() - t0)
         stats = run_eval(det, val_batches(), num_select=num_select,

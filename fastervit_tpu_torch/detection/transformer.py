@@ -41,14 +41,24 @@ torch.utils.checkpoint (non-reentrant) while gradients are on, and its
 activations are recomputed in the backward, as the JAX transformer wraps
 its layers in nn.remat (transformer.py:406-407, 518-519).
 
-Padding masks and contrastive denoising (dn_*) come with the next
-detection slice, MOTR's track queries (track_*) with the tracking slice;
-their entry points raise.
+Padding masks (COCO's mixed-size batches on one canvas): `encode` takes
+the flattened mask (B, S), True at padded tokens, and then computes its
+tables per batch from the mask, in f32 (`valid_ratios_from_mask`,
+`encoder_reference_points_masked`, `position_embedding_sine_hw_masked`,
+`output_proposals_masked`), zeroes the padded value rows of every MSDA
+call, and `decode` scales the reference boxes by the valid ratios. With no
+mask every path keeps the constant tables.
+
+Contrastive denoising: `decode` takes dn_labels (B, N_dn), embedded by
+`label_enc`, and dn_boxes (B, N_dn, 4) in front of the matching queries,
+and the decoder self-attention's allow-mask dn_attn_mask (Q, Q);
+`detection/dino.py::prepare_cdn` makes the three. MOTR's track queries
+(track_*) come with the tracking slice; they raise.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,10 +68,8 @@ import torch.utils.checkpoint
 
 from fastervit_tpu_torch.ops.msda import MSDeformAttnModule, normalize_shapes
 
-_LATER = ("{} is not ported yet: padding masks and contrastive denoising "
-          "come with the next detection slice (ROADMAP queue 1 item 1), "
-          "MOTR's track queries with the tracking slice; the port trains "
-          "and serves unpadded inputs without denoising queries")
+_TRACKING = ("MOTR's track queries are not ported yet: they come with the "
+             "tracking slice (ROADMAP queue 1)")
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -155,22 +163,117 @@ def output_proposals(spatial_shapes: Sequence[Tuple[int, int]]
     return logit.astype(np.float32), valid
 
 
-def valid_ratios_from_mask(*args, **kwargs):
-    raise NotImplementedError(_LATER.format("valid_ratios_from_mask"))
+def _level_masks(padding_mask: torch.Tensor,
+                 spatial_shapes: Sequence[Tuple[int, int]]
+                 ) -> List[torch.Tensor]:
+    """(B, S) flattened mask -> each level's (B, h, w) mask (True =
+    padded)."""
+    b = padding_mask.shape[0]
+    out, start = [], 0
+    for h, w in spatial_shapes:
+        out.append(padding_mask[:, start:start + h * w].reshape(b, h, w))
+        start += h * w
+    return out
 
 
-def encoder_reference_points_masked(*args, **kwargs):
-    raise NotImplementedError(_LATER.format(
-        "encoder_reference_points_masked"))
+def valid_ratios_from_mask(padding_mask: torch.Tensor,
+                           spatial_shapes: Sequence[Tuple[int, int]]
+                           ) -> torch.Tensor:
+    """get_valid_ratio of each level (deformable_transformer.py:252-259):
+    (B, S) mask -> (B, L, 2) f32 as (valid width / w, valid height / h),
+    counted along the first column and the first row."""
+    out = []
+    for m in _level_masks(padding_mask, spatial_shapes):
+        not_m = ~m
+        h, w = m.shape[1], m.shape[2]
+        valid_h = not_m[:, :, 0].float().sum(1)
+        valid_w = not_m[:, 0, :].float().sum(1)
+        out.append(torch.stack([valid_w / w, valid_h / h], -1))
+    return torch.stack(out, 1)
 
 
-def position_embedding_sine_hw_masked(*args, **kwargs):
-    raise NotImplementedError(_LATER.format(
-        "position_embedding_sine_hw_masked"))
+def _pixel_centres(h: int, w: int, device) -> torch.Tensor:
+    """(h·w, 2) f32 (x + 0.5, y + 0.5) of a level's pixels, row-major."""
+    y, x = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device) + 0.5,
+        torch.arange(w, dtype=torch.float32, device=device) + 0.5,
+        indexing="ij")
+    return torch.stack([x.reshape(-1), y.reshape(-1)], -1)
 
 
-def output_proposals_masked(*args, **kwargs):
-    raise NotImplementedError(_LATER.format("output_proposals_masked"))
+def _level_scale(valid_ratios: torch.Tensor, lvl: int, h: int,
+                 w: int) -> torch.Tensor:
+    """(B, 1, 2) valid extent of level lvl in pixels, (w·ratio_w,
+    h·ratio_h)."""
+    return valid_ratios[:, None, lvl] * torch.tensor(
+        [w, h], dtype=torch.float32, device=valid_ratios.device)
+
+
+def encoder_reference_points_masked(spatial_shapes: Sequence[Tuple[int,
+                                                                   int]],
+                                    valid_ratios: torch.Tensor
+                                    ) -> torch.Tensor:
+    """get_reference_points with the true valid ratios
+    (deformable_transformer.py:489-503): each level's pixel centres over
+    its valid extent, then scaled by every level's ratios: (B, S, L, 2)
+    f32."""
+    pts = [_pixel_centres(h, w, valid_ratios.device)[None]
+           / _level_scale(valid_ratios, lvl, h, w)
+           for lvl, (h, w) in enumerate(spatial_shapes)]
+    ref = torch.cat(pts, 1)                             # (B, S, 2)
+    return ref[:, :, None, :] * valid_ratios[:, None]
+
+
+def position_embedding_sine_hw_masked(padding_mask: torch.Tensor,
+                                      spatial_shapes: Sequence[Tuple[int,
+                                                                     int]],
+                                      num_pos_feats: int = 128,
+                                      temperature_h: float = 20.0,
+                                      temperature_w: float = 20.0
+                                      ) -> torch.Tensor:
+    """PositionEmbeddingSineHW from the padding mask (position_encoding.py:
+    81-135): each pixel's row and column counted over the valid pixels
+    (cumsum), normalised by the valid extent: (B, S) -> (B, S,
+    2·num_pos_feats) f32, the y block then the x block."""
+    eps = 1e-6
+    scale = 2 * math.pi
+    out = []
+    for m in _level_masks(padding_mask, spatial_shapes):
+        nm = (~m).float()
+        b, h, w = nm.shape
+        y = nm.cumsum(1)
+        x = nm.cumsum(2)
+        y = y / (y[:, -1:, :] + eps) * scale
+        x = x / (x[:, :, -1:] + eps) * scale
+        out.append(torch.cat([
+            _interleaved_sincos(y, num_pos_feats, temperature_h),
+            _interleaved_sincos(x, num_pos_feats, temperature_w)],
+            -1).reshape(b, h * w, 2 * num_pos_feats))
+    return torch.cat(out, 1)
+
+
+def output_proposals_masked(padding_mask: torch.Tensor,
+                            spatial_shapes: Sequence[Tuple[int, int]],
+                            valid_ratios: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gen_encoder_output_proposals with a padding mask (utils.py:34-76):
+    the grid centres over each image's valid extent, wh = 0.05·2^level.
+    Returns (proposal logits (B, S, 4) f32, +inf at padded and
+    out-of-range rows; valid (B, S) bool)."""
+    b = padding_mask.shape[0]
+    props = []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        grid = (_pixel_centres(h, w, padding_mask.device)[None]
+                / _level_scale(valid_ratios, lvl, h, w))    # (B, hw, 2)
+        wh = torch.full((b, h * w, 2), 0.05 * (2.0 ** lvl),
+                        dtype=torch.float32, device=padding_mask.device)
+        props.append(torch.cat([grid, wh], -1))
+    p = torch.cat(props, 1)
+    in_range = ((p > 0.01) & (p < 0.99)).all(-1)
+    valid = in_range & ~padding_mask
+    logit = torch.where(valid[..., None], torch.log(p / (1 - p)),
+                        torch.inf)
+    return logit, valid
 
 
 def forward_ffn(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
@@ -197,10 +300,12 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor,
-                ref_points: torch.Tensor,
-                spatial_shapes: Sequence) -> torch.Tensor:
-        """src: (B, S, C); pos: (B or 1, S, C); ref_points: (B, S, L, 2)."""
-        attn = self.self_attn(src + pos, ref_points, src, spatial_shapes)
+                ref_points: torch.Tensor, spatial_shapes: Sequence,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """src: (B, S, C); pos: (B or 1, S, C); ref_points: (B, S, L, 2);
+        padding_mask: (B, S) bool, True at padded tokens, or None."""
+        attn = self.self_attn(src + pos, ref_points, src, spatial_shapes,
+                              padding_mask)
         src = self.norm1(src + attn)
         return forward_ffn(src, self.linear1, self.linear2, self.norm2)
 
@@ -226,14 +331,23 @@ class DecoderLayer(nn.Module):
 
     def forward(self, tgt: torch.Tensor, query_pos: torch.Tensor,
                 ref_input: torch.Tensor, memory: torch.Tensor,
-                spatial_shapes: Sequence) -> torch.Tensor:
+                spatial_shapes: Sequence,
+                padding_mask: Optional[torch.Tensor] = None,
+                self_attn_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """tgt, query_pos: (B, Q, C); ref_input: the per-level reference
-        boxes (B, Q, L, 4); memory: (B, S, C)."""
+        boxes (B, Q, L, 4); memory: (B, S, C); padding_mask: memory's (B,
+        S) mask, True at padded tokens, or None; self_attn_mask: (Q, Q)
+        bool allow-mask (True: query i may attend to j), as the JAX layer
+        takes it, or None."""
         q = tgt + query_pos
-        sa = self.self_attn(q, q, tgt, need_weights=False)[0]
+        # nn.MultiheadAttention's bool mask marks what is blocked
+        sa = self.self_attn(q, q, tgt, need_weights=False,
+                            attn_mask=None if self_attn_mask is None
+                            else ~self_attn_mask)[0]
         tgt = self.norm2(tgt + sa)
         ca = self.cross_attn(tgt + query_pos, ref_input, memory,
-                             spatial_shapes)
+                             spatial_shapes, padding_mask)
         tgt = self.norm1(tgt + ca)
         return forward_ffn(tgt, self.linear1, self.linear2, self.norm3)
 
@@ -288,8 +402,11 @@ class DeformableTransformer(nn.Module):
     (fastervit_tpu/detection/transformer.py::DeformableTransformer, with
     DINO's defaults: shared decoder heads, embed_init_tgt).
 
-    forward = decode(encode(srcs), select(...)); the three steps are
-    methods so that a caller can hold two runs to one query selection."""
+    forward = decode(encode(srcs, padding_mask), select(...), dn_*); the
+    three steps are methods so that a caller can hold two runs to one
+    query selection. With `dn_labelbook_size`, the transformer has the
+    denoising label embedding `label_enc` (dn_labelbook_size + 1
+    entries), which the dn queries need."""
 
     # f32 under any cast of the module, as the JAX package keeps its tables
     # (transformer.py:99, 112-113, 204) and its level_embed parameter
@@ -299,7 +416,8 @@ class DeformableTransformer(nn.Module):
                  dim: int = 256, n_heads: int = 8, n_points: int = 4,
                  enc_layers: int = 6, dec_layers: int = 6,
                  ffn_dim: int = 2048, num_queries: int = 900,
-                 num_classes: int = 91, use_checkpoint: bool = False):
+                 num_classes: int = 91, use_checkpoint: bool = False,
+                 dn_labelbook_size: Optional[int] = None):
         super().__init__()
         shapes = normalize_shapes(spatial_shapes)
         self.spatial_shapes, self.dim = shapes, dim
@@ -318,6 +436,8 @@ class DeformableTransformer(nn.Module):
         self.enc_out_class_embed = nn.Linear(dim, num_classes)
         self.enc_out_bbox_embed = MLPHead(dim, dim, 4, layers=3)
         self.tgt_embed = nn.Embedding(num_queries, dim)
+        self.label_enc = (None if dn_labelbook_size is None
+                          else nn.Embedding(dn_labelbook_size + 1, dim))
         logit, valid = output_proposals(shapes)
         level = np.repeat(np.arange(n_levels), [h * w for h, w in shapes])
         for name, table in (
@@ -353,45 +473,76 @@ class DeformableTransformer(nn.Module):
                                                      use_reentrant=False)
         return layer(*args)
 
-    def encode(self, srcs: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """srcs: (B, S, C) flattened multi-scale features. Returns the
-        encoder memory, the projected two-stage memory `out_memory`, the
-        class logits `enc_logits` (B, S, K) and the unsigmoided boxes
-        `enc_unsig` (B, S, 4) of every proposal."""
+    def encode(self, srcs: torch.Tensor,
+               padding_mask: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+        """srcs: (B, S, C) flattened multi-scale features; padding_mask:
+        (B, S) bool, True at padded tokens, or None. Returns the encoder
+        memory, the projected two-stage memory `out_memory`, the class
+        logits `enc_logits` (B, S, K), the unsigmoided boxes `enc_unsig`
+        (B, S, 4) of every proposal, and, with a mask, the mask, the
+        valid ratios (B, L, 2) and the proposal logits (B, S, 4), which
+        `decode` reads."""
         b, s, _ = srcs.shape
         if s != len(self.level_index):
             raise ValueError(f"{s} tokens, the transformer was built for "
                              f"{len(self.level_index)} ({self.spatial_shapes})")
-        # summed in f32, cast once (JAX transformer.py:403); the reference
-        # points stay f32, so MSDA's sampling locations are f32
-        pos = (self.pos_sine + self.level_embed[self.level_index]).to(
-            srcs.dtype)[None]
-        ref = self.ref_points.expand(b, -1, -1, -1)
+        shapes = self.spatial_shapes
+        extra: Dict[str, torch.Tensor] = {}
+        # the tables in f32, the position embedding summed in f32 and cast
+        # once (JAX transformer.py:403); the reference points stay f32, so
+        # MSDA's sampling locations are f32
+        if padding_mask is None:
+            pos_sine, ref = self.pos_sine[None], self.ref_points.expand(
+                b, -1, -1, -1)
+            proposals, valid = self.proposals[None], self.proposal_valid[
+                None]
+        else:
+            padding_mask = padding_mask.to(torch.bool)
+            vr = valid_ratios_from_mask(padding_mask, shapes)
+            pos_sine = position_embedding_sine_hw_masked(padding_mask, shapes,
+                                                         self.dim // 2)
+            ref = encoder_reference_points_masked(shapes, vr)
+            proposals, valid = output_proposals_masked(padding_mask, shapes,
+                                                       vr)
+            extra = {"padding_mask": padding_mask, "valid_ratios": vr,
+                     "proposals": proposals}
+        pos = (pos_sine + self.level_embed[self.level_index]).to(srcs.dtype)
         memory = srcs
         for layer in self.encoder.layers:
-            memory = self._run(layer, memory, pos, ref, self.spatial_shapes)
-        out_memory = memory * self.proposal_valid.to(memory.dtype)[None, :,
-                                                                   None]
+            memory = self._run(layer, memory, pos, ref, shapes, padding_mask)
+        out_memory = memory * valid.to(memory.dtype)[..., None]
         out_memory = self.enc_output_norm(self.enc_output(out_memory))
         return {"memory": memory, "out_memory": out_memory,
                 "enc_logits": self.enc_out_class_embed(out_memory),
-                "enc_unsig": (self.enc_out_bbox_embed(out_memory)
-                              + self.proposals[None])}
+                "enc_unsig": self.enc_out_bbox_embed(out_memory) + proposals,
+                **extra}
 
     def select(self, enc: Dict[str, torch.Tensor]) -> torch.Tensor:
         """DINO's two-stage selection: the (B, k) indices of the k =
-        min(num_queries, S) proposals of highest class score, best first."""
+        min(num_queries, S) proposals of highest class score, best first.
+        (Padded rows' scores tie; their proposals, +inf, give the same box
+        whichever of them is taken.)"""
         k = min(self.num_queries, enc["enc_logits"].shape[1])
         scores = enc["enc_logits"].max(-1).values
         return scores.topk(k, dim=1).indices
 
-    def decode(self, enc: Dict[str, torch.Tensor],
-               topk: torch.Tensor) -> Dict:
-        """The decoder on the proposals `topk` (B, k) of `encode`'s output.
-        Returns enc_logits, enc_boxes, interm_logits, interm_boxes,
-        init_proposals, and per decoder layer lists of logits (B, k, K),
-        boxes (B, k, 4) cxcywh in [0, 1] and hidden states."""
+    def decode(self, enc: Dict[str, torch.Tensor], topk: torch.Tensor,
+               dn_labels: Optional[torch.Tensor] = None,
+               dn_boxes: Optional[torch.Tensor] = None,
+               dn_attn_mask: Optional[torch.Tensor] = None) -> Dict:
+        """The decoder on the proposals `topk` (B, k) of `encode`'s output,
+        with, for contrastive denoising, dn_labels (B, N_dn) (class ids,
+        embedded by `label_enc`) and dn_boxes (B, N_dn, 4) (cxcywh in
+        [0, 1]) in front of the k matching queries, and the self-attention
+        allow-mask dn_attn_mask (N_dn + k, N_dn + k). Returns enc_logits,
+        enc_boxes, interm_logits, interm_boxes, init_proposals, and per
+        decoder layer lists of logits (B, N_dn + k, K), boxes (B, N_dn + k,
+        4) cxcywh in [0, 1] and hidden states, the dn queries' first."""
         memory, out_memory = enc["memory"], enc["out_memory"]
+        padding_mask = enc.get("padding_mask")
+        vr = enc.get("valid_ratios")
+        proposals = enc.get("proposals", self.proposals[None])
         # enc_unsig is f32 (the bf16 head plus the f32 proposals), and so
         # are the reference boxes and every box derived from them
         b, k = topk.shape
@@ -403,8 +554,7 @@ class DeformableTransformer(nn.Module):
 
         ref_undetach = take(enc["enc_unsig"])
         ref_boxes = torch.sigmoid(ref_undetach).detach()
-        init_proposals = torch.sigmoid(take(self.proposals[None].expand(
-            b, -1, -1)))
+        init_proposals = torch.sigmoid(take(proposals.expand(b, -1, -1)))
         tgt_undetach = take(out_memory)
         tgt = self.tgt_embed.weight[None, :k].expand(b, -1, -1)
         outputs: Dict = {
@@ -414,16 +564,32 @@ class DeformableTransformer(nn.Module):
             "interm_boxes": torch.sigmoid(ref_undetach),
             "init_proposals": init_proposals,
             "logits": [], "boxes": [], "hidden": []}
+        if dn_labels is not None:
+            if self.label_enc is None:
+                raise ValueError("dn queries need label_enc: build the "
+                                 "transformer with dn_labelbook_size")
+            tgt = torch.cat([self.label_enc(dn_labels.long()).to(tgt.dtype),
+                             tgt], 1)
+            ref_boxes = torch.cat([dn_boxes.to(ref_boxes.dtype), ref_boxes],
+                                  1)
         dec = self.decoder
         report_ref = ref_boxes
         for i, layer in enumerate(dec.layers):
-            ref_input = ref_boxes[:, :, None, :].expand(-1, -1, n_levels, -1)
+            # the per-level reference boxes, scaled by the valid ratios
+            # under a mask (deformable_transformer.py:704-710); the query
+            # embedding from level 0's
+            if vr is None:
+                ref_input = ref_boxes[:, :, None, :].expand(-1, -1, n_levels,
+                                                            -1)
+            else:
+                ref_input = (ref_boxes[:, :, None, :]
+                             * torch.cat([vr, vr], -1)[:, None])
             # the f32 embedding enters the head in its dtype, as flax's
             # Dense casts its input
             qp = dec.ref_point_head(gen_sineembed(
                 ref_input[:, :, 0], self.dim // 2).to(tgt.dtype))
             tgt = self._run(layer, tgt, qp, ref_input, memory,
-                            self.spatial_shapes)
+                            self.spatial_shapes, padding_mask, dn_attn_mask)
             hidden = dec.norm(tgt)
             # the refinement chain runs on the unnormed output
             # (deformable_transformer.py:761-765), the reported boxes on the
@@ -438,13 +604,16 @@ class DeformableTransformer(nn.Module):
             ref_boxes = new_ref.detach()
         return outputs
 
-    def forward(self, srcs: torch.Tensor, dn_labels=None, dn_boxes=None,
-                dn_attn_mask=None, track_tgt=None, track_boxes=None) -> Dict:
-        """srcs: (B, S, C). Returns `decode`'s dict."""
-        if dn_labels is not None or dn_boxes is not None \
-                or dn_attn_mask is not None:
-            raise NotImplementedError(_LATER.format("contrastive denoising"))
+    def forward(self, srcs: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None,
+                dn_labels: Optional[torch.Tensor] = None,
+                dn_boxes: Optional[torch.Tensor] = None,
+                dn_attn_mask: Optional[torch.Tensor] = None,
+                track_tgt=None, track_boxes=None) -> Dict:
+        """srcs: (B, S, C); padding_mask (B, S) and the dn inputs as
+        `encode` and `decode` take them. Returns `decode`'s dict."""
         if track_tgt is not None or track_boxes is not None:
-            raise NotImplementedError(_LATER.format("track queries"))
-        enc = self.encode(srcs)
-        return self.decode(enc, self.select(enc))
+            raise NotImplementedError(_TRACKING)
+        enc = self.encode(srcs, padding_mask)
+        return self.decode(enc, self.select(enc), dn_labels, dn_boxes,
+                           dn_attn_mask)

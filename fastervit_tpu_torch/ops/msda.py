@@ -24,7 +24,7 @@ align_corners=False with zero padding: x = loc_x·W − 0.5, y = loc_y·H −
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -348,17 +348,21 @@ class MSDeformAttnModule(nn.Module):
         self.attention_weights.bias.zero_()
 
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
-                input_flatten: torch.Tensor,
-                spatial_shapes: Sequence) -> torch.Tensor:
+                input_flatten: torch.Tensor, spatial_shapes: Sequence,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """query: (N, Q, C); reference_points: (N, Q, L, 2) or (N, Q, L, 4),
         normalised; input_flatten: (N, S, C); spatial_shapes: the levels'
-        (H, W). Returns (N, Q, C). (Padding masks wait for the detection
-        training slice.)"""
+        (H, W); padding_mask: (N, S) bool, True at padded tokens, whose
+        value rows are zeroed before the sampling (so no sample reads a
+        padded pixel, and their value gradient is zero). Returns
+        (N, Q, C)."""
         n, q, _ = query.shape
         s = input_flatten.shape[1]
         m, l, p = self.n_heads, self.n_levels, self.n_points
-        value = self.value_proj(input_flatten).reshape(n, s, m,
-                                                       self.d_model // m)
+        value = self.value_proj(input_flatten)
+        if padding_mask is not None:
+            value = torch.where(padding_mask[..., None], 0, value)
+        value = value.reshape(n, s, m, self.d_model // m)
         offsets = self.sampling_offsets(query).reshape(n, q, m, l, p, 2)
         weights = F.softmax(self.attention_weights(query).reshape(
             n, q, m, l * p), dim=-1).reshape(n, q, m, l, p)

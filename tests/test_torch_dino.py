@@ -117,8 +117,14 @@ def test_helpers_match_jax():
     for got, want in zip(tt.output_proposals(shapes),
                          jt.output_proposals(shapes)):
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="padding"):
-        tt.valid_ratios_from_mask(None, shapes)
+    # the masked tables of an unpadded batch are the constant ones
+    mask = torch.zeros(1, sum(h * w for h, w in shapes), dtype=torch.bool)
+    vr = tt.valid_ratios_from_mask(mask, shapes)
+    np.testing.assert_array_equal(vr.numpy(), np.asarray(
+        jt.valid_ratios_from_mask(jnp.asarray(mask.numpy()), shapes)))
+    np.testing.assert_array_equal(
+        tt.encoder_reference_points_masked(shapes, vr)[0].numpy(),
+        tt.encoder_reference_points(shapes))
 
 
 def test_detector_matches_jax(pair):

@@ -2,8 +2,9 @@
 builds DINO-4scale with a narrow FasterViT-0 backbone at a small canvas,
 loads a reference-layout checkpoint, evaluates two synthetic batches and
 writes eval.json; without `--eval` it trains one synthetic epoch with
-either matcher, evaluates and writes best.pth; any run on COCO data
-(`--coco-path`, or no `--synthetic`) raises."""
+either matcher, evaluates and writes best.pth; `--coco-path` trains and
+evaluates on a COCO-format directory the test writes; a run with neither
+`--synthetic` nor `--coco-path`, or on a root without COCO, raises."""
 import json
 
 import pytest
@@ -12,7 +13,7 @@ import torch
 from fastervit_tpu_torch.detection import main as cli
 from fastervit_tpu_torch.detection.dino import build_dino_from_config
 from fastervit_tpu_torch.utils.pyconfig import PyConfig
-from torch_parity import few_torch_threads  # noqa: F401
+from torch_parity import few_torch_threads, write_coco  # noqa: F401
 
 CONFIG = "configs/dino/dino_4scale_faster_vit_0_224.py"
 OPTIONS = ['backbone_overrides={"depths": [1, 1, 2, 1], "dim": 32, '
@@ -43,22 +44,47 @@ def test_eval_synthetic_writes_eval_json(tmp_path):
     assert all(0.0 <= v <= 1.0 for v in written.values() if v == v)
 
 
-@pytest.mark.parametrize("extra,match", [
-    ((), None), (("--epochs", "2"), "--epochs"),
-    (("--matcher", "host"), "--matcher"),
-    (("--coco-path", "/data/coco"), "COCO")],
+@pytest.mark.parametrize("extra,error,match", [
+    ((), ValueError, "--coco-path"),
+    (("--epochs", "2"), ValueError, "--coco-path"),
+    (("--matcher", "host"), ValueError, "--coco-path"),
+    (("--coco-path", "no_coco"), FileNotFoundError, "instances_val2017")],
     ids=["no_eval", "epochs", "matcher", "coco_path"])
-def test_training_and_coco_raise(tmp_path, extra, match):
-    """Training and evaluation on COCO data raise until the COCO loader is
-    ported: a training run (no --eval, --epochs, --matcher) without
-    --synthetic, and any run with --coco-path, name COCO."""
+def test_training_and_coco_raise(tmp_path, extra, error, match):
+    """A run without data raises: a training run (no --eval, --epochs,
+    --matcher) with neither --synthetic nor --coco-path names --coco-path,
+    and an evaluation on a root that holds no COCO names the annotation
+    file it lacks."""
     argv = _argv(tmp_path, *extra)
-    if match != "COCO":
-        argv.remove("--synthetic")
+    argv.remove("--synthetic")
     if not extra:
         argv.remove("--eval")
-    with pytest.raises(NotImplementedError, match="COCO"):
+    if error is FileNotFoundError:
+        argv[argv.index("no_coco")] = str(tmp_path / "no_coco")
+    with pytest.raises(error, match=match):
         cli.main(argv)
+
+
+def test_coco_path_trains_and_evaluates(tmp_path):
+    """--coco-path on a COCO-format root (train2017 and val2017 images of
+    mixed sizes, squashed to the canvas): one training epoch of one batch,
+    its evaluation, best.pth; then --eval from that root."""
+    root = tmp_path / "coco"
+    write_coco(root, "train", [(150, 110), (96, 140), (128, 128)], seed=2)
+    write_coco(root, "val", [(120, 90), (100, 130)], seed=3)
+    argv = _argv(tmp_path, "--epochs", "1", "--max-targets", "4",
+                 "--coco-path", str(root))
+    argv.remove("--synthetic")
+    argv.remove("--eval")
+    result = cli.main(argv)
+    assert result["loss"] == result["loss"] and result["loss"] > 0
+    assert (tmp_path / "out" / "best.pth").exists()
+    argv = _argv(tmp_path, "--coco-path", str(root))
+    argv.remove("--synthetic")
+    stats = cli.main(argv)
+    written = json.loads((tmp_path / "out" / "eval.json").read_text())
+    assert json.dumps(written) == json.dumps(stats)
+    assert {"mAP", "AP50", "AR100"} <= set(written)
 
 
 @pytest.mark.parametrize("matcher", ["host", "auction"])

@@ -6,7 +6,9 @@ the detection modules (a tiny DINO detector built from a config file, run
 and post-processed, the MSDA and box ops with the MSDA backward, the
 evaluator, the weights bridge, the CLI, and detection training: the
 engine's two-phase and fused steps with remat, the auction matcher and the
-criterion), the long-window attention probes (ops.attention_probes and
+criterion; contrastive denoising and a padding mask through the
+detector, the detection transforms, the COCO reader's modules), the
+long-window attention probes (ops.attention_probes and
 both probe modules, run with --device cpu), the MSDA gather probes
 (ops.msda_probes with P4b-d, msda_pallas_probe, msda_packed_probe and
 msda_packed_probe2, run with --device cpu), the turns probes of K6 and
@@ -98,6 +100,19 @@ assert dino.criterion(det.eval()(torch.zeros(1, 3, 64, 64)),
                       det.num_classes)["loss"].item() > 0
 assert matcher_device.auction_match(torch.rand(5, 3),
                                     torch.ones(3, dtype=torch.bool)).shape == (3,)
+from fastervit_tpu_torch.data import preprocess
+from fastervit_tpu_torch.detection import coco_data, transforms
+det = dino.build_dino_from_config(cfg, resolution=(64, 64), device="cpu",
+                                  dn_labelbook_size=91).eval()
+dn, meta = dino.prepare_cdn(torch.Generator().manual_seed(0), tgt,
+                            det.num_classes, 5, dn_number=4)
+x, pad = transforms.pad_to_canvas([np.zeros((64, 48, 3), np.float32)],
+                                  (64, 64))
+out = det(torch.from_numpy(x).permute(0, 3, 1, 2), dn=dn,
+          pad_mask=torch.from_numpy(pad))
+assert out["logits"][-1].shape[1] == meta["n_dn"] + 5
+assert np.isfinite(dino.cdn_loss(out, tgt, meta,
+                                 det.num_classes)["loss_dn"].item())
 from fastervit_tpu_torch.ops import attention_probes
 from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
 q = torch.zeros(1, 2, 32, 8)

@@ -1,6 +1,7 @@
 """Helpers for the tests that hold fastervit_tpu_torch against fastervit_tpu
 on the CPU: random variables made with numpy from a seed, and their
 conversion into the port's state_dict."""
+import json
 from typing import Mapping, Optional
 
 import numpy as np
@@ -67,3 +68,36 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def random_pil(rng, w, h):
+    """A PIL RGB image of uniform random bytes."""
+    from PIL import Image
+    return Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+
+
+def write_coco(root, split: str, sizes, seed: int) -> None:
+    """A COCO-format split under root: <split>2017/*.png and
+    annotations/instances_<split>2017.json, with non-contiguous category
+    ids, a crowd annotation (skipped by the reader) and an image with no
+    annotation."""
+    rng = np.random.RandomState(seed)
+    (root / f"{split}2017").mkdir(parents=True, exist_ok=True)
+    (root / "annotations").mkdir(exist_ok=True)
+    images, anns = [], []
+    for i, (w, h) in enumerate(sizes):
+        name = f"{seed:03d}{i:03d}.png"
+        random_pil(rng, w, h).save(root / f"{split}2017" / name)
+        images.append({"id": 100 + i, "file_name": name, "width": w,
+                       "height": h})
+        for j in range(0 if i == len(sizes) - 1 else 3):
+            x0, y0 = rng.uniform(0, w / 2), rng.uniform(0, h / 2)
+            anns.append({"id": len(anns) + 1, "image_id": 100 + i,
+                         "category_id": int(rng.choice([1, 3, 7])),
+                         "bbox": [x0, y0, rng.uniform(2, w / 2),
+                                  rng.uniform(2, h / 2)],
+                         "iscrowd": int(j == 2 and i == 0)})
+    coco = {"images": images, "annotations": anns,
+            "categories": [{"id": c, "name": f"c{c}"} for c in (7, 1, 3)]}
+    (root / "annotations" / f"instances_{split}2017.json").write_text(
+        json.dumps(coco))
