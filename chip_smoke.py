@@ -215,7 +215,33 @@ Phases, each of which raises on failure:
      the loss finite and falling over 30 steps;
  34. the detection training CLI (--synthetic --dtype bfloat16 --epochs 1,
      800x800) with --matcher auction and --matcher host, its best.pth
-     under TMPDIR, 48 K7 and 120 K5 launches each.
+     under TMPDIR, 48 K7 and 120 K5 launches each;
+ 35. MOTRv2 streaming, card against CPU: the checkpoint-exact detector
+     (faster_vit_0_any_res, dim 256, 6 + 6 layers, FFN 1024, 10 detect and
+     10 proposal queries, 50 track slots) in fp32 on a 256x384 clip, 3
+     frames of exact_inference_sequence on each: every frame's last-layer
+     logits and boxes within TOL_MOTR_FP32 of their largest entry, the
+     track ids equal;
+ 36. the tracking serving path: that detector in bf16 at 800x1536 on an
+     8-frame synthetic clip with proposals (tracks born and carried): one
+     frame's K1 launches by route, K3's, and K5's by plan and Q (6 at the
+     encoder's Q 102,000, 6 at the decoder's 70), K5 at the encoder call
+     and K3 at the any-res carriers (S 448, hd 32) held to their plain
+     versions on the model's own inputs and timed beside them and their
+     bounds, the clip's launches, the median ms a frame after 2 warm-up
+     frames, peak memory, one frame profiled to
+     chiprun_out/motr_frame_profile.json; then the same with the lite
+     encoder (K5 at Q 25,200 over 102,000 values; its profile in
+     motr_lite_frame_profile.json); then both clips timed in turns, 10
+     rounds;
+ 37. the JAX package's own MOTRDetector at the submit CLI's defaults (60
+     detect and 60 track queries, 10 proposals, 3 + 3 layers, FFN 2048) in
+     bf16 at 800x1536: 3 frames of motr_inference_sequence, launches by
+     route, plan and Q;
+ 38. the tracking CLI (python -m fastervit_tpu_torch.tracking.submit
+     --exact --dtype bfloat16 --max-frames 4) on 800x1536 JPEG frames and
+     a proposal db it writes to a temporary directory; the MOT file it
+     writes, parsed.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -235,6 +261,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -500,6 +527,26 @@ PROBE_WRONG_PLANS = [
     ("P4c", (27, 50, 32, torch.float32, 1), (8, 4, 4, 4, 8, 528, "l2"),
      "16-byte loads from a 4-byte-aligned coeff map"),
 ]
+# MOTRv2 streaming (fastervit_tpu/tracking/submit.py's --exact defaults):
+# the checkpoint-exact detector on faster_vit_0_any_res at 800x1536 with
+# upstream MOTRv2's widths (dim 256, 6 + 6 layers, FFN 1024, 8 heads, 4
+# points, 4 levels), 10 detect and 10 proposal queries and 50 track slots:
+# the decoder's K5 calls at Q 70, the encoder's at Q 102,000 (25,200 with
+# the lite encoder, over the same 102,000 values)
+MOTR_CANVAS = (800, 1536)
+MOTR_SMALL_CANVAS = (256, 384)
+MOTR_QUERIES, MOTR_PROPOSALS, MOTR_CAPACITY = 10, 10, 50
+MOTR_FRAMES, MOTR_WARMUP = 8, 2
+MOTR_TURNS = 10       # rounds of the exact and the lite clip in turns
+MOTR_ENC_Q, MOTR_LITE_Q = 102_000, 25_200
+MOTR_DEC_Q = MOTR_QUERIES + MOTR_PROPOSALS + MOTR_CAPACITY
+# the submit CLI's default path (tracking/motr.py's MOTRDetector): 60
+# detect and 60 track queries, 10 proposals, 3 + 3 layers
+MOTR_DEFAULT_QUERIES, MOTR_DEFAULT_LAYERS = 60, 3
+# MOTR fp32 card vs CPU, relative to each tensor's largest entry: f32 with
+# TF32 off through 16 backbone blocks and 6 + 6 transformer layers, the sums
+# in another order (as TOL_DINO_FP32)
+TOL_MOTR_FP32 = 1e-4
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -738,54 +785,68 @@ class RouteLog:
               f"route")
 
 
+def kernel_proxy(orig, call):
+    """A stand-in for the kernel wrapper `orig` that runs `call` and reads
+    and writes `launches` and `last_plan` through to `orig`."""
+
+    class Proxy:
+        launches = property(lambda _: orig.launches,
+                            lambda _, n: setattr(orig, "launches", n))
+        last_plan = property(lambda _: orig.last_plan,
+                             lambda _, plan: setattr(orig, "last_plan", plan))
+
+        def __call__(self, *args):
+            return call(*args)
+
+    return Proxy()
+
+
+def cloned(args) -> tuple:
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+
 class K5Plans:
     """Inside `with K5Plans(cuda_msda) as plans:`, each K5 launch's plan,
     read from last_plan just after the launch, is counted in plans.count
     by (dtype, plan). ms_deform_attn_cuda is wrapped for the block's
-    duration (its launches and last_plan read and written through to it);
-    the model, and the wrapper itself, look it up at each call. With
-    kernel="ms_deform_attn_backward_cuda" it counts K7's launches alike."""
+    duration (`kernel_proxy`); the model, and the wrapper itself, look it
+    up at each call. With kernel="ms_deform_attn_backward_cuda" it counts
+    K7's launches alike. With `capture_q`, plans.inputs keeps (cloned) the
+    inputs of the first launch at that query count Q."""
 
-    def __init__(self, cuda_msda, kernel: str = "ms_deform_attn_cuda"):
-        self.cm, self.kernel = cuda_msda, kernel
+    def __init__(self, cuda_msda, kernel: str = "ms_deform_attn_cuda",
+                 capture_q: Optional[int] = None):
+        self.cm, self.kernel, self.capture_q = cuda_msda, kernel, capture_q
         self.label = "K5" if kernel == "ms_deform_attn_cuda" else "K7"
 
     def __enter__(self):
         self.count = collections.Counter()
         self.off_plan, self.encoder = [], collections.Counter()
         self.queries = collections.Counter()
-        orig, count = getattr(self.cm, self.kernel), self.count
-        queries = self.queries
-        self.orig = orig
+        self.inputs = None
+        orig = self.orig = getattr(self.cm, self.kernel)
         k7 = self.label == "K7"
-        off_plan, encoder, cm = self.off_plan, self.encoder, self.cm
 
-        class Counted:
-            launches = property(
-                lambda _: orig.launches,
-                lambda _, n: setattr(orig, "launches", n))
-            last_plan = property(
-                lambda _: orig.last_plan,
-                lambda _, plan: setattr(orig, "last_plan", plan))
+        def counted(value, *args):
+            before = orig.launches
+            out = orig(value, *args)
+            if orig.launches > before:
+                plan, q = orig.last_plan, args[1].shape[1]
+                self.count[(str(value.dtype).split(".")[-1], plan)] += 1
+                self.queries[q] += 1
+                if q == self.capture_q and self.inputs is None:
+                    self.inputs = cloned((value, *args))
+                if k7:
+                    # K7's launch against msda_bwd_plan of its inputs; the
+                    # encoder's (Q = S) plans kept apart
+                    want = k7_plan(self.cm, value, *args)
+                    if plan != want:
+                        self.off_plan.append((plan, want))
+                    if q == value.shape[1]:
+                        self.encoder[plan] += 1
+            return out
 
-            def __call__(self, value, *args):
-                before = orig.launches
-                out = orig(value, *args)
-                if orig.launches > before:
-                    plan = orig.last_plan
-                    count[(str(value.dtype).split(".")[-1], plan)] += 1
-                    queries[args[1].shape[1]] += 1
-                    if k7:
-                        # K7's launch against msda_bwd_plan of its inputs;
-                        # the encoder's (Q = S) plans kept apart
-                        want = k7_plan(cm, value, *args)
-                        if plan != want:
-                            off_plan.append((plan, want))
-                        if args[1].shape[1] == value.shape[1]:
-                            encoder[plan] += 1
-                return out
-
-        setattr(self.cm, self.kernel, Counted())
+        setattr(self.cm, self.kernel, kernel_proxy(orig, counted))
         return self
 
     def __exit__(self, *exc):
@@ -827,6 +888,35 @@ class K5Plans:
               f"{what}: K7's encoder launches {dict(self.encoder)}, "
               f"expected {launches} on route smem tiling levels "
               f"{K7_ENCODER_TILED}")
+
+
+class FirstLaunches:
+    """Inside `with FirstLaunches(module, name) as first:`, first.inputs
+    maps each distinct set of input shapes to the (cloned) inputs of the
+    kernel wrapper module.name's first launch at it; the wrapper is
+    stood in for (`kernel_proxy`) for the block only."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.inputs = {}
+        orig = self.orig = getattr(self.module, self.name)
+
+        def call(*args):
+            before = orig.launches
+            out = orig(*args)
+            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                        for a in args)
+            if orig.launches > before and key not in self.inputs:
+                self.inputs[key] = cloned(args)
+            return out
+
+        setattr(self.module, self.name, kernel_proxy(orig, call))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
 
 
 def k7_plan(cuda_msda, value, shapes, loc, w, g):
@@ -4663,6 +4753,484 @@ def dino_train_cli_phase(cuda_attention, cuda_msda, detection_cli) -> None:
               f"{4 * 24 + 2 * 12} and {4 * 12}")
 
 
+def motr_exact_pair(motr_exact, canvas, device, seed: int,
+                    lite: bool = False):
+    """The checkpoint-exact MOTRv2 detector and its QIMv2 at the served
+    widths for `canvas`, f32, random weights from `seed`, in eval mode."""
+    return motr_exact.build_motr_exact(
+        canvas, device=device, generator=torch.Generator().manual_seed(seed),
+        num_queries=MOTR_QUERIES, lite_encoder=lite)
+
+
+def motr_clip(canvas, frames: int, seed: int, device):
+    """A synthetic clip: one N(0, 1) image shifted 8 pixels right a frame,
+    (3, H, W) f32 tensors on `device`, and each frame's MOTR_PROPOSALS
+    proposals (cxcywh normalised + score) drifting with it, from numpy."""
+    rng = np.random.RandomState(seed)
+    base = torch.from_numpy(rng.randn(3, *canvas).astype(np.float32))
+    clip = [torch.roll(base, 8 * f, dims=2).to(device) for f in range(frames)]
+    boxes = np.concatenate([rng.uniform(0.2, 0.7, (MOTR_PROPOSALS, 2)),
+                            rng.uniform(0.03, 0.2, (MOTR_PROPOSALS, 2))], -1)
+    scores = rng.uniform(0.3, 0.95, (MOTR_PROPOSALS, 1))
+    props = []
+    for f in range(frames):
+        moved = boxes + np.asarray([8 * f / canvas[1], 0, 0, 0])
+        props.append(np.concatenate([moved, scores], -1).astype(np.float32))
+    return clip, props
+
+
+class MotrRecorder:
+    """Each forward of a MOTR detector, its last layer's logits and boxes
+    copied to the host (a forward hook)."""
+
+    def __init__(self, det):
+        self.seen = []
+        self.handle = det.register_forward_hook(self._keep)
+
+    def _keep(self, module, args, out):
+        self.seen.append({"logits": out["logits"][-1].detach().float().cpu(),
+                          "boxes": out["boxes"][-1].detach().float().cpu()})
+
+    def close(self):
+        self.handle.remove()
+
+
+def motr_thresholds(scores: torch.Tensor) -> float:
+    """A birth threshold from one frame's fresh-query scores: midway across
+    the widest gap between the 2nd and the 7th highest, so that 2 to 6
+    tracks are born, with the most room on either side."""
+    top = scores.flatten().sort(descending=True).values
+    k = int((top[1:6] - top[2:7]).argmax()) + 1
+    return float((top[k] + top[k + 1]) / 2)
+
+
+def run_motr(motr_exact, det, qim, frames, props, thresh: float):
+    """exact_inference_sequence at the served slots with birth and filter
+    threshold `thresh`, every active track written (prob_threshold 0), a
+    miss tolerance of 10 (so born tracks are carried through the clip)."""
+    return motr_exact.exact_inference_sequence(
+        det, qim, frames, MOTR_QUERIES, det.dim, proposals_per_frame=props,
+        num_proposals=MOTR_PROPOSALS, track_capacity=MOTR_CAPACITY,
+        score_thresh=thresh, filter_score_thresh=thresh, miss_tolerance=10,
+        prob_threshold=0.0)
+
+
+def motr_fp32_phase(cuda_attention, cuda_msda, motr_exact) -> None:
+    """Phase 35: the exact detector in fp32 on a 256x384 clip, 3 frames of
+    exact_inference_sequence on the card (kernel path) and on the CPU (plain
+    path) from the same weights: every frame's logits and boxes, and the
+    track ids."""
+    t0 = time.perf_counter()
+    det_cpu, qim_cpu = motr_exact_pair(motr_exact, MOTR_SMALL_CANVAS, "cpu",
+                                       seed=51)
+    det, qim = copy.deepcopy(det_cpu).to("cuda"), copy.deepcopy(qim_cpu).to(
+        "cuda")
+    frames, props = motr_clip(MOTR_SMALL_CANVAS, 3, 52, "cpu")
+    rec = MotrRecorder(det_cpu)
+    run_motr(motr_exact, det_cpu, qim_cpu, frames[:1], props, 0.5)
+    thresh = motr_thresholds(torch.sigmoid(rec.seen[0]["logits"][0, :20]))
+    rec.seen.clear()
+    t1 = time.perf_counter()
+    want = run_motr(motr_exact, det_cpu, qim_cpu, frames, props, thresh)
+    cpu_s = time.perf_counter() - t1
+    rec.close()
+    rec_card = MotrRecorder(det)
+    before = detection_launches(cuda_attention, cuda_msda)
+    got = run_motr(motr_exact, det, qim, [f.cuda() for f in frames], props,
+                   thresh)
+    torch.cuda.synchronize()
+    calls = tuple(a - b for a, b in zip(
+        detection_launches(cuda_attention, cuda_msda), before))
+    rec_card.close()
+    errs = {}
+    for f, (a, b) in enumerate(zip(rec_card.seen, rec.seen)):
+        for key in ("logits", "boxes"):
+            errs[f"{key} {f}"] = rel_to_largest(a[key], b[key])
+    scores = torch.sigmoid(torch.cat([r["logits"].flatten()
+                                      for r in rec.seen]))
+    margin = (scores - thresh).abs().min().item()
+    ids = [r["ids"].tolist() for r in want]
+    same = all(np.array_equal(a["ids"], b["ids"]) for a, b in zip(got, want))
+    worst = max(errs, key=errs.get)
+    print(f"MOTRv2 exact fp32 {MOTR_SMALL_CANVAS[0]}x{MOTR_SMALL_CANVAS[1]}, "
+          f"3 frames, card vs CPU, max|err| / max|CPU| (tol "
+          f"{TOL_MOTR_FP32}): " + ", ".join(f"{k} {v:.2e}"
+                                            for k, v in errs.items())
+          + f"; track ids equal: {same} (CPU {ids}; threshold {thresh:.4f},"
+          f" nearest score {margin:.2e} from it); K1, K3, K5 launches over "
+          f"the clip {calls}; build and threshold {t1 - t0:.1f} s, CPU "
+          f"{cpu_s:.1f} s [{card()}]")
+    check(all(v <= TOL_MOTR_FP32 for v in errs.values()),
+          f"MOTR fp32 card vs CPU: {worst} off by {errs[worst]}")
+    check(same or margin <= TOL_MOTR_FP32,
+          f"MOTR fp32 track ids differ: card "
+          f"{[r['ids'].tolist() for r in got]}, CPU {ids}")
+    check(len({i for r in ids for i in r}) >= 2 and all(ids),
+          f"MOTR fp32: tracks born and carried in every frame: {ids}")
+    check(calls[2] == 3 * 12, f"MOTR fp32 K5 launches {calls[2]}, expected "
+                              "12 a frame")
+    for f, r in enumerate(got):
+        check(bool(np.isfinite(r["boxes"]).all()),
+              f"MOTR fp32 frame {f} boxes finite")
+
+
+def check_motr_k5_plans(plans, cuda_msda, what: str) -> None:
+    """Every K5 launch counted by `plans` bf16 on msda_plan's plan for
+    MOTR's heads (D 32, value 16-byte aligned)."""
+    served = cuda_msda.msda_plan(32, torch.bfloat16,
+                                 cuda_msda.MAX_VECTOR_BYTES)
+    ran = {(dtype, plan) for dtype, plan in plans.count}
+    check(ran == {("bfloat16", served)}, f"{what}: K5 plans {ran}, "
+                                         f"expected msda_plan's {served}")
+
+
+def motr_k5_check(cuda_msda, msda, inputs, what: str) -> dict:
+    """K5 at a captured encoder call against its plain version on the
+    card (bf16: ≤ 2^-8 of max(1, max|plain|)), two launches bit-identical,
+    then kernel (with the model's bf16 locations, which the binding widens;
+    with f32 ones; and all in f32, as msda_pallas_probe's encoder call
+    times it) and plain version timed, and the bound."""
+    kernel, plain = cuda_msda.ms_deform_attn_cuda, msda.msda_reference
+    value, shapes, loc, w = inputs
+    n, s, m, d = value.shape
+    q, nl, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    got = kernel(value, shapes, loc, w)
+    plan = kernel.last_plan
+    want = plain(value.float(), shapes, loc.float(), w.float())
+    err = ((got.float() - want).abs().max()
+           / want.abs().max().clamp(min=1.0)).item()
+    same = torch.equal(kernel(value, shapes, loc, w), got)
+    del want
+    loc32 = loc.float()
+    plain_ms, ms, _ = in_turns(lambda: plain(value, shapes, loc, w),
+                               lambda: kernel(value, shapes, loc, w), None, 5)
+    ms32 = time_ms(lambda: kernel(value, shapes, loc32, w), iters=20)
+    v32, w32 = value.float(), w.float()
+    ms_f32 = time_ms(lambda: kernel(v32, shapes, loc32, w32), iters=20)
+    del v32, w32, loc32
+    nbytes = value.element_size() * (value.numel() + w.numel() + n * q * m
+                                     * d) + loc.element_size() * loc.numel()
+    samples = n * q * m * nl * p
+    flops = samples * (8.0 * d + 18)
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+    by = ("operations" if flops / F32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
+          else "bytes")
+    print(f"K5 at {what} (N={n} Q={q} over S={s} values, M={m} D={d} P={p}, "
+          f"{value.dtype} value, {loc.dtype} locations): max|err| / max(1, "
+          f"max|plain|) {err:.3e} (tol {2 ** -8:.3e}), two launches "
+          f"bit-identical {same}, plan (G, V) ({plan.lanes}, {plan.vec}); "
+          f"kernel {ms:.4f} ms ({samples / ms / 1e6:.1f} G samples/s; with "
+          f"f32 locations {ms32:.4f}; all f32 {ms_f32:.4f}), plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP "
+          f"f32, {by}) [{card()}]")
+    check(err <= 2 ** -8 and same, f"K5 at {what}: error {err}, "
+                                   f"bit-identical {same}")
+    check(value.dtype != torch.bfloat16 or plan.vec > 1,
+          f"K5 at {what} on scalar loads: {plan}")
+    return {"Q": q, "S": s, "ms": ms, "ms_f32_locations": ms32,
+            "ms_all_f32": ms_f32,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err, "g_samples_s": samples / ms / 1e6,
+            "plan": plan._asdict()}
+
+
+def motr_k3_check(cuda_attention, attention, first, what: str) -> list:
+    """K3 at each captured call of the frame (the any-res carriers) against
+    its plain version on the same card tensors, bf16 against f32 on the
+    bf16 inputs: max|err| over max(1, max|plain|) within TOL_BF16 (K3's
+    bf16 bound, which k3_phase holds on N(0, 1) inputs, whose outputs lie
+    within ±1); its route and plan; kernel and plain version timed in
+    turns beside the bound."""
+    kernel = cuda_attention.window_mhsa_long_cuda
+    plain = attention.window_mhsa_long_reference
+    calls = []
+    for qkv, bias, h, scale in first.inputs.values():
+        b, s, c3 = qkv.shape
+        d = c3 // 3 // h
+        got = kernel(qkv, bias, h, scale)
+        check_plan(kernel, cuda_attention, qkv.dtype == torch.bfloat16, d,
+                   bias.dtype, f"K3 at {what}")
+        want = plain(qkv.float(), bias.float(), h, scale)
+        err, err_abs = rel_err(got, want), (got.float() - want).abs().max(
+            ).item()
+        largest = want.abs().max().item()
+        plain_ms, ms, _ = in_turns(lambda: plain(qkv, bias, h, scale),
+                                   lambda: kernel(qkv, bias, h, scale),
+                                   None, 10)
+        nbytes = qkv.element_size() * (qkv.numel() + b * s * c3 // 3) \
+            + bias.element_size() * bias.numel()
+        flops = 4.0 * b * h * s * s * d
+        bound = bound_ms(nbytes, flops)
+        by = ("operations" if flops / BF16_FLOP_PER_S
+              > nbytes / HBM_BYTES_PER_S else "bytes")
+        print(f"K3 at {what} (B={b} S={s} H={h} hd={d}, {qkv.dtype} qkv, "
+              f"{bias.dtype} bias): max|err| {err_abs:.3e}, over max(1, "
+              f"max|plain| {largest:.3f}) {err:.3e} (tol {TOL_BF16}), route "
+              f"{kernel.last_plan.route}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card()}]")
+        check(err <= TOL_BF16, f"K3 at {what} {(b, s, h, d)}: error {err}")
+        calls.append({"shape": [b, s, h, d], "max_abs_err": err_abs,
+                      "max_err_over_max1_plain": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by})
+    check(bool(calls), f"K3 at {what}: no launch captured")
+    return calls
+
+
+def time_clip(motr_exact, det, qim, frames, props, thresh: float):
+    """run_motr over the clip, each frame timed on the host clock (a frame
+    ends with its outputs on the host): (results, ms a frame)."""
+    starts = []
+
+    def timed():
+        for f in frames:
+            starts.append(time.perf_counter())
+            yield f
+
+    results = run_motr(motr_exact, det, qim, timed(), props, thresh)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    return results, [1e3 * (b - a) for a, b in zip(starts[:-1], starts[1:])]
+
+
+def motr_clip_phase(cuda_attention, cuda_msda, attention, msda,
+                    motr_exact, lite: bool) -> dict:
+    """Phase 36: the exact detector in bf16 at 800x1536 on an 8-frame clip
+    with proposals. Frame 0 alone first: the birth threshold from its
+    scores, its K1 launches by route, its K5 launches by plan and Q, K5 at
+    the encoder call and K3 at the carriers held to their plain versions
+    on the frame's own inputs. Then the clip, its launches counted from 0
+    and its frames timed on the host clock; the median after MOTR_WARMUP
+    frames; peak memory; one frame profiled."""
+    name = "lite encoder" if lite else "exact"
+    enc_q = MOTR_LITE_Q if lite else MOTR_ENC_Q
+    t0 = time.perf_counter()
+    det, qim = motr_exact_pair(motr_exact, MOTR_CANVAS, "cuda", seed=41,
+                               lite=lite)
+    det = det.to(torch.bfloat16)
+    frames, props = motr_clip(MOTR_CANVAS, MOTR_FRAMES, 42, "cuda")
+    build_s = time.perf_counter() - t0
+    rec = MotrRecorder(det)
+    reset_launches(cuda_attention, cuda_msda)
+    with RouteLog(cuda_attention) as routes, \
+            K5Plans(cuda_msda, capture_q=enc_q) as plans, \
+            FirstLaunches(cuda_attention, "window_mhsa_long_cuda") as k3s, \
+            torch.no_grad():
+        run_motr(motr_exact, det, qim, frames[:1], props, 0.5)
+        torch.cuda.synchronize()
+    frame_calls = detection_launches(cuda_attention, cuda_msda)
+    thresh = motr_thresholds(torch.sigmoid(rec.seen[0]["logits"][0, :20]))
+    rec.close()
+    what = f"MOTRv2 {name} bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]} frame"
+    print(f"{what}: K1, K3, K5 launches {frame_calls}; K1 routes "
+          f"{dict(routes.k1)}")
+    check(routes.k1 == collections.Counter({"wgmma": frame_calls[0]})
+          and frame_calls[0] > 0, f"{what}: K1 routes {dict(routes.k1)}")
+    plans.check(12, what, vector=True)
+    plans.check_queries({enc_q: 6, MOTR_DEC_Q: 6}, what)
+    check_motr_k5_plans(plans, cuda_msda, what)
+    k5_call = motr_k5_check(cuda_msda, msda, plans.inputs,
+                            f"MOTR's {name} encoder call")
+    k3_calls = motr_k3_check(cuda_attention, attention, k3s,
+                             f"MOTR's {name} carrier attention")
+    del plans, k3s
+
+    reset_launches(cuda_attention, cuda_msda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, frame_ms = time_clip(motr_exact, det, qim, frames, props,
+                                  thresh)
+    calls = detection_launches(cuda_attention, cuda_msda)
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(frame_ms[MOTR_WARMUP:]))
+    ids = [r["ids"].tolist() for r in results]
+    smi = card()
+    print(f"MOTRv2 {name} bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]} "
+          f"{MOTR_FRAMES}-frame clip: K1, K3, K5 launches {calls}; ms a "
+          f"frame {[round(t, 3) for t in frame_ms]}, median after "
+          f"{MOTR_WARMUP} {median:.3f} ms ({1e3 / median:.2f} frames/s); "
+          f"peak memory {peak / 2**20:.1f} MiB; track ids {ids} (threshold "
+          f"{thresh:.4f}); build {build_s:.1f} s [{smi}]")
+    check(calls == tuple(MOTR_FRAMES * c for c in frame_calls),
+          f"{name} clip launches {calls}, expected {MOTR_FRAMES} x "
+          f"{frame_calls}")
+    check(len({i for r in ids for i in r}) >= 2 and all(ids[1:]),
+          f"{name} clip: tracks born and carried: {ids}")
+    check(all(np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"])
+              .all() for r in results), f"{name} clip outputs finite")
+    out = {"launches": calls, "frame_launches": frame_calls, "ms": median,
+           "frame_ms": frame_ms, "peak_mib": peak / 2**20, "k5": k5_call,
+           "k3": k3_calls, "thresh": thresh}
+    with torch.no_grad():
+        out["profile"] = profile_device(
+            lambda: run_motr(motr_exact, det, qim, frames[:1], props,
+                             thresh), 1,
+            f"MOTRv2 {name} bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]} frame",
+            median, smi, "motr_lite_frame_profile.json" if lite
+            else "motr_frame_profile.json")
+    del det, qim, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def motr_turns(motr_exact, exact: dict, lite: dict) -> dict:
+    """The exact and the lite-encoder clip timed in turns, MOTR_TURNS
+    rounds (exact first in even rounds, lite first in odd ones): each
+    run's median ms a frame after MOTR_WARMUP, and the median of each
+    path's frames after warm-up pooled over its runs. A host-bound frame
+    spreads from run to run; this says whether the two paths' order holds
+    across runs taken side by side. The models, clip and thresholds are
+    phase 36's, built again here."""
+    frames, props = motr_clip(MOTR_CANVAS, MOTR_FRAMES, 42, "cuda")
+    paths = {}
+    for key, phase in (("exact", exact), ("lite", lite)):
+        det, qim = motr_exact_pair(motr_exact, MOTR_CANVAS, "cuda", seed=41,
+                                   lite=key == "lite")
+        paths[key] = (det.to(torch.bfloat16), qim, frames, props,
+                      phase["thresh"])
+    runs = {"exact": [], "lite": []}
+    pooled = {"exact": [], "lite": []}
+    for r in range(MOTR_TURNS):
+        for key in (("exact", "lite") if r % 2 == 0 else ("lite", "exact")):
+            _, frame_ms = time_clip(motr_exact, *paths[key])
+            runs[key].append(float(np.median(frame_ms[MOTR_WARMUP:])))
+            pooled[key] += frame_ms[MOTR_WARMUP:]
+    out = {k: {"run_medians": runs[k],
+               "pooled_median": float(np.median(pooled[k])),
+               "frames": len(pooled[k])} for k in runs}
+    lite_wins = sum(a > b for a, b in zip(runs["exact"], runs["lite"]))
+    print(f"MOTRv2 bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}, exact and lite "
+          f"encoder in turns ({MOTR_TURNS} rounds of a {MOTR_FRAMES}-frame "
+          f"clip each): ms a frame, each run's median after {MOTR_WARMUP}: "
+          f"exact {[round(t, 3) for t in runs['exact']]}, lite "
+          f"{[round(t, 3) for t in runs['lite']]}; pooled medians exact "
+          f"{out['exact']['pooled_median']:.3f} ms, lite "
+          f"{out['lite']['pooled_median']:.3f} ms over "
+          f"{out['exact']['frames']} frames each; lite faster in "
+          f"{lite_wins} of {MOTR_TURNS} rounds [{card()}]")
+    out["lite_faster_rounds"] = lite_wins
+    del paths, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def motr_default_phase(cuda_attention, cuda_msda, motr) -> tuple:
+    """Phase 37: the JAX package's own MOTRDetector at the submit CLI's
+    defaults in bf16 at 800x1536, 3 frames of motr_inference_sequence with
+    the CLI's thresholds: launches by route, plan and Q a frame."""
+    nq, layers = MOTR_DEFAULT_QUERIES, MOTR_DEFAULT_LAYERS
+    det = motr.build_motr_detector(
+        MOTR_CANVAS, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(43), num_detect_queries=nq,
+        num_track_queries=nq, num_proposal_queries=MOTR_PROPOSALS,
+        enc_layers=layers, dec_layers=layers)
+    frames, props = motr_clip(MOTR_CANVAS, 3, 44, "cuda")
+    reset_launches(cuda_attention, cuda_msda)
+    with RouteLog(cuda_attention) as routes, K5Plans(cuda_msda) as plans:
+        results = motr.motr_inference_sequence(
+            det, frames, num_track_slots=nq, dim=det.dim, score_thresh=0.5,
+            filter_thresh=0.5, miss_tolerance=20, proposals_per_frame=props)
+        torch.cuda.synchronize()
+    calls = detection_launches(cuda_attention, cuda_msda)
+    what = (f"MOTRDetector (submit's default path) bf16 "
+            f"{MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}, 3 frames")
+    print(f"{what}: K1, K3, K5 launches {calls}; K1 routes "
+          f"{dict(routes.k1)}; tracks a frame "
+          f"{[len(r['ids']) for r in results]}")
+    check(routes.k1 == collections.Counter({"wgmma": calls[0]})
+          and calls[0] > 0, f"{what}: K1 routes {dict(routes.k1)}")
+    plans.check(3 * 2 * layers, what, vector=True)
+    plans.check_queries({MOTR_ENC_Q: 3 * layers,
+                         2 * nq + MOTR_PROPOSALS: 3 * layers}, what)
+    check_motr_k5_plans(plans, cuda_msda, what)
+    check(all(np.isfinite(r["boxes"]).all() for r in results),
+          f"{what}: boxes finite")
+    del det, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def motr_cli_phase() -> None:
+    """Phase 38: the tracking CLI on 4 JPEG frames at 800x1536 and a
+    proposal db, in a temporary directory: it runs on the card, writes
+    seq01.txt, which parses as MOT rows of 4 frames."""
+    from PIL import Image
+
+    from fastervit_tpu_torch.tracking.mot_data import load_mot_file
+    rng = np.random.RandomState(45)
+    h, w = MOTR_CANVAS
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = Path(tmp) / "val" / "seq01" / "img1"
+        img_dir.mkdir(parents=True)
+        base = (np.cumsum(rng.randint(-8, 9, (h, w, 3)), 1) % 256).astype(
+            np.uint8)
+        db = {}
+        for f in range(4):
+            Image.fromarray(np.roll(base, 8 * f, axis=1)).save(
+                img_dir / f"{f + 1:08d}.jpg")
+            db[f"val/seq01/img1/{f + 1:08d}.txt"] = [
+                f"{100 + 8 * f + 40 * i},{200 + 30 * i},120,260,"
+                f"{0.9 - 0.05 * i:.2f}" for i in range(12)]
+        (Path(tmp) / "det_db.json").write_text(json.dumps(db))
+        out = Path(tmp) / "out"
+        cmd = [sys.executable, "-m", "fastervit_tpu_torch.tracking.submit",
+               "--mot-path", tmp, "--split", "val", "--exact", "--dtype",
+               "bfloat16", "--max-frames", "4", "--det-db", "det_db.json",
+               "--score-thresh", "0.0", "--output", str(out)]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        secs = time.perf_counter() - t0
+        print(f"tracking CLI: {' '.join(cmd[1:])}: exit {run.returncode} in "
+              f"{secs:.1f} s [{card()}]; its log's tail: "
+              + " | ".join(run.stderr.strip().splitlines()[-3:]))
+        check(run.returncode == 0, f"the tracking CLI failed: "
+                                   f"{run.stderr[-2000:]}")
+        rows = load_mot_file(str(out / "seq01.txt"))
+        n = {f: len(r["ids"]) for f, r in sorted(rows.items())}
+        print(f"tracking CLI: seq01.txt has MOT rows a frame {n}")
+        check(sorted(rows) == [1, 2, 3, 4]
+              and all(np.isfinite(r["boxes"]).all() for r in rows.values()),
+              f"the tracking CLI's MOT file: frames {sorted(rows)}")
+
+
+def motr_phases(cuda_attention, cuda_msda, attention, msda, motr,
+                motr_exact, k1, k3, k5) -> None:
+    """Phases 35-38, MOTRv2 streaming; the served clip's launches go into
+    K1's, K3's and K5's entries of the kernels line."""
+    motr_fp32_phase(cuda_attention, cuda_msda, motr_exact)
+    clip = motr_clip_phase(cuda_attention, cuda_msda, attention, msda,
+                           motr_exact, lite=False)
+    lite = motr_clip_phase(cuda_attention, cuda_msda, attention, msda,
+                           motr_exact, lite=True)
+    turns = motr_turns(motr_exact, clip, lite)
+    default = motr_default_phase(cuda_attention, cuda_msda, motr)
+    motr_cli_phase()
+    where = (f"the tracking serving path: a {MOTR_FRAMES}-frame MOTRv2 "
+             f"clip, the checkpoint-exact detector bf16 "
+             f"{MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}")
+    for entry, i in ((k1, 0), (k3, 1), (k5, 2)):
+        entry["launches_motr"] = clip["launches"][i]
+        entry["launches_motr_in"] = where
+        entry["launches_motr_lite"] = lite["launches"][i]
+        entry["launches_motr_default_path"] = default[i]
+    k5["motr_encoder_call"] = clip["k5"]
+    k5["motr_lite_encoder_call"] = lite["k5"]
+    k3["motr_carrier_calls"] = clip["k3"]
+    k3["motr_lite_carrier_calls"] = lite["k3"]
+    print(f"MOTRv2 streaming bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}: "
+          f"{clip['ms']:.3f} ms a frame (lite encoder {lite['ms']:.3f}), "
+          f"peak {clip['peak_mib']:.1f} MiB ({lite['peak_mib']:.1f}); K5 at "
+          f"the encoder call {clip['k5']['ms']:.4f} ms (lite "
+          f"{lite['k5']['ms']:.4f}); in turns, pooled medians "
+          f"{turns['exact']['pooled_median']:.3f} ms (lite "
+          f"{turns['lite']['pooled_median']:.3f}) [{card()}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -4678,6 +5246,7 @@ def main() -> None:
     from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
     from fastervit_tpu_torch.probes import msda_packed_probe, msda_pallas_probe
     from fastervit_tpu_torch.probes import msda_packed_probe2
+    from fastervit_tpu_torch.tracking import motr, motr_exact
     from fastervit_tpu_torch.train import mixup, schedule, steps
     from fastervit_tpu_torch.train import train as train_cli
     from fastervit_tpu_torch.utils.pyconfig import PyConfig
@@ -4921,6 +5490,11 @@ def main() -> None:
 
     # 34. the detection training CLI, with each matcher
     dino_train_cli_phase(cuda_attention, cuda_msda, detection_cli)
+
+    # 35-38. MOTRv2 streaming: card against CPU, the full-width clip (and
+    #     with the lite encoder), the default path, the CLI
+    motr_phases(cuda_attention, cuda_msda, attention, msda, motr,
+                motr_exact, k1, k3, k5)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers, k7]}))

@@ -185,45 +185,59 @@ def _focal_bias() -> float:
     return -math.log((1 - 0.01) / 0.01)
 
 
+def trunc_normal_(p: torch.Tensor, std: float,
+                  generator: torch.Generator) -> None:
+    """p drawn on the CPU from a normal of std `std` truncated at 2 std
+    (flax's lecun_normal and variance_scaling), then copied to its
+    device."""
+    w = torch.empty(p.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+    p.copy_(w)
+
+
+@torch.no_grad()
+def lecun_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Every Linear and Conv2d of `module` outside its backbone (and the
+    self-attention projections of every nn.MultiheadAttention) a truncated
+    normal of std 1/sqrt(fan_in), flax's lecun_normal, with zero bias; the
+    MSDA offset and weight heads their own init."""
+    for name, m in module.named_modules():
+        if name.startswith("backbone"):
+            continue
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            trunc_normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()),
+                          generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.MultiheadAttention):
+            trunc_normal_(m.in_proj_weight, 1.0 / math.sqrt(m.embed_dim),
+                          generator)
+            m.in_proj_bias.zero_()
+    for m in module.modules():
+        if isinstance(m, MSDeformAttnModule):
+            m.reset_offset_heads()
+
+
 @torch.no_grad()
 def init_weights(det: DINODetector, generator: torch.Generator) -> None:
     """Random init drawn on the CPU from `generator`, so that one seed
     gives the same weights on every device, as the JAX detector initialises
-    its parameters: the backbone as `create_model` does; every other Linear
-    and Conv2d (and the decoder self-attention's projections) a truncated
-    normal of std 1/sqrt(fan_in) (flax's lecun_normal) with zero bias;
-    level_embed and tgt_embed N(0, 1); the class heads' bias the focal
-    prior; the box heads' last layer zero; the MSDA offset and weight heads
-    their own init."""
-    def trunc_normal(p: torch.Tensor, std: float) -> None:
-        w = torch.empty(p.shape, dtype=torch.float32)
-        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
-        p.copy_(w)
-
+    its parameters: the backbone as `create_model` does; the rest by
+    `lecun_init_`; level_embed and tgt_embed N(0, 1); the class heads' bias
+    the focal prior; the box heads' last layer zero."""
     _init_weights(det.backbone, generator)
-    for name, m in det.named_modules():
-        if name.startswith("backbone"):
-            continue
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            trunc_normal(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.MultiheadAttention):
-            trunc_normal(m.in_proj_weight, 1.0 / math.sqrt(m.embed_dim))
-            m.in_proj_bias.zero_()
+    lecun_init_(det, generator)
     tr = det.transformer
     for p in (tr.level_embed, tr.tgt_embed.weight):
         p.copy_(torch.randn(p.shape, generator=generator))
     if tr.label_enc is not None:      # flax Embed's variance_scaling init
-        trunc_normal(tr.label_enc.weight, 1.0 / math.sqrt(tr.dim))
+        trunc_normal_(tr.label_enc.weight, 1.0 / math.sqrt(tr.dim),
+                      generator)
     for head in (tr.enc_out_class_embed, tr.decoder.class_embed[0]):
         head.bias.fill_(_focal_bias())
     for mlp in (tr.enc_out_bbox_embed, tr.decoder.bbox_embed[0]):
         mlp.layers[-1].weight.zero_()
-    for m in det.modules():
-        if isinstance(m, MSDeformAttnModule):
-            m.reset_offset_heads()
 
 
 def build_dino_from_config(cfg, resolution: Tuple[int, int] = (800, 1333),

@@ -52,8 +52,12 @@ mask every path keeps the constant tables.
 Contrastive denoising: `decode` takes dn_labels (B, N_dn), embedded by
 `label_enc`, and dn_boxes (B, N_dn, 4) in front of the matching queries,
 and the decoder self-attention's allow-mask dn_attn_mask (Q, Q);
-`detection/dino.py::prepare_cdn` makes the three. MOTR's track queries
-(track_*) come with the tracking slice; they raise.
+`detection/dino.py::prepare_cdn` makes the three.
+
+MOTR's track queries: `decode` takes track_tgt (B, T, C) and track_boxes
+(B, T, 4) and puts them in front of the selected queries (and behind any
+dn queries), as the JAX transformer does (transformer.py:463-468);
+`tracking/motr.py::MOTRDetector` feeds them.
 """
 from __future__ import annotations
 
@@ -67,9 +71,6 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from fastervit_tpu_torch.ops.msda import MSDeformAttnModule, normalize_shapes
-
-_TRACKING = ("MOTR's track queries are not ported yet: they come with the "
-             "tracking slice (ROADMAP queue 1)")
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -301,11 +302,15 @@ class EncoderLayer(nn.Module):
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor,
                 ref_points: torch.Tensor, spatial_shapes: Sequence,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                padding_mask: Optional[torch.Tensor] = None,
+                value: Optional[torch.Tensor] = None) -> torch.Tensor:
         """src: (B, S, C); pos: (B or 1, S, C); ref_points: (B, S, L, 2);
-        padding_mask: (B, S) bool, True at padded tokens, or None."""
-        attn = self.self_attn(src + pos, ref_points, src, spatial_shapes,
-                              padding_mask)
+        padding_mask: (B, S) bool, True at padded tokens, or None; value:
+        the (B, S_value, C) level maps to sample when the queries are a
+        subset of them (MOTR's lite encoder), or None to sample src."""
+        attn = self.self_attn(src + pos, ref_points,
+                              src if value is None else value,
+                              spatial_shapes, padding_mask)
         src = self.norm1(src + attn)
         return forward_ffn(src, self.linear1, self.linear2, self.norm2)
 
@@ -396,7 +401,38 @@ class TransformerDecoder(nn.Module):
         self.class_embed = nn.ModuleList([cls] * len(layers))
 
 
-class DeformableTransformer(nn.Module):
+class KeepF32(nn.Module):
+    """A module whose tensors named in `_F32_TENSORS` stay f32 under any
+    cast of it (`.to()`, `.cuda()`, `.bfloat16()`, ...): the JAX package
+    keeps such tables and parameters in f32 and casts what it computes
+    from them."""
+
+    _F32_TENSORS: Tuple[str, ...] = ()
+
+    def _apply(self, fn, recurse=True):
+        """Module._apply that moves the _F32_TENSORS (those that are not
+        None) to the new device but keeps them in f32: their f32 values
+        are kept aside and put back after the cast, so no cast rounds
+        them."""
+        kept = {name: getattr(self, name).data for name in self._F32_TENSORS
+                if getattr(self, name) is not None}
+        super()._apply(fn, recurse)
+        for name, old in kept.items():
+            new = getattr(self, name)
+            if new.dtype == torch.float32:
+                continue
+            value = old.to(device=new.device, dtype=torch.float32)
+            if isinstance(new, nn.Parameter):
+                new.data = value
+            elif name in self._buffers:
+                self._buffers[name] = value
+            else:
+                raise TypeError(f"{name} is neither a parameter nor a "
+                                "buffer of this module")
+        return self
+
+
+class DeformableTransformer(KeepF32):
     """Encoder + two-stage query selection + box-refining decoder over the
     flattened multi-scale features of fixed `spatial_shapes`
     (fastervit_tpu/detection/transformer.py::DeformableTransformer, with
@@ -447,24 +483,6 @@ class DeformableTransformer(nn.Module):
                 ("level_index", level)):
             self.register_buffer(name, torch.as_tensor(table),
                                  persistent=False)
-
-    def _apply(self, fn, recurse=True):
-        """Module._apply (behind .to(), .cuda(), .bfloat16(), ...) that
-        moves the _F32_TENSORS to the new device but keeps them in f32:
-        their f32 values are kept aside and put back after the cast, so no
-        cast rounds them."""
-        kept = {name: getattr(self, name).data for name in self._F32_TENSORS}
-        super()._apply(fn, recurse)
-        for name, old in kept.items():
-            new = getattr(self, name)
-            if new.dtype == torch.float32:
-                continue
-            value = old.to(device=new.device, dtype=torch.float32)
-            if isinstance(new, nn.Parameter):
-                new.data = value
-            else:
-                self._buffers[name] = value
-        return self
 
     def _run(self, layer: nn.Module, *args) -> torch.Tensor:
         """layer(*args), recomputed in the backward under use_checkpoint."""
@@ -530,15 +548,19 @@ class DeformableTransformer(nn.Module):
     def decode(self, enc: Dict[str, torch.Tensor], topk: torch.Tensor,
                dn_labels: Optional[torch.Tensor] = None,
                dn_boxes: Optional[torch.Tensor] = None,
-               dn_attn_mask: Optional[torch.Tensor] = None) -> Dict:
+               dn_attn_mask: Optional[torch.Tensor] = None,
+               track_tgt: Optional[torch.Tensor] = None,
+               track_boxes: Optional[torch.Tensor] = None) -> Dict:
         """The decoder on the proposals `topk` (B, k) of `encode`'s output,
-        with, for contrastive denoising, dn_labels (B, N_dn) (class ids,
-        embedded by `label_enc`) and dn_boxes (B, N_dn, 4) (cxcywh in
-        [0, 1]) in front of the k matching queries, and the self-attention
-        allow-mask dn_attn_mask (N_dn + k, N_dn + k). Returns enc_logits,
-        enc_boxes, interm_logits, interm_boxes, init_proposals, and per
-        decoder layer lists of logits (B, N_dn + k, K), boxes (B, N_dn + k,
-        4) cxcywh in [0, 1] and hidden states, the dn queries' first."""
+        with MOTR's track queries track_tgt (B, T, C) and track_boxes (B, T,
+        4) (cxcywh in [0, 1]) in front of the k selected queries, and, for
+        contrastive denoising, dn_labels (B, N_dn) (class ids, embedded by
+        `label_enc`) and dn_boxes (B, N_dn, 4) in front of those, and the
+        self-attention allow-mask dn_attn_mask (N_dn + T + k,)*2. Returns
+        enc_logits, enc_boxes, interm_logits, interm_boxes,
+        init_proposals, and per decoder layer lists of logits (B, N, K),
+        boxes (B, N, 4) cxcywh in [0, 1] and hidden states (N = N_dn + T +
+        k), the dn queries' first, then the track queries'."""
         memory, out_memory = enc["memory"], enc["out_memory"]
         padding_mask = enc.get("padding_mask")
         vr = enc.get("valid_ratios")
@@ -564,6 +586,10 @@ class DeformableTransformer(nn.Module):
             "interm_boxes": torch.sigmoid(ref_undetach),
             "init_proposals": init_proposals,
             "logits": [], "boxes": [], "hidden": []}
+        if track_tgt is not None:
+            tgt = torch.cat([track_tgt.to(tgt.dtype), tgt], 1)
+            ref_boxes = torch.cat([track_boxes.to(ref_boxes.dtype),
+                                   ref_boxes], 1)
         if dn_labels is not None:
             if self.label_enc is None:
                 raise ValueError("dn queries need label_enc: build the "
@@ -609,11 +635,13 @@ class DeformableTransformer(nn.Module):
                 dn_labels: Optional[torch.Tensor] = None,
                 dn_boxes: Optional[torch.Tensor] = None,
                 dn_attn_mask: Optional[torch.Tensor] = None,
-                track_tgt=None, track_boxes=None) -> Dict:
-        """srcs: (B, S, C); padding_mask (B, S) and the dn inputs as
-        `encode` and `decode` take them. Returns `decode`'s dict."""
-        if track_tgt is not None or track_boxes is not None:
-            raise NotImplementedError(_TRACKING)
+                track_tgt: Optional[torch.Tensor] = None,
+                track_boxes: Optional[torch.Tensor] = None) -> Dict:
+        """srcs: (B, S, C); padding_mask (B, S), the dn inputs and MOTR's
+        track queries as `encode` and `decode` take them. Returns
+        `decode`'s dict."""
+        if (track_tgt is None) != (track_boxes is None):
+            raise ValueError("track_tgt and track_boxes come together")
         enc = self.encode(srcs, padding_mask)
         return self.decode(enc, self.select(enc), dn_labels, dn_boxes,
-                           dn_attn_mask)
+                           dn_attn_mask, track_tgt, track_boxes)

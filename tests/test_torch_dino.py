@@ -233,7 +233,7 @@ def test_init_variables_load_strictly():
     upstream gives it: the shared heads under both prefixes, per layer."""
     jdet = _jax_detector(**SCALES["4scale"])
     x0 = np.zeros((1, *CANVAS, 3), np.float32)
-    variables = jax.device_get(jdet.init(jax.random.PRNGKey(3), x0))
+    variables = jax.device_get(jax.jit(jdet.init)(jax.random.PRNGKey(3), x0))
     sd = dino_state_dict_from_jax(variables)
     det = _port_detector(**SCALES["4scale"])
     det.load_state_dict(sd, strict=True)

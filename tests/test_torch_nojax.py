@@ -13,8 +13,9 @@ both probe modules, run with --device cpu), the MSDA gather probes
 (ops.msda_probes with P4b-d, msda_pallas_probe, msda_packed_probe and
 msda_packed_probe2, run with --device cpu), the turns probes of K6 and
 of the MSDA gather probes' kernels (probes/hat_turns, msda_probe_turns,
-imported) and chip_smoke.py load no jax,
-jaxlib, flax or fastervit_tpu module."""
+imported), the tracking modules (fastervit_tpu_torch.tracking.*: one
+tiny frame of the exact MOTRv2 loop, the submit CLI's arguments) and
+chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu module."""
 import os
 import subprocess
 import sys
@@ -136,6 +137,24 @@ assert msda_probes.packed_wide(pm, fl, msda_probes.coeff_wide(*case[3:], 4),
 for probe in (msda_pallas_probe, msda_packed_probe, msda_packed_probe2):
     assert max(probe.main(["--device", "cpu"])[
         "correctness_max_err"].values()) < 1e-4
+from fastervit_tpu_torch.tracking import (convert as motr_convert, mot_data,
+                                          motr, motr_exact, submit)
+from fastervit_tpu_torch.tracking import transformer as motr_transformer
+mcfg = fvt.get_config("faster_vit_0_any_res", resolution=(64, 96),
+                      depths=[1, 1, 1, 1], dim=16, in_dim=8,
+                      num_heads=[1, 1, 2, 2])
+mdet = motr_exact.MOTRDetectorExact(mcfg, dim=64, num_queries=2,
+                                    enc_layers=1, dec_layers=1, ffn_dim=32)
+mqim = motr_exact.QIMv2(64, 32)
+motr_exact.init_weights(mdet, mqim, torch.Generator().manual_seed(0))
+res = motr_exact.exact_inference_sequence(
+    mdet.eval(), mqim.eval(), [np.zeros((64, 96, 3), np.float32)], 2, 64,
+    [np.full((1, 5), 0.5, np.float32)], num_proposals=1, track_capacity=2,
+    score_thresh=0.0)
+assert len(res) == 1 and len(res[0]["ids"]) == 3
+assert submit.parse_args(["--mot-path", "x"]).device == "cuda"
+assert motr_convert.split_motr_state_dict({"track_embed.a": 1}) == ({},
+                                                                   {"a": 1})
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
