@@ -242,6 +242,40 @@ Phases, each of which raises on failure:
      --exact --dtype bfloat16 --max-frames 4) on 800x1536 JPEG frames and
      a proposal db it writes to a temporary directory; the MOT file it
      writes, parsed.
+ 39. MOTR clip training, card against CPU: the MOTRDetector that
+     tracking/main.py trains (faster_vit_0_any_res, dim 256, 60 detect and
+     60 track queries, 10 proposals, 3 + 3 layers) in fp32 at 256x384, a
+     2-frame clip with proposals: the matching passes' assignments equal,
+     then one clip train step on the CPU's assignments, the CPU's on the
+     card's MSDA cells, ReLU sides and two-stage selections (PinLog,
+     SelectLog): the loss and every gradient, 24 K5 (each frame's forward
+     again in the backward) and 12 K7 launches;
+ 40. the tracking training path: that detector at 800x1536, f32 weights
+     under bf16 autocast, batch 1, a 5-frame synthetic clip with proposals
+     (an identity leaving, one arriving), AdamW at lr 2e-4, clip 0.1: one
+     step's launches by route, plan and Q (K1 and K2 on the tensor cores;
+     90 K5 and 30 K7, half at the encoder's Q 102,000, half at the
+     decoder's 130, every one bf16 on a vector plan, K7's encoder launches
+     on route l2); on the step's own tensors (grad_out scaled by a power
+     of two to a largest entry in [1, 2)), K7 at the encoder and decoder
+     calls held to its plain version (dloc and dweights to TOL_K7
+     and bit for bit over two launches, dvalue to its order bound, no
+     flushes) and timed beside it, the bound and autograd through the
+     grid_sample form; K5 at both calls (2^-8 of max(1, max|plain|)) and
+     K4 at the carriers (TOL_K4_BF16), each bit for bit over two launches,
+     timed beside its plain version and bound; the matching pass's
+     last-layer logits bit-identical to the gradient pass's; 10 steps timed
+     after 2, peak memory, one step profiled to
+     chiprun_out/motr_train_profile.json, the loss finite over 20 steps and
+     its last 5 steps' mean at most MOTR_LOSS_FALL of the first step's and
+     of steps 3-5's;
+ 41. the MOTR training CLI (python -m fastervit_tpu_torch.tracking.main) in
+     process, f32 at 800x1536: --synthetic --epochs 1 --sampler-lengths 2,
+     then --mot-path on a MOT-layout tree of JPEG frames and a --det-db it
+     writes (--clips-per-epoch 1); K5 and K7 launches counted (K7's
+     encoder launches on route l2); each checkpoint.pth loaded strictly
+     through build_motr_detector and 2 frames of motr_inference_sequence
+     run on it.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -547,6 +581,22 @@ MOTR_DEFAULT_QUERIES, MOTR_DEFAULT_LAYERS = 60, 3
 # TF32 off through 16 backbone blocks and 6 + 6 transformer layers, the sums
 # in another order (as TOL_DINO_FP32)
 TOL_MOTR_FP32 = 1e-4
+# MOTR clip training (fastervit_tpu/tracking/main.py's defaults): that
+# detector, a 5-frame clip (--sampler-lengths 5), AdamW at lr 2e-4, clip
+# 0.1; the decoder's K5 and K7 calls at Q 130 (60 track, 10 proposal, 60
+# detect queries)
+MOTR_TRAIN_FRAMES = 5
+MOTR_TRAIN_DEC_Q = 2 * MOTR_DEFAULT_QUERIES + MOTR_PROPOSALS
+MOTR_TRAIN_STEPS = 10      # timed bf16 steps, after 2
+MOTR_LOSS_STEPS = 20
+# the loss after a spike at step 2 (1.6, 86, then about 1; lr 2e-4 on every
+# parameter from a random init): the mean of the last 5 steps at most this
+# share of the first step's and of steps 3-5's mean (two runs read 0.42-0.46
+# and 0.59-0.64)
+MOTR_LOSS_FALL = 0.8
+# fp32 clip step card vs CPU on the same branches: as phase 30's bounds
+TOL_MOTR_STEP_LOSS = 1e-4
+TOL_MOTR_STEP_GRAD = 1e-3
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -811,19 +861,27 @@ class K5Plans:
     by (dtype, plan). ms_deform_attn_cuda is wrapped for the block's
     duration (`kernel_proxy`); the model, and the wrapper itself, look it
     up at each call. With kernel="ms_deform_attn_backward_cuda" it counts
-    K7's launches alike. With `capture_q`, plans.inputs keeps (cloned) the
-    inputs of the first launch at that query count Q."""
+    K7's launches alike. With `capture_q`, a query count Q or a tuple of
+    them, plans.captured[Q] keeps (cloned) the inputs of the first launch
+    at each, and plans.inputs those at the first Q given."""
 
     def __init__(self, cuda_msda, kernel: str = "ms_deform_attn_cuda",
-                 capture_q: Optional[int] = None):
-        self.cm, self.kernel, self.capture_q = cuda_msda, kernel, capture_q
+                 capture_q=None):
+        self.cm, self.kernel = cuda_msda, kernel
+        self.capture_q = ((capture_q,) if isinstance(capture_q, int)
+                          else tuple(capture_q or ()))
         self.label = "K5" if kernel == "ms_deform_attn_cuda" else "K7"
+
+    @property
+    def inputs(self):
+        return (self.captured.get(self.capture_q[0]) if self.capture_q
+                else None)
 
     def __enter__(self):
         self.count = collections.Counter()
         self.off_plan, self.encoder = [], collections.Counter()
         self.queries = collections.Counter()
-        self.inputs = None
+        self.captured = {}
         orig = self.orig = getattr(self.cm, self.kernel)
         k7 = self.label == "K7"
 
@@ -834,8 +892,8 @@ class K5Plans:
                 plan, q = orig.last_plan, args[1].shape[1]
                 self.count[(str(value.dtype).split(".")[-1], plan)] += 1
                 self.queries[q] += 1
-                if q == self.capture_q and self.inputs is None:
-                    self.inputs = cloned((value, *args))
+                if q in self.capture_q and q not in self.captured:
+                    self.captured[q] = cloned((value, *args))
                 if k7:
                     # K7's launch against msda_bwd_plan of its inputs; the
                     # encoder's (Q = S) plans kept apart
@@ -877,17 +935,19 @@ class K5Plans:
                                           f"by Q {dict(self.queries)}, "
                                           f"expected {want}")
 
-    def check_encoder(self, launches: int, what: str) -> None:
-        """At least `launches` K7 launches at DINO's encoder calls (Q = S),
-        every one on route smem with K7_ENCODER_TILED's levels."""
+    def check_encoder(self, launches: int, what: str, route: str = "smem",
+                      levels: tuple = K7_ENCODER_TILED) -> None:
+        """At least `launches` K7 launches at the encoder calls (Q = S),
+        every one on `route` tiling `levels` (DINO's: route smem with
+        K7_ENCODER_TILED's levels)."""
         ran = sum(self.encoder.values())
         tiled = {(p.route, p.tiled) for p in self.encoder}
         print(f"{what}: {ran} K7 launches at the encoder calls, on "
               f"(route, tiled levels) {sorted(tiled)}")
-        check(ran >= launches and tiled == {("smem", K7_ENCODER_TILED)},
+        check(ran >= launches and tiled == {(route, levels)},
               f"{what}: K7's encoder launches {dict(self.encoder)}, "
-              f"expected {launches} on route smem tiling levels "
-              f"{K7_ENCODER_TILED}")
+              f"expected {launches} on route {route} tiling levels "
+              f"{levels}")
 
 
 class FirstLaunches:
@@ -3960,6 +4020,56 @@ def k7_refuses_wrong_plans(cuda_msda, gen) -> None:
           + "), each counting no launch")
 
 
+def k7_timed(cuda_msda, msda, v16, shapes, loc, w16, g16,
+             iters: int = 10) -> dict:
+    """K7, its plain version and autograd through upstream's grid_sample
+    form (the library call) timed in turns on these inputs, the launch's
+    plan held to msda_bwd_plan on vector loads, beside the bound: ms,
+    plain_ms, library_ms, bound_ms, bound_by, mbytes, gflop,
+    dvalue_buffer_mbytes, g_samples_s and the plan."""
+    kernel = cuda_msda.ms_deform_attn_backward_cuda
+    plain = msda.msda_backward_reference
+    n, q, m, nl, p = loc.shape[:5]
+    d = v16.shape[-1]
+    leaves = [t.detach().clone().requires_grad_() for t in (v16, loc, w16)]
+    out = msda_grid_sample(leaves[0], shapes, leaves[1], leaves[2])
+    plain_ms, ms, lib_ms = in_turns(
+        lambda: plain(v16, shapes, loc, w16, g16),
+        lambda: kernel(v16, shapes, loc, w16, g16),
+        lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True),
+        iters)
+    del leaves, out
+    plan = kernel.last_plan
+    check(plan.vec > 1
+          and plan == k7_plan(cuda_msda, v16, shapes, loc, w16, g16),
+          f"K7's bf16 call {(n, q, m, d, p)} ran {plan}, not its "
+          "msda_bwd_plan on vector loads")
+    samples = n * q * m * nl * p
+    # value, grad_out, loc and weights read once, dvalue, dloc and dweights
+    # written once, each in its dtype (bf16 but for f32 locations and dloc)
+    nbytes = (2 * v16.element_size() * v16.numel()
+              + g16.element_size() * g16.numel()
+              + 2 * loc.element_size() * loc.numel()
+              + 2 * w16.element_size() * w16.numel())
+    # the least f32 work: per sample and channel, the four corner dots
+    # <v_c, g> (4 FMAs, 8) and the four corner multiply-adds into dvalue
+    # (8), since dweights and both location terms are per-sample
+    # combinations of the dots; per sample, the geometry, the corner
+    # weights and those combinations (~40)
+    flops = samples * (16.0 * d + 40)
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
+    by = ("operations" if flops / F32_FLOP_PER_S
+          > nbytes / HBM_BYTES_PER_S else "bytes")
+    # the f32 dvalue buffer: zeroed, 4 corner atomics a sample and channel,
+    # read for the cast
+    buffer_mb = (4 * 2 * v16.numel() + v16.element_size() * v16.numel()) \
+        / 1e6
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "mbytes": nbytes / 1e6,
+            "gflop": flops / 1e9, "dvalue_buffer_mbytes": buffer_mb,
+            "g_samples_s": samples / ms / 1e6, "plan": plan}
+
+
 def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
     """K7 against its plain version at K5's served and odd shapes, f32 and
     bf16 (beside f32 locations), and on a value and grad_out one element
@@ -3970,7 +4080,6 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
     the grid_sample form and the bound timed in bf16 at the encoder and
     decoder calls (uniform locations; the encoder also coherent)."""
     from fastervit_tpu_torch.probes import msda_turns
-    plain = msda.msda_backward_reference
     gen = torch.Generator(device="cuda").manual_seed(40)
     with K5Plans(cuda_msda, "ms_deform_attn_backward_cuda") as plans:
         worst, err16 = k7_checks(cuda_msda, msda, gen)
@@ -3995,56 +4104,26 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
                           generator=gen).bfloat16()
         v16, w16 = value.bfloat16(), w.bfloat16()
         del value, w
-        # the library form: autograd through upstream's grid_sample MSDA
-        leaves = [t.detach().clone().requires_grad_() for t in
-                  (v16, loc, w16)]
-        out = msda_grid_sample(leaves[0], shapes, leaves[1], leaves[2])
-        plain_ms, ms, lib_ms = in_turns(
-            lambda: plain(v16, shapes, loc, w16, g16),
-            lambda: kernel(v16, shapes, loc, w16, g16),
-            lambda: torch.autograd.grad(out, leaves, g16, retain_graph=True),
-            10)
-        served_plan = kernel.last_plan
-        check(served_plan.vec > 1
-              and served_plan == k7_plan(cuda_msda, v16, shapes, loc, w16,
-                                         g16),
-              f"K7's served bf16 call ran {served_plan}, not its "
-              "msda_bwd_plan on vector loads")
-        samples = n * q * m * len(shapes) * p
-        # value, grad_out, loc and weights read once, dvalue, dloc and
-        # dweights written once: bf16 but for the f32 locations and dloc
-        nbytes = (2 * (2 * v16.numel() + g16.numel()) + 2 * 4 * loc.numel()
-                  + 2 * 2 * w16.numel())
-        # the least f32 work: per sample and channel, the four corner dots
-        # <v_c, g> (4 FMAs, 8) and the four corner multiply-adds into dvalue
-        # (8), since dweights and both location terms are per-sample
-        # combinations of the dots; per sample, the geometry, the corner
-        # weights and those combinations (~40)
-        flops = samples * (16.0 * d + 40)
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
-        by = ("operations" if flops / F32_FLOP_PER_S
-              > nbytes / HBM_BYTES_PER_S else "bytes")
-        # the f32 dvalue buffer: zeroed, 4 corner atomics a sample and
-        # channel, read for the cast
-        buffer_mb = (4 * 2 * v16.numel() + 2 * v16.numel()) / 1e6
-        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound, "bound_by": by, "mbytes": nbytes / 1e6,
-               "gflop": flops / 1e9, "dvalue_buffer_mbytes": buffer_mb,
-               "g_samples_s": samples / ms / 1e6}
+        row = k7_timed(cuda_msda, msda, v16, shapes, loc, w16, g16)
+        served_plan = row.pop("plan")
+        ms, plain_ms, lib_ms = row["ms"], row["plain_ms"], row["library_ms"]
+        bound, by = row["bound_ms"], row["bound_by"]
         for key, t in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bound)):
             step[key] += calls * t
-        ops_ms += calls * 1e3 * flops / F32_FLOP_PER_S
-        bytes_ms += calls * 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms += calls * 1e3 * row["gflop"] * 1e9 / F32_FLOP_PER_S
+        bytes_ms += calls * 1e3 * row["mbytes"] * 1e6 / HBM_BYTES_PER_S
         print(f"K7 ms_deform_attn_backward N={n} Q={q} bf16, uniform "
               f"locations: kernel {ms:.4f} ms ({row['g_samples_s']:.1f} G "
               f"samples/s; with its f32 dvalue buffer's zeroing and cast), "
               f"plain {plain_ms:.4f} ms, autograd through the grid_sample "
               f"form {lib_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP f32, {by}; "
-              f"the f32 buffer adds {buffer_mb:.1f} MB) per call")
+              f"({row['mbytes']:.1f} MB, {row['gflop']:.2f} GFLOP f32, {by}; "
+              f"the f32 buffer adds {row['dvalue_buffer_mbytes']:.1f} MB) per "
+              f"call")
         if q == sum(h * w_ for h, w_ in shapes):
             # the encoder's coherent locations, timed beside the uniform
+            samples = n * q * m * len(shapes) * p
             loc_c = msda_turns.locations("coherent", n, q, m, p, shapes, gen)
             ms_c = time_ms(lambda: kernel(v16, shapes, loc_c, w16, g16),
                            iters=20)
@@ -4057,7 +4136,7 @@ def k7_phase(cuda_msda, msda, ptx_log: str) -> dict:
                   "call")
             del loc_c
         per_call[f"({n},{q},{m},{d},{p})"] = row
-        del v16, loc, w16, g16, leaves, out
+        del v16, loc, w16, g16
     print(f"K7 ms_deform_attn_backward over one DINO-4scale bf16 "
           f"b{DINO_BATCH} 800x1333 train step's 12 calls: kernel "
           f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, autograd "
@@ -4978,6 +5057,75 @@ def motr_k3_check(cuda_attention, attention, first, what: str) -> list:
     return calls
 
 
+def unit_scaled(g: torch.Tensor) -> torch.Tensor:
+    """g times the power of two that puts its largest |entry| in [1, 2):
+    exact in any float type at a training gradient's magnitudes, so the
+    kernel's function is the same; a check relative to the largest entry
+    with a floor (rel_to_largest's 1e-6) then sees the error of a g whose
+    entries all lie below the floor. An all-zero g fails."""
+    top = g.abs().max().item()
+    check(top > 0 and math.isfinite(top), f"grad_out's largest |entry| "
+                                          f"{top}")
+    return g * 2.0 ** -math.floor(math.log2(top))
+
+
+def motr_k4_check(cuda_attention, attention, first, what: str) -> list:
+    """K4 at each captured call of the train step (the any-res carriers)
+    against its plain version on the same card tensors, g `unit_scaled`,
+    f32 on the bf16 inputs: max|err| of dqkv and dbias over their largest
+    |plain| entry within TOL_K4_BF16 (k4_phase's bf16 bound), two launches
+    bit-identical, its route and plan; kernel and plain version timed in
+    turns beside the bound (k4_phase's count)."""
+    kernel = cuda_attention.window_mhsa_long_backward_cuda
+    plain = attention.window_mhsa_backward_reference
+    calls = []
+    for qkv, bias, g_step, h, scale in first.inputs.values():
+        g = unit_scaled(g_step)
+        b, s, c3 = qkv.shape
+        d = c3 // 3 // h
+        bf16 = qkv.dtype == torch.bfloat16
+        got = kernel(qkv, bias, g, h, scale)
+        check_bwd_plan(cuda_attention, bf16, d, bias.dtype,
+                       f"K4 at {what} {(b, s, h, d)}")
+        want = plain(qkv.float(), bias.float(), g.float(), h, scale)
+        err = max(rel_to_largest(got[0], want[0]),
+                  rel_to_largest(got[1], want[1]))
+        err_abs = max((got[i].float() - want[i]).abs().max().item()
+                      for i in range(2))
+        largest = [want[i].abs().max().item() for i in range(2)]
+        again = kernel(qkv, bias, g, h, scale)
+        same = torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+        del want, again
+        plain_ms, ms, _ = in_turns(lambda: plain(qkv, bias, g, h, scale),
+                                   lambda: kernel(qkv, bias, g, h, scale),
+                                   None, 10)
+        nbytes = (qkv.element_size() * 2 * qkv.numel()
+                  + g.element_size() * g.numel()
+                  + bias.element_size() * 2 * bias.numel())
+        flops = 10.0 * b * h * s * s * d
+        bound = bound_ms(nbytes, flops)
+        by = ("operations" if flops / BF16_FLOP_PER_S
+              > nbytes / HBM_BYTES_PER_S else "bytes")
+        print(f"K4 at {what} (B={b} S={s} H={h} hd={d}, {qkv.dtype} qkv, "
+              f"{bias.dtype} bias, {g.dtype} g, the step's largest |g| "
+              f"{g_step.abs().max().item():.3e} scaled to "
+              f"{g.abs().max().item():.3f}): max|err| {err_abs:.3e}, "
+              f"max|plain| of dqkv {largest[0]:.3e}, of dbias "
+              f"{largest[1]:.3e}; max|err| over max|plain| {err:.3e} (tol "
+              f"{TOL_K4_BF16}), two launches bit-identical {same}, route "
+              f"{kernel.last_plan.route}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card()}]")
+        check(err <= TOL_K4_BF16 and same,
+              f"K4 at {what} {(b, s, h, d)}: error {err}, bit-identical "
+              f"{same}")
+        calls.append({"shape": [b, s, h, d], "max_abs_err": err_abs,
+                      "max_err_over_max_plain": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by})
+    check(bool(calls), f"K4 at {what}: no launch captured")
+    return calls
+
+
 def time_clip(motr_exact, det, qim, frames, props, thresh: float):
     """run_motr over the clip, each frame timed on the host clock (a frame
     ends with its outputs on the host): (results, ms a frame)."""
@@ -5229,6 +5377,520 @@ def motr_phases(cuda_attention, cuda_msda, attention, msda, motr,
           f"{lite['k5']['ms']:.4f}); in turns, pooled medians "
           f"{turns['exact']['pooled_median']:.3f} ms (lite "
           f"{turns['lite']['pooled_median']:.3f}) [{card()}]")
+
+
+def motr_train_detector(motr, canvas, device, seed: int):
+    """The MOTRDetector tracking/main.py trains, at its widths (dim 256,
+    60 detect and 60 track queries, 10 proposals, 3 + 3 layers) for
+    `canvas`, f32, random weights from `seed`."""
+    return motr.build_motr_detector(
+        canvas, device=device, generator=torch.Generator().manual_seed(seed),
+        num_detect_queries=MOTR_DEFAULT_QUERIES,
+        num_track_queries=MOTR_DEFAULT_QUERIES,
+        num_proposal_queries=MOTR_PROPOSALS, enc_layers=MOTR_DEFAULT_LAYERS,
+        dec_layers=MOTR_DEFAULT_LAYERS)
+
+
+def motr_train_clip(canvas, frames: int, seed: int, device):
+    """A synthetic training clip of batch 1: one N(0, 1) image shifted 8
+    pixels right a frame, (F, 1, 3, H, W) f32 on `device`; each frame's
+    targets, identities moving with the image (1 throughout, 2 until frame
+    F // 2, which it leaves, 3 from it on), as targets_per_frame; and
+    MOTR_PROPOSALS proposals a frame, (F, 1, P, 5) on `device`: a jittered
+    box of each identity in the frame, the rest random, scores random."""
+    rng = np.random.RandomState(seed)
+    h, w = canvas
+    base = torch.from_numpy(rng.randn(3, h, w).astype(np.float32))
+    clip = torch.stack([torch.roll(base, 8 * f, dims=2)
+                        for f in range(frames)])[:, None].to(device)
+    boxes = {1: (0.3, 0.4, 0.1, 0.25), 2: (0.6, 0.5, 0.08, 0.2),
+             3: (0.45, 0.65, 0.12, 0.3)}
+    targets, props = [], []
+    for f in range(frames):
+        ids = [1] + ([2] if f < frames // 2 else [3])
+        bx = (np.asarray([boxes[i] for i in ids], np.float32)
+              + np.asarray([8 * f / w, 0, 0, 0], np.float32))
+        targets.append([{"labels": np.zeros(len(ids), np.int32),
+                         "boxes": bx, "track_ids": np.asarray(ids)}])
+        rest = MOTR_PROPOSALS - len(ids)
+        near = bx + rng.uniform(-0.01, 0.01, bx.shape)
+        far = np.concatenate([rng.uniform(0.2, 0.8, (rest, 2)),
+                              rng.uniform(0.05, 0.25, (rest, 2))], -1)
+        props.append(np.concatenate([np.concatenate([near, far]),
+                                     rng.uniform(0.3, 0.95,
+                                                 (MOTR_PROPOSALS, 1))], -1))
+    return (clip, targets,
+            torch.from_numpy(np.stack(props).astype(np.float32))[:, None]
+            .to(device))
+
+
+class SelectLog:
+    """Inside `with SelectLog(det, replay) as log:`, the detector's two-stage
+    selections (det.transformer.select) logged in call order (log.topk, on
+    the CPU). Given `replay`, another run's SelectLog, each call selects
+    replay's queries instead of its own, and log.gaps keeps, a call, the
+    largest gap between the scores of its own queries and of replay's where
+    they differ (0 where none does)."""
+
+    def __init__(self, det, replay=None):
+        self.tr, self.replay = det.transformer, replay
+
+    def __enter__(self):
+        self.topk, self.gaps, self.scale = [], [], 0.0
+        orig = self.tr.select
+
+        def select(enc):
+            own = orig(enc)
+            if self.replay is not None:
+                given = self.replay.topk[len(self.topk)].to(own.device)
+                scores = enc["enc_logits"].detach().float().max(-1).values
+                diff = given != own
+                self.gaps.append((scores.gather(1, given)
+                                  - scores.gather(1, own))[diff].abs()
+                                 .max().item() if diff.any() else 0.0)
+                self.scale = max(self.scale, scores.abs().max().item())
+                own = given
+            self.topk.append(own.cpu())
+            return own
+
+        self.tr.select = select
+        return self
+
+    def __exit__(self, *exc):
+        del self.tr.select
+
+
+def motr_train_fp32_phase(cuda_attention, cuda_msda, msda, motr) -> None:
+    """Phase 39: one fp32 clip train step of the MOTRDetector
+    tracking/main.py trains (phase 40's widths) at 256x384 on a 2-frame
+    clip with proposals, card against CPU (TF32 off) from the same weights:
+    the matching passes' assignments equal; then the step on the CPU's
+    assignments, the loss and every gradient. As in phase 30, the
+    sampling-offset kernels are drawn at random (at the init every sample
+    sits on a cell border) and the CPU's step takes the card's branches,
+    MSDA cells, ReLU sides and two-stage selections, through its own
+    autograd path (PinLog, SelectLog); how many of its own would have
+    differed is printed."""
+    t0 = time.perf_counter()
+    det_cpu = motr_train_detector(motr, MOTR_SMALL_CANVAS, "cpu", seed=53)
+    gen = torch.Generator().manual_seed(54)
+    with torch.no_grad():
+        for m in det_cpu.modules():
+            if isinstance(m, msda.MSDeformAttnModule):
+                w = m.sampling_offsets.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / math.sqrt(w.shape[1]))
+    det = copy.deepcopy(det_cpu).to("cuda")
+    frames, targets, props = motr_train_clip(MOTR_SMALL_CANVAS, 2, 55, "cpu")
+    assignments = {}
+    with torch.no_grad():
+        for where, m in (("cpu", det_cpu), ("card", det)):
+            dev = "cpu" if where == "cpu" else "cuda"
+            outs = motr.motr_clip_forward(m, frames.to(dev), props.to(dev))
+            assignments[where] = motr.clip_assignments(outs, targets, 10)
+            del outs
+    same_assignment = np.array_equal(assignments["card"],
+                                     assignments["cpu"])
+    metrics, grads, logs, selects, seconds = {}, {}, {}, {}, {}
+    for where, m in (("card", det), ("cpu", det_cpu)):
+        dev = "cpu" if where == "cpu" else "cuda"
+        state = motr_state(motr, m)
+        replay = where == "cpu"
+        t1 = time.perf_counter()
+        before = train_launches(cuda_attention, cuda_msda)
+        with PinLog(msda, logs["card"] if replay else None) as log, \
+                SelectLog(m, selects["card"] if replay else None) as sel:
+            metrics[where] = motr.make_motr_clip_train_step()(
+                state, frames.to(dev), targets, props.to(dev),
+                assignments["cpu"])
+            torch.cuda.synchronize()
+        if where == "card":
+            calls = tuple(a - b for a, b in zip(
+                train_launches(cuda_attention, cuda_msda), before))
+        seconds[where] = time.perf_counter() - t1
+        grads[where] = {n: (p.grad if p.grad is not None
+                            else torch.zeros_like(p)).detach().cpu()
+                        for n, p in m.named_parameters()}
+        logs[where], selects[where] = log, sel
+    cell_flips = sum(int((a != b).sum())
+                     for a, b in zip(logs["cpu"].cells, logs["card"].cells))
+    coords = sum(a.numel() for a in logs["cpu"].cells)
+    relus = sum(a.numel() for a in logs["cpu"].masks)
+    check(len(logs["cpu"].locs) == len(logs["card"].locs)
+          and len(logs["cpu"].masks) == len(logs["card"].masks)
+          and len(selects["cpu"].topk) == len(selects["card"].topk),
+          f"MSDA calls: CPU {len(logs['cpu'].locs)}, card "
+          f"{len(logs['card'].locs)}; ReLU calls: CPU "
+          f"{len(logs['cpu'].masks)}, card {len(logs['card'].masks)}; "
+          f"selections: CPU {len(selects['cpu'].topk)}, card "
+          f"{len(selects['card'].topk)}")
+    loss = {k: v["loss"].item() for k, v in metrics.items()}
+    dloss = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    floor = 1e-5 * max(g.abs().max().item() for g in grads["cpu"].values())
+    errs = {}
+    for name, ref in grads["cpu"].items():
+        err = (grads["card"][name] - ref).abs().max().item()
+        errs[name] = err / max(ref.abs().max().item(), floor)
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1])
+    gap = max(selects["cpu"].gaps)
+    print(f"MOTRDetector fp32 clip train step, 2 frames at "
+          f"{MOTR_SMALL_CANVAS[0]}x{MOTR_SMALL_CANVAS[1]} with proposals, "
+          f"card vs CPU: matching passes' assignments equal "
+          f"{same_assignment} ({assignments['cpu'][:, 0, :3].tolist()}); "
+          f"loss {loss['card']:.6f} / {loss['cpu']:.6f}, relative |dloss| "
+          f"{dloss:.3e} (tol {TOL_MOTR_STEP_LOSS}); gradients' max|err| / "
+          f"max|CPU| (floor {floor:.2e}), the 12 largest: "
+          + ", ".join(f"{n} {v:.2e}" for n, v in ranked[:12])
+          + f"; median {ranked[len(ranked) // 2][1]:.2e} over "
+          f"{len(ranked)} tensors (tol {TOL_MOTR_STEP_GRAD}); both steps "
+          f"take the card's branches: the CPU's own two-stage selections "
+          f"differ by score gaps up to {gap:.2e} over "
+          f"{len(selects['cpu'].topk)} calls, its own MSDA locations would "
+          f"have sampled another cell at {cell_flips} of {coords} "
+          f"coordinates over {len(logs['cpu'].cells)} calls, its own ReLU "
+          f"inputs been on the other side of 0 at "
+          f"{logs['cpu'].relu_flips} of {relus}; K1, K2, K3, K4, K5, K7 "
+          f"launches per step {calls}; CPU step {seconds['cpu']:.1f} s, "
+          f"card {seconds['card']:.1f} s, "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    check(same_assignment, f"MOTR matching passes' assignments: card "
+                           f"{assignments['card'].tolist()}, CPU "
+                           f"{assignments['cpu'].tolist()}")
+    check(dloss <= TOL_MOTR_STEP_LOSS, f"MOTR step loss card vs CPU {dloss}")
+    check(gap <= TOL_MOTR_FP32 * selects["cpu"].scale,
+          f"MOTR two-stage selections differ by score gaps up to {gap}")
+    check(ranked[0][1] <= TOL_MOTR_STEP_GRAD,
+          f"gradient of {ranked[0][0]}: card vs CPU {ranked[0][1]} of its "
+          "largest entry")
+    check(calls[4] == 2 * 2 * 6 and calls[5] == 2 * 6,
+          f"MOTR fp32 step launches {calls}, expected K5 24 (each frame's "
+          "forward again in the backward) and K7 12")
+    del det_cpu, det, grads, logs, selects
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def motr_state(motr, det):
+    """A DetectionTrainState of `det` with tracking/main.py's optimizer
+    (AdamW at lr 2e-4, weight decay 1e-4, clip 0.1, every parameter)."""
+    from fastervit_tpu_torch.detection.engine import DetectionTrainState
+    return DetectionTrainState(det, motr.create_motr_optimizer(
+        det, lr=2e-4, weight_decay=1e-4, clip_max_norm=0.1))
+
+
+def motr_train_phase(cuda_attention, cuda_msda, attention, msda,
+                     motr) -> dict:
+    """Phase 40: MOTR clip training as tracking/main.py configures it, at
+    800x1536, batch 1, a MOTR_TRAIN_FRAMES-frame synthetic clip with
+    proposals (an identity leaving, one arriving), f32 weights under bf16
+    autocast: one step's launches by route, plan and Q (K7's encoder
+    launches on route l2); on the step's own card tensors (grad_out
+    `unit_scaled`), K7 and K5 at the encoder call (Q = S) and at the
+    decoder's Q MOTR_TRAIN_DEC_Q, and K4 at the carriers, held to their plain versions and timed beside them (K7
+    beside autograd through the grid_sample form too) and their bounds;
+    the matching pass's last-layer logits equal to the gradient pass's bit
+    for bit; 10 steps timed after 2; peak memory; one step profiled; the
+    loss finite and falling over MOTR_LOSS_STEPS steps."""
+    t0 = time.perf_counter()
+    det = motr_train_detector(motr, MOTR_CANVAS, "cuda", seed=57)
+    state = motr_state(motr, det)
+    step = motr.make_motr_clip_train_step(torch.bfloat16)
+    frames, targets, props = motr_train_clip(MOTR_CANVAS, MOTR_TRAIN_FRAMES,
+                                             58, "cuda")
+    build_s = time.perf_counter() - t0
+    both_q = (MOTR_ENC_Q, MOTR_TRAIN_DEC_Q)
+    reset_train_launches(cuda_attention, cuda_msda)
+    with RouteLog(cuda_attention) as routes, \
+            K5Plans(cuda_msda, capture_q=both_q) as k5_plans, \
+            K5Plans(cuda_msda, "ms_deform_attn_backward_cuda",
+                    capture_q=both_q) as k7_plans, \
+            FirstLaunches(cuda_attention,
+                          "window_mhsa_long_backward_cuda") as k4s:
+        m = step(state, frames, targets, props)
+        torch.cuda.synchronize()
+    calls = train_launches(cuda_attention, cuda_msda)
+    f = MOTR_TRAIN_FRAMES
+    what = (f"MOTR clip train step bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}, "
+            f"{f} frames")
+    same = all(torch.equal(a, b) for a, b in zip(m["match_logits"],
+                                                 m["logits"]))
+    print(f"{what} (autocast, f32 weights, per-frame checkpoint): K1, K2, "
+          f"K3, K4, K5, K7 launches per step {calls}; K1 routes "
+          f"{dict(routes.k1)}, K2 routes {dict(routes.k2)}; assignment "
+          f"{m['assignment'][:, 0, :3].tolist()}; the matching pass's "
+          f"last-layer logits bit-identical to the gradient pass's {same}; "
+          f"build {build_s:.1f} s")
+    k5_plans.check(3 * 6 * f, what, vector=True)
+    k5_plans.check_queries({MOTR_ENC_Q: 3 * 3 * f,
+                            MOTR_TRAIN_DEC_Q: 3 * 3 * f}, what)
+    check_motr_k5_plans(k5_plans, cuda_msda, what)
+    k7_plans.check(6 * f, what, vector=True)
+    k7_plans.check_queries({MOTR_ENC_Q: 3 * f, MOTR_TRAIN_DEC_Q: 3 * f}, what)
+    k7_plans.check_encoder(3 * f, what, route="l2", levels=())
+    check(calls[4] == 3 * 6 * f and calls[5] == 6 * f
+          and all(calls[i] > 0 for i in (0, 2, 3)),
+          f"{what}: launches {calls}, expected K5 {3 * 6 * f} and K7 "
+          f"{6 * f}, K1, K3 and K4")
+    check(set(routes.k1) == {"wgmma"} and set(routes.k2) <= {"wgmma"},
+          f"{what}: K1 and K2 routes {dict(routes.k1)}, {dict(routes.k2)}")
+    check(same, f"{what}: the matching pass's logits differ from the "
+                "gradient pass's")
+    slots = m["assignment"][:, 0]
+    check(all((slots[i, :len(t[0]["track_ids"])] >= 0).all()
+              for i, t in enumerate(targets))
+          and len(set(slots[:, 0].tolist())) == 1,
+          f"{what}: every identity matched, identity 1 in one slot "
+          f"throughout: {slots.tolist()}")
+
+    # K7 at the encoder and decoder calls on the step's own tensors,
+    # grad_out unit_scaled
+    kernel = cuda_msda.ms_deform_attn_backward_cuda
+    k7_calls = {}
+    for q, call in zip(both_q, ("encoder", "decoder")):
+        inputs = k7_plans.captured.get(q)
+        check(inputs is not None, f"{what}: no K7 launch at Q {q}")
+        value, shapes, loc, w, g_step = inputs
+        g = unit_scaled(g_step)
+        r = k7_check(cuda_msda, kernel, msda.msda_backward_reference, msda,
+                     value, shapes, loc, w, g)
+        flushes = cuda_msda.msda_bwd_flushes(r["plan"], loc.shape[1])
+        name = f"K7 at the MOTR train step's {call} call"
+        print(f"{name} (N={value.shape[0]} Q={loc.shape[1]} over "
+              f"S={value.shape[1]} values, M={value.shape[2]} "
+              f"D={value.shape[3]} P={loc.shape[4]}, {value.dtype} value, "
+              f"{loc.dtype} locations, {g.dtype} grad_out, the step's own "
+              f"tensors, its largest |grad_out| "
+              f"{g_step.abs().max().item():.3e} scaled to "
+              f"{g.abs().max().item():.3f}): dvalue max|err| "
+              f"{r['dvalue_max_abs_err']:.3e}, at "
+              f"most {r['dvalue_over_bound']:.3f} of its order bound (c "
+              f"{r['c']}, {flushes} flushes); dloc max|err| / max|plain| "
+              f"{r['dloc_rel']:.3e} (tol {TOL_K7}); dweights at most "
+              f"{r['dweights_over_bound']:.3f} of its bound; second launch: "
+              f"dloc and dweights bit-identical {r['same_bits']}, dvalue at "
+              f"most {r['rerun_over_bound']:.3f} of the bound; plan "
+              f"{r['plan']}")
+        check(r["dvalue_over_bound"] <= 1 and r["dloc_rel"] <= TOL_K7
+              and r["dweights_over_bound"] <= 1 and r["same_bits"]
+              and r["rerun_over_bound"] <= 1 and flushes == 0
+              and r["plan"].route == "l2", f"{name}: {r}, {flushes} flushes")
+        row = k7_timed(cuda_msda, msda, value, shapes, loc, w, g)
+        plan = row.pop("plan")
+        print(f"{name}, timed: kernel {row['ms']:.4f} ms "
+              f"({row['g_samples_s']:.1f} G samples/s), plain "
+              f"{row['plain_ms']:.4f} ms, autograd through the grid_sample "
+              f"form {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['mbytes']:.1f} MB, {row['gflop']:.2f} GFLOP f32, "
+              f"{row['bound_by']}) [{card()}]")
+        k7_calls[call] = {**row, "plan": plan._asdict(),
+                          "max_abs_err": r["dvalue_max_abs_err"],
+                          "worst_over_bound": {
+                              k: r[k] for k in ("dvalue_over_bound",
+                                                "dloc_rel",
+                                                "dweights_over_bound",
+                                                "rerun_over_bound")},
+                          "flushes": flushes}
+        del inputs, value, loc, w, g, g_step
+    # K5 at both calls and K4 at the carriers, on the step's own tensors
+    k5_calls = {}
+    for q, call in zip(both_q, ("encoder", "decoder")):
+        check(q in k5_plans.captured, f"{what}: no K5 launch at Q {q}")
+        k5_calls[call] = motr_k5_check(cuda_msda, msda,
+                                       k5_plans.captured[q],
+                                       f"the MOTR train step's {call} call")
+    k4_calls = motr_k4_check(cuda_attention, attention, k4s,
+                             "the MOTR train step's carrier attention")
+    k7_by_q = dict(k7_plans.queries)
+    del k7_plans, k4s
+    k5_plans.captured.clear()
+    gc.collect()
+
+    losses = [m["loss"]]
+
+    def run():
+        losses.append(step(state, frames, targets, props)["loss"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    for _ in range(MOTR_TRAIN_STEPS):
+        run()
+    end.record()
+    end.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t1) / MOTR_TRAIN_STEPS
+    ms = start.elapsed_time(end) / MOTR_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    smi = card()
+    print(f"{what}: {ms:.3f} ms a step (CUDA events over "
+          f"{MOTR_TRAIN_STEPS} steps after 2; host {wall_ms:.3f} ms), "
+          f"{f * 1000 / ms:.2f} frames/s; peak memory {peak / 2**20:.1f} MiB "
+          f"[{smi}]")
+    prof = profile_device(run, 1, f"MOTR clip train step bf16 "
+                          f"{MOTR_CANVAS[0]}x{MOTR_CANVAS[1]} {f}-frame step",
+                          ms, smi, "motr_train_profile.json")
+    while len(losses) < MOTR_LOSS_STEPS:
+        run()
+    values = [v.item() for v in losses]
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    last = mean(values[-5:])
+    print(f"MOTR bf16 clip train steps on one clip: the loss over "
+          f"{len(values)} steps {[round(v, 3) for v in values]} (the first "
+          f"{values[0]:.3f}, mean of steps 3-5 {mean(values[2:5]):.3f}, of "
+          f"the last 5 {last:.3f}: {last / values[0]:.3f} and "
+          f"{last / mean(values[2:5]):.3f} of them, limit {MOTR_LOSS_FALL})")
+    check(all(math.isfinite(v) for v in values), f"MOTR losses {values}")
+    check(last <= MOTR_LOSS_FALL * min(values[0], mean(values[2:5])),
+          f"MOTR loss did not fall over {len(values)} steps (mean of the "
+          f"last 5 against the first and steps 3-5's mean): {values}")
+    del det, state, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": calls, "ms": ms, "host_ms": wall_ms, "peak": peak,
+            "profile": prof, "k7_calls": k7_calls, "k5_calls": k5_calls,
+            "k4_calls": k4_calls, "k5_by_q": dict(k5_plans.queries),
+            "k7_by_q": k7_by_q}
+
+
+def write_mot_tree(root: Path, seqs: int, frames: int, seed: int) -> None:
+    """A MOT-layout training tree under root: train/seqNN/img1 with
+    `frames` JPEG frames at MOTR_CANVAS (phase 38's image, shifted 8 pixels
+    a frame), gt/gt.txt with two identities (one leaving two frames before
+    the end) and det_db.json with three proposals a frame."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    h, w = MOTR_CANVAS
+    db = {}
+    for s in range(1, seqs + 1):
+        seq = root / "train" / f"seq{s:02d}"
+        (seq / "img1").mkdir(parents=True)
+        (seq / "gt").mkdir()
+        base = (np.cumsum(rng.randint(-8, 9, (h, w, 3)), 1) % 256).astype(
+            np.uint8)
+        rows = []
+        for f in range(1, frames + 1):
+            Image.fromarray(np.roll(base, 8 * f, axis=1)).save(
+                seq / "img1" / f"{f:08d}.jpg")
+            rows.append(f"{f},1,{300 + 8 * f},200,120,260,1,1,1")
+            if f <= frames - 2:
+                rows.append(f"{f},2,{900 + 8 * f},300,100,220,1,1,1")
+            db[f"train/seq{s:02d}/img1/{f:08d}.txt"] = [
+                f"{296 + 8 * f},204,124,254,0.9",
+                f"{904 + 8 * f},296,96,224,0.8", "40,40,200,200,0.3"]
+        (seq / "gt" / "gt.txt").write_text("\n".join(rows) + "\n")
+    (root / "det_db.json").write_text(json.dumps(db))
+
+
+def motr_train_cli_phase(cuda_attention, cuda_msda, motr) -> list:
+    """Phase 41: the MOTR training CLI (fastervit_tpu_torch.tracking.main)
+    in process on the card at its defaults' 800x1536 in f32, under TMPDIR,
+    twice: --synthetic --epochs 1 --sampler-lengths 2 (two 2-frame clips),
+    then --mot-path on a MOT-layout tree and a --det-db it writes (2
+    sequences of 6 JPEG frames) with --clips-per-epoch 1. Each run's K5 and
+    K7 launches counted, K7's encoder launches on route l2; each
+    checkpoint.pth loads strictly through build_motr_detector and tracks 2
+    frames of motr_inference_sequence."""
+    from fastervit_tpu_torch.tracking import main as train_cli
+    runs = []
+    for name in ("synthetic", "mot-path"):
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--epochs", "1", "--sampler-lengths", "2", "--output",
+                    str(Path(tmp) / "out")]
+            if name == "synthetic":
+                argv += ["--synthetic"]
+                clips = 2
+            else:
+                write_mot_tree(Path(tmp) / "mot", 2, 6, 59)
+                argv += ["--mot-path", str(Path(tmp) / "mot"), "--det-db",
+                         "det_db.json", "--clips-per-epoch", "1",
+                         "--sample-interval", "2"]
+                clips = 1
+            reset_train_launches(cuda_attention, cuda_msda)
+            t0 = time.perf_counter()
+            with K5Plans(cuda_msda, "ms_deform_attn_backward_cuda") as k7s:
+                result = train_cli.main(argv)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            calls = train_launches(cuda_attention, cuda_msda)
+            ckpt = Path(tmp) / "out" / "checkpoint.pth"
+            size = ckpt.stat().st_size if ckpt.exists() else 0
+            det = motr.build_motr_detector(
+                MOTR_CANVAS, checkpoint=str(ckpt),
+                num_detect_queries=MOTR_DEFAULT_QUERIES,
+                num_track_queries=MOTR_DEFAULT_QUERIES,
+                num_proposal_queries=MOTR_PROPOSALS,
+                enc_layers=MOTR_DEFAULT_LAYERS,
+                dec_layers=MOTR_DEFAULT_LAYERS)
+            frames, props = motr_clip(MOTR_CANVAS, 2, 60, "cuda")
+            tracked = motr.motr_inference_sequence(
+                det, frames, num_track_slots=MOTR_DEFAULT_QUERIES,
+                dim=det.dim, score_thresh=0.0, proposals_per_frame=props)
+        what = (f"MOTR training CLI (--{name} --epochs 1 --sampler-lengths "
+                f"2, f32, {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]})")
+        print(f"{what}: {seconds:.1f} s; {result}; checkpoint.pth "
+              f"{size / 2**20:.1f} MiB, loaded strictly, 2 frames tracked "
+              f"({[len(r['ids']) for r in tracked]} tracks); K1, K2, K3, "
+              f"K4, K5, K7 launches {calls} [{card()}]")
+        k7s.check(12 * clips, what)
+        k7s.check_encoder(6 * clips, what, route="l2", levels=())
+        check(size > 0 and math.isfinite(result["loss"]),
+              f"{what}: {result}, checkpoint {size} bytes")
+        check(calls[4] == 36 * clips and calls[5] == 12 * clips,
+              f"{what}: K5, K7 launches {calls[4:]}, expected {36 * clips} "
+              f"and {12 * clips}")
+        check(all(np.isfinite(r["boxes"]).all() for r in tracked),
+              f"{what}: tracked boxes finite")
+        runs.append({"run": name, "seconds": seconds, "loss": result["loss"],
+                     "launches": calls})
+        del det, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def motr_train_phases(cuda_attention, cuda_msda, attention, msda, motr,
+                      k4, k5, k7) -> None:
+    """Phases 39-41, MOTR clip training; the full-width step's launches
+    and its checked calls go into K4's, K5's and K7's entries of the
+    kernels line."""
+    motr_train_fp32_phase(cuda_attention, cuda_msda, msda, motr)
+    trained = motr_train_phase(cuda_attention, cuda_msda, attention, msda,
+                               motr)
+    cli_runs = motr_train_cli_phase(cuda_attention, cuda_msda, motr)
+    where = (f"one MOTR clip train step (tracking/main.py's MOTRDetector, "
+             f"bf16 autocast, {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}, "
+             f"{MOTR_TRAIN_FRAMES} frames: the matching pass, the gradient "
+             f"pass and its per-frame recompute)")
+    k5["launches_motr_training"] = trained["launches"][4]
+    k5["launches_motr_training_by_q"] = trained["k5_by_q"]
+    k5["launches_motr_training_in"] = where
+    k5["motr_train_calls"] = trained["k5_calls"]
+    k4["launches_motr_training"] = trained["launches"][3]
+    k4["launches_motr_training_in"] = where
+    k4["motr_train_carrier_calls"] = trained["k4_calls"]
+    k7["launches_motr_training"] = trained["launches"][5]
+    k7["launches_motr_training_by_q"] = trained["k7_by_q"]
+    k7["launches_motr_training_in"] = where
+    k7["motr_encoder_call"] = trained["k7_calls"]["encoder"]
+    k7["motr_decoder_call"] = trained["k7_calls"]["decoder"]
+    k7["motr_train_cli_launches"] = {r["run"]: r["launches"][5]
+                                     for r in cli_runs}
+    prof = trained["profile"] or {}
+    enc = trained["k7_calls"]["encoder"]
+    print(f"MOTR clip training bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]}, "
+          f"{MOTR_TRAIN_FRAMES} frames: {trained['ms']:.3f} ms a step, "
+          f"device busy {100 * prof.get('busy', float('nan')):.1f}%, peak "
+          f"{trained['peak'] / 2**20:.1f} MiB; K7 at the encoder call "
+          f"{enc['ms']:.4f} ms (plain {enc['plain_ms']:.4f}, bound "
+          f"{enc['bound_ms']:.4f}, grid_sample form "
+          f"{enc['library_ms']:.4f}) [{card()}]")
 
 
 def main() -> None:
@@ -5495,6 +6157,11 @@ def main() -> None:
     #     with the lite encoder), the default path, the CLI
     motr_phases(cuda_attention, cuda_msda, attention, msda, motr,
                 motr_exact, k1, k3, k5)
+
+    # 39-41. MOTR clip training: card against CPU, the full-width clip step,
+    #     the training CLI
+    motr_train_phases(cuda_attention, cuda_msda, attention, msda, motr, k4,
+                      k5, k7)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers, k7]}))

@@ -69,6 +69,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from fastervit_tpu_torch.ops.msda import MSDeformAttnModule, normalize_shapes
 
@@ -277,6 +278,17 @@ def output_proposals_masked(padding_mask: torch.Tensor,
     return logit, valid
 
 
+def same_bits_with_grad():
+    """The SDPA backends for the query self-attentions (nn.MultiheadAttention
+    calls SDPA): flash attention in bf16, the memory-efficient kernel in
+    f32, each the same kernel with and without gradients. On the card the
+    default, cuDNN's attention, gave other bits when its inputs needed a
+    gradient than when they did not, so that a train step's matching pass
+    and its gradient pass computed different queries from one input."""
+    return sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH])
+
+
 def forward_ffn(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
                 norm: nn.LayerNorm) -> torch.Tensor:
     """The FFN of fastervit_tpu's transformer.py (forward_ffn,
@@ -347,9 +359,10 @@ class DecoderLayer(nn.Module):
         takes it, or None."""
         q = tgt + query_pos
         # nn.MultiheadAttention's bool mask marks what is blocked
-        sa = self.self_attn(q, q, tgt, need_weights=False,
-                            attn_mask=None if self_attn_mask is None
-                            else ~self_attn_mask)[0]
+        with same_bits_with_grad():
+            sa = self.self_attn(q, q, tgt, need_weights=False,
+                                attn_mask=None if self_attn_mask is None
+                                else ~self_attn_mask)[0]
         tgt = self.norm2(tgt + sa)
         ca = self.cross_attn(tgt + query_pos, ref_input, memory,
                              spatial_shapes, padding_mask)
@@ -538,12 +551,16 @@ class DeformableTransformer(KeepF32):
 
     def select(self, enc: Dict[str, torch.Tensor]) -> torch.Tensor:
         """DINO's two-stage selection: the (B, k) indices of the k =
-        min(num_queries, S) proposals of highest class score, best first.
+        min(num_queries, S) proposals of highest class score, best first,
+        the lower index first among equal scores, as lax.top_k takes them.
+        A stable sort, not topk, whose order among ties is unspecified:
+        bf16 scores tie at the k-th place (4-12 of MOTR's 102,000 a frame).
         (Padded rows' scores tie; their proposals, +inf, give the same box
         whichever of them is taken.)"""
         k = min(self.num_queries, enc["enc_logits"].shape[1])
         scores = enc["enc_logits"].max(-1).values
-        return scores.topk(k, dim=1).indices
+        return torch.sort(scores, dim=1, descending=True,
+                          stable=True).indices[:, :k]
 
     def decode(self, enc: Dict[str, torch.Tensor], topk: torch.Tensor,
                dn_labels: Optional[torch.Tensor] = None,

@@ -25,11 +25,17 @@ from fastervit_tpu_torch.ops.msda import (dvalue_order_bound, ms_deform_attn,
                                           msda_backward_reference)
 
 SERVED = ((100, 167), (50, 84), (25, 42), (13, 21))
-# (N, Q, M, D, P, levels): DINO-4scale's decoder call at batch 2, then odd
-# shapes that reach every group size of the plans (D 1, 4, 8, 16, 24, 32,
-# 33, 48, 64), a 1x1 level and empty batches and query sets
+# MOTR's four levels at 800x1536 (faster_vit_0_any_res): its encoder call,
+# Q = S = 102,000 rows a head on route l2, and its training decoder's 130
+MOTR = ((200, 384), (100, 192), (50, 96), (25, 48))
+# (N, Q, M, D, P, levels): DINO-4scale's decoder call at batch 2, MOTR's
+# encoder and decoder calls, then odd shapes that reach every group size
+# of the plans (D 1, 4, 8, 16, 24, 32, 33, 48, 64), a 1x1 level and empty
+# batches and query sets
 CASES = [
     (2, 900, 8, 32, 4, SERVED),
+    (1, 102_000, 8, 32, 4, MOTR),
+    (1, 130, 8, 32, 4, MOTR),
     (1, 37, 3, 4, 2, ((5, 7), (1, 1), (3, 2))),
     (2, 50, 2, 8, 3, ((9, 4), (1, 1))),
     (1, 64, 4, 64, 4, ((12, 17), (6, 9), (3, 5), (2, 3))),

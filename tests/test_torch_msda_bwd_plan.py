@@ -31,19 +31,24 @@ ALIGNMENTS = (16, 8, 4, 2)
 DINO = ((100, 167), (50, 84), (25, 42), (13, 21))
 ENCODER = (2, sum(h * w for h, w in DINO), 8)
 DECODER = (2, 900, 8)
+# MOTR at 800x1536, batch 1, 8 heads: the encoder (Q = S = 102,000) and
+# the training decoder's (60 track, 10 proposal and 60 detect queries)
+MOTR = ((200, 384), (100, 192), (50, 96), (25, 48))
+MOTR_ENCODER = (1, sum(h * w for h, w in MOTR), 8)
+MOTR_DECODER = (1, 130, 8)
 # level sets: DINO's, MOTR's four (level 3 alone fits up to D 48), one wide
 # level (none fits), a 1x1 level beside a wider one, many small levels
 LEVEL_SETS = {
     "dino": DINO,
-    "motr": ((200, 384), (100, 192), (50, 96), (25, 48)),
+    "motr": MOTR,
     "one_wide": ((120, 200),),
     "one_by_one": ((30, 40), (1, 1)),
     "small": ((9, 4), (5, 3), (3, 2), (2, 2), (1, 1)),
 }
 # (N, Q, M) of the runs' check: the encoder and decoder calls, odd row
 # counts, an empty query set and batch
-ROW_CASES = [ENCODER, DECODER, (1, 37, 3), (3, 41, 5), (1, 1, 1),
-             (2, 5000, 1), (1, 0, 8), (0, 10, 8)]
+ROW_CASES = [ENCODER, DECODER, MOTR_ENCODER, MOTR_DECODER, (1, 37, 3),
+             (3, 41, 5), (1, 1, 1), (2, 5000, 1), (1, 0, 8), (0, 10, 8)]
 SMEM_LIMIT = 232_448  # a Hopper block's shared memory
 
 
@@ -117,6 +122,30 @@ def test_served_plans():
             assert (plan.route, plan.tiled, plan.tile_bytes) == tile
         assert msda_bwd_plan(32, dtype, 16, 2, DINO, 900, 16).vec == 1
         assert msda_bwd_plan(32, dtype, 2, 16, DINO, 900, 16).vec == 1
+
+
+# (blocks, run, rounds) of MOTR's encoder and decoder calls
+MOTR_GRIDS = {torch.bfloat16: ((264, 448, 7), (17, 64, 1)),
+              torch.float32: ((264, 416, 8), (33, 32, 1))}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("call", ["encoder", "decoder"])
+def test_motr_plans(call, dtype):
+    """MOTR's heads (D 32) at its 800x1536 levels: K5's lanes and vectors,
+    two blocks of 8 warps an SM, and route l2 at both calls. Level 3's f32
+    rows a head (25x48x32x4 = 153,600 bytes) overflow two blocks' share of
+    an SM, so nothing is tiled even at the encoder's 102,000 rows a head."""
+    n, q, m = MOTR_ENCODER if call == "encoder" else MOTR_DECODER
+    plan = msda_bwd_plan(32, dtype, 16, 16, MOTR, q, n * m)
+    lanes = (4, 8, 8, 8) if dtype == torch.bfloat16 else (8, 4, 4, 4)
+    assert plan[:4] == lanes
+    assert (plan.warps, plan.blocks_per_sm) == (8, 2)
+    assert (plan.blocks, plan.run, plan.rounds) == \
+        MOTR_GRIDS[dtype][call == "decoder"]
+    assert (plan.route, plan.tiled, plan.tile_bytes) == ("l2", (), 0)
+    assert 25 * 48 * 32 * 4 > TWO_BLOCK_TILE
+    assert msda_bwd_flushes(plan, q) == 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

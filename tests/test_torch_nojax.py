@@ -14,8 +14,10 @@ both probe modules, run with --device cpu), the MSDA gather probes
 msda_packed_probe2, run with --device cpu), the turns probes of K6 and
 of the MSDA gather probes' kernels (probes/hat_turns, msda_probe_turns,
 imported), the tracking modules (fastervit_tpu_torch.tracking.*: one
-tiny frame of the exact MOTRv2 loop, the submit CLI's arguments) and
-chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu module."""
+tiny frame of the exact MOTRv2 loop, the submit CLI's arguments; the
+training CLI and the DanceTrack and joint readers imported, one tiny clip
+step through motr_clip_train_epoch) and chip_smoke.py load no jax,
+jaxlib, flax or fastervit_tpu module."""
 import os
 import subprocess
 import sys
@@ -155,6 +157,17 @@ assert len(res) == 1 and len(res[0]["ids"]) == 3
 assert submit.parse_args(["--mot-path", "x"]).device == "cuda"
 assert motr_convert.split_motr_state_dict({"track_embed.a": 1}) == ({},
                                                                    {"a": 1})
+from fastervit_tpu_torch.tracking import dance_data, joint_data
+from fastervit_tpu_torch.tracking import main as motr_cli
+mdet = motr.MOTRDetector(mcfg, dim=64, num_detect_queries=2,
+                         num_track_queries=2, num_proposal_queries=1,
+                         enc_layers=1, dec_layers=1)
+motr.init_weights(mdet, torch.Generator().manual_seed(0))
+mstate = engine.DetectionTrainState(mdet, motr.create_motr_optimizer(mdet))
+clip = next(motr_cli._synthetic_clips(1, 2, 64, 96, 1))
+assert np.isfinite(motr.motr_clip_train_epoch(mstate, [clip])["loss"])
+assert mstate.step == 1 and motr_cli.parse_args([]).device == "cuda"
+assert dance_data.ID_OFFSET_PER_VIDEO == 100000 and joint_data.JointClips
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
