@@ -276,6 +276,29 @@ Phases, each of which raises on failure:
      encoder launches on route l2); each checkpoint.pth loaded strictly
      through build_motr_detector and 2 frames of motr_inference_sequence
      run on it.
+ 42. the tracking evaluation path, in a temporary directory: (a) a
+     DanceTrack-layout ground-truth tree (seqmap, seqinfo.ini, gt.txt: 10
+     identities of class 1 moving across 5 JPEG frames at 800x1536), each
+     frame's proposal file beside it, swept into a det_db by
+     tracking.tools.build_det_db; the checkpoint-exact MOTRv2 detector
+     (phase 36's widths) in bf16 run in process on the frames as the submit
+     CLI reads them (submit._load_sequences), its birth threshold from
+     frame 1's scores, the clip through exact_inference_sequence and
+     submit._write into a tracker folder beside an oracle (the ground truth
+     copied); the evaluator CLI (python -m fastervit_tpu_torch.tracking.
+     evaluator --dataset kind=dancetrack,... --parallel --cores 4
+     --output ...) in a subprocess: exit 0, the oracle's HOTA, MOTA and
+     IDF1 1.0, every MOTRv2 metric finite (HOTA, DetA, AssA and IDF1 in
+     [0, 1]), its seq01 row equal to evaluate_mot_files on the same files
+     within TOL_TRACK_EVAL, merge_tracklets keeping the file's rows; 11 K1,
+     6 K3 and 12 K5 launches a frame; (b) DINO-4scale (phase 20's detector)
+     bf16 b1 800x1333 on a 4-frame synthetic clip as a tracker: postprocess,
+     then track_sequence with a RuntimeTracker born at the frames' k-th
+     best score, ids carried between frames only across boxes of IoU at
+     least its iou_thresh, written with write_mot_file and scored by
+     evaluate_mot_files against a ground truth the phase writes (frame
+     1's tracks moving with the image), every metric finite; 17 K1, 12 K3
+     and 12 K5 launches a frame; each path's in-process ms a frame.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -597,6 +620,15 @@ MOTR_LOSS_FALL = 0.8
 # fp32 clip step card vs CPU on the same branches: as phase 30's bounds
 TOL_MOTR_STEP_LOSS = 1e-4
 TOL_MOTR_STEP_GRAD = 1e-3
+# the tracking evaluation path (phase 42): a 5-frame DanceTrack-layout
+# sequence of 10 identities for the MOTRv2 clip, a 4-frame clip for DINO
+# as a tracker, born at each frame's TRACK_DINO_K-th best score
+TRACK_EVAL_FRAMES, TRACK_EVAL_IDS = 5, 10
+TRACK_DINO_FRAMES, TRACK_DINO_K = 4, 8
+# the DanceTrack adapter's row against evaluate_mot_files on the same two
+# files: the same numpy metrics over the same boxes (xywh against xyxy
+# IoU, so only the rounding of x + w - x differs), relative to max(1, |v|)
+TOL_TRACK_EVAL = 1e-12
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -5893,6 +5925,286 @@ def motr_train_phases(cuda_attention, cuda_msda, attention, msda, motr,
           f"{enc['library_ms']:.4f}) [{card()}]")
 
 
+def write_dance_tree(root: Path):
+    """Phase 42's DanceTrack-layout tree under root: data/val/seq01/img1
+    with TRACK_EVAL_FRAMES JPEG frames at MOTR_CANVAS (phase 38's image,
+    shifted 8 pixels a frame, TRACK_EVAL_IDS boxes painted on it moving
+    with it) and each frame's proposal file beside it (x,y,w,h,score rows:
+    the boxes jittered); gt/DanceTrack-val/seq01/{seqinfo.ini, gt/gt.txt}
+    (class 1, mark 1) and gt/seqmaps/DanceTrack-val.txt.
+    -> (the --mot-path root, the gt folder, gt.txt)."""
+    from PIL import Image
+    rng = np.random.RandomState(46)
+    h, w = MOTR_CANVAS
+    mot = root / "data"
+    img_dir = mot / "val" / "seq01" / "img1"
+    img_dir.mkdir(parents=True)
+    seq = root / "gt" / "DanceTrack-val" / "seq01"
+    (seq / "gt").mkdir(parents=True)
+    (root / "gt" / "seqmaps").mkdir()
+    (root / "gt" / "seqmaps" / "DanceTrack-val.txt").write_text(
+        "name\nseq01\n")
+    (seq / "seqinfo.ini").write_text(
+        f"[Sequence]\nname=seq01\nimDir=img1\nframeRate=20\n"
+        f"seqLength={TRACK_EVAL_FRAMES}\nimWidth={w}\nimHeight={h}\n"
+        "imExt=.jpg\n")
+    base = (np.cumsum(rng.randint(-8, 9, (h, w, 3)), 1) % 256).astype(
+        np.uint8)
+    n = TRACK_EVAL_IDS
+    colors = rng.randint(0, 256, (n, 3)).astype(np.uint8)
+    x0, y0 = 60 + 135 * np.arange(n), 120 + 70 * (np.arange(n) % 5)
+    bw, bh = rng.randint(90, 121, n), rng.randint(200, 281, n)
+    rows = []
+    for f in range(1, TRACK_EVAL_FRAMES + 1):
+        img = np.roll(base, 8 * f, axis=1)
+        props = []
+        for i in range(n):
+            x, y = int(x0[i] + 8 * f), int(y0[i])
+            img[y:y + bh[i], x:x + bw[i]] = colors[i]
+            rows.append(f"{f},{i + 1},{x},{y},{bw[i]},{bh[i]},1,1,1")
+            j = rng.uniform(-3, 3, 4)
+            props.append(f"{x + j[0]:.2f},{y + j[1]:.2f},{bw[i] + j[2]:.2f},"
+                         f"{bh[i] + j[3]:.2f},{0.95 - 0.04 * i:.2f}")
+        Image.fromarray(img).save(img_dir / f"{f:08d}.jpg")
+        (img_dir / f"{f:08d}.txt").write_text("\n".join(props) + "\n")
+    gt = seq / "gt" / "gt.txt"
+    gt.write_text("\n".join(rows) + "\n")
+    return mot, root / "gt", gt
+
+
+def track_eval_motr_phase(cuda_attention, cuda_msda, motr_exact,
+                          root: Path) -> dict:
+    """Phase 42 (a): MOTRv2 tracks written as the submit CLI writes them,
+    scored by the evaluator CLI in a subprocess."""
+    from fastervit_tpu_torch.tracking import submit, tools
+    from fastervit_tpu_torch.tracking.mot_data import evaluate_mot_files
+    mot, gt_folder, gt = write_dance_tree(root)
+    db = {str(Path(k).relative_to(mot)): v
+          for k, v in tools.build_det_db([str(mot / "val")]).items()}
+    want_keys = {f"val/seq01/img1/{f:08d}.txt"
+                 for f in range(1, TRACK_EVAL_FRAMES + 1)}
+    check(set(db) == want_keys and all(len(v) == TRACK_EVAL_IDS
+                                       for v in db.values()),
+          f"build_det_db's keys {sorted(db)}")
+    (mot / "det_db.json").write_text(json.dumps(db))
+    trackers = root / "trackers" / "DanceTrack-val"
+    args = submit.parse_args([
+        "--mot-path", str(mot), "--split", "val", "--exact", "--dtype",
+        "bfloat16", "--det-db", "det_db.json", "--num-queries",
+        str(MOTR_QUERIES), "--num-proposals", str(MOTR_PROPOSALS),
+        "--enc-layers", "6", "--dec-layers", "6", "--track-capacity",
+        str(MOTR_CAPACITY), "--miss-tolerance", "10", "--img-height",
+        str(MOTR_CANVAS[0]), "--img-width", str(MOTR_CANVAS[1]),
+        "--output", str(trackers / "motrv2" / "data")])
+    (seq, frames, props, sizes), = list(submit._load_sequences(args))
+    check(seq == "seq01" and len(frames) == TRACK_EVAL_FRAMES
+          and all(p[:, 4].max() > 0.9 for p in props),
+          "submit._load_sequences: the frames and the det_db's proposals")
+    det, qim = motr_exact.build_motr_exact(
+        (args.img_height, args.img_width), args.backbone,
+        getattr(torch, args.dtype), "cuda",
+        generator=torch.Generator().manual_seed(47), dim=args.dim,
+        num_queries=args.num_queries, enc_layers=args.enc_layers,
+        dec_layers=args.dec_layers)
+
+    def stream(clip, thresh: float):
+        return motr_exact.exact_inference_sequence(
+            det, qim, clip, args.num_queries, args.dim,
+            proposals_per_frame=props, num_proposals=args.num_proposals,
+            track_capacity=args.track_capacity, score_thresh=thresh,
+            filter_score_thresh=thresh, miss_tolerance=args.miss_tolerance,
+            prob_threshold=0.0)
+
+    rec = MotrRecorder(det)
+    stream(frames[:1], 0.5)
+    thresh = motr_thresholds(torch.sigmoid(
+        rec.seen[0]["logits"][0, :MOTR_QUERIES + MOTR_PROPOSALS]))
+    rec.close()
+    starts = []
+
+    def timed():
+        for f in frames:
+            starts.append(time.perf_counter())
+            yield f
+
+    reset_launches(cuda_attention, cuda_msda)
+    results = stream(timed(), thresh)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    calls = detection_launches(cuda_attention, cuda_msda)
+    frame_ms = [1e3 * (b - a) for a, b in zip(starts[:-1], starts[1:])]
+    ids = [r["ids"].tolist() for r in results]
+    submit._write(args, seq, results, sizes)
+    (trackers / "oracle" / "data").mkdir(parents=True)
+    (trackers / "oracle" / "data" / "seq01.txt").write_text(gt.read_text())
+    what = (f"MOTRv2 exact bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]} "
+            f"{TRACK_EVAL_FRAMES}-frame DanceTrack clip")
+    print(f"{what}: K1, K3, K5 launches {calls}; ms a frame "
+          f"{[round(t, 3) for t in frame_ms]}; track ids {ids} (threshold "
+          f"{thresh:.4f}) [{card()}]")
+    check(calls == tuple(TRACK_EVAL_FRAMES * c for c in (11, 6, 12)),
+          f"{what}: launches {calls}, expected {TRACK_EVAL_FRAMES} x "
+          "(11, 6, 12)")
+    del det, qim, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = root / "eval"
+    cmd = [sys.executable, "-m", "fastervit_tpu_torch.tracking.evaluator",
+           "--dataset", f"kind=dancetrack,name=DanceTrack-val,split=val,"
+           f"gt_folder={gt_folder},trackers_folder={root / 'trackers'}",
+           "--parallel", "--cores", "4", "--output", str(out)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    eval_s = time.perf_counter() - t0
+    print(f"evaluator CLI: {' '.join(cmd[1:])}: exit {run.returncode} in "
+          f"{eval_s:.1f} s [{card()}]; its summary: "
+          + " | ".join(line.strip() for line in run.stdout.splitlines()
+                       if "HOTA=" in line))
+    check(run.returncode == 0, f"the evaluator CLI failed: "
+                               f"{run.stdout[-1000:]} {run.stderr[-2000:]}")
+    summary = json.loads((out / "DanceTrack-val" / "summary.json")
+                         .read_text())
+    for name in ("oracle", "motrv2"):
+        row = summary[name]["COMBINED_SEQ"]
+        print(f"DanceTrack-val {name}: HOTA {row['HOTA']:.6f}, MOTA "
+              f"{row['MOTA']:.6f}, IDF1 {row['IDF1']:.6f} (DetA "
+              f"{row['DetA']:.6f}, AssA {row['AssA']:.6f}, IDSW "
+              f"{row['IDSW']}, CLR_TP {row['CLR_TP']}, CLR_FP "
+              f"{row['CLR_FP']}, CLR_FN {row['CLR_FN']})")
+    oracle = summary["oracle"]["seq01"]
+    check(all(abs(oracle[k] - 1.0) <= TOL_TRACK_EVAL
+              for k in ("HOTA", "MOTA", "IDF1")),
+          f"the oracle's HOTA, MOTA, IDF1: "
+          f"{[oracle[k] for k in ('HOTA', 'MOTA', 'IDF1')]}")
+    mine = summary["motrv2"]["seq01"]
+    check(all(math.isfinite(v) for v in mine.values())
+          and all(0.0 <= mine[k] <= 1.0
+                  for k in ("HOTA", "DetA", "AssA", "IDF1")),
+          f"MOTRv2's metrics: {mine}")
+    trk = trackers / "motrv2" / "data" / "seq01.txt"
+    direct = evaluate_mot_files(str(gt), str(trk))
+    shared = sorted(set(direct) & set(mine))
+    gap = max(abs(float(direct[k]) - mine[k]) / max(1.0, abs(mine[k]))
+              for k in shared)
+    print(f"DanceTrack adapter's seq01 row against evaluate_mot_files: "
+          f"{len(shared)} shared keys, largest relative gap {gap:.3e} "
+          f"(tol {TOL_TRACK_EVAL})")
+    check(len(shared) >= 20 and gap <= TOL_TRACK_EVAL,
+          f"the DanceTrack adapter off evaluate_mot_files by {gap}")
+    lines = trk.read_text().splitlines(keepends=True)
+    merged = tools.merge_tracklets(lines)
+    check(len(lines) > 0 and len(merged) == len(lines),
+          f"merge_tracklets: {len(lines)} rows in, {len(merged)} out")
+    return {"launches": calls, "ms": float(np.median(frame_ms)),
+            "eval_s": eval_s, "hota": mine["HOTA"]}
+
+
+def track_eval_dino_phase(cuda_attention, cuda_msda, dino, cfg,
+                          root: Path) -> dict:
+    """Phase 42 (b): DINO-4scale as a tracker through the runtime tracker,
+    scored by evaluate_mot_files."""
+    from fastervit_tpu_torch.detection.coco_eval import _iou_matrix
+    from fastervit_tpu_torch.tracking import tracker as runtime
+    from fastervit_tpu_torch.tracking.mot_data import (evaluate_mot_files,
+                                                       write_mot_file)
+    det = dino.build_dino_from_config(
+        cfg, resolution=DINO_CANVAS, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(48)).eval()
+    base = torch.randn(3, *DINO_CANVAS,
+                       generator=torch.Generator().manual_seed(49))
+    clip = [torch.roll(base, 8 * f, dims=2).to("cuda", torch.bfloat16)
+            for f in range(TRACK_DINO_FRAMES)]
+    sizes = torch.tensor([DINO_CANVAS], device="cuda")
+    with torch.no_grad():
+        dino.postprocess(det(clip[0][None]), sizes)     # warm-up
+        torch.cuda.synchronize()
+        reset_launches(cuda_attention, cuda_msda)
+        dets, det_ms = [], []
+        for x in clip:
+            t0 = time.perf_counter()
+            post = dino.postprocess(det(x[None]), sizes)
+            dets.append({k: v[0].cpu().numpy() for k, v in post.items()})
+            det_ms.append(1e3 * (time.perf_counter() - t0))
+    calls = detection_launches(cuda_attention, cuda_msda)
+    ranked = [np.sort(d["scores"])[::-1] for d in dets]
+    born = float(min(r[TRACK_DINO_K - 1] for r in ranked))
+    kept = float(min(r[4 * TRACK_DINO_K - 1] for r in ranked))
+    tracker = runtime.RuntimeTracker(score_thresh=born, filter_thresh=kept)
+    t0 = time.perf_counter()
+    tracks = runtime.track_sequence(dets, tracker)
+    track_ms = 1e3 * (time.perf_counter() - t0) / len(dets)
+    ids = [r["ids"].tolist() for r in tracks]
+    carried = []
+    for a, b in zip(tracks, tracks[1:]):
+        for i in sorted(set(a["ids"].tolist()) & set(b["ids"].tolist())):
+            iou = _iou_matrix(a["boxes"][a["ids"] == i],
+                              b["boxes"][b["ids"] == i])[0, 0]
+            carried.append((i, float(iou)))
+    what = (f"DINO-4scale faster_vit_4_21k_224 bf16 b1 "
+            f"{DINO_CANVAS[0]}x{DINO_CANVAS[1]} as a tracker, "
+            f"{TRACK_DINO_FRAMES} frames")
+    print(f"{what}: K1, K3, K5 launches {calls}; detector + postprocess ms "
+          f"a frame {[round(t, 3) for t in det_ms]}, track_sequence "
+          f"{track_ms:.3f} ms a frame; born at {born:.4f} (the frames' "
+          f"{TRACK_DINO_K}th best score), kept at {kept:.4f}; track ids "
+          f"{ids}; carried (id, IoU) {carried} [{card()}]")
+    check(calls == tuple(TRACK_DINO_FRAMES * c for c in (17, 12, 12)),
+          f"{what}: launches {calls}, expected {TRACK_DINO_FRAMES} x "
+          "(17, 12, 12)")
+    check(len(ids[0]) >= TRACK_DINO_K and carried
+          and all(iou >= tracker.iou_thresh for _, iou in carried),
+          f"{what}: tracks born {ids[0]} and carried across matched boxes "
+          f"{carried}")
+    gt = [{"ids": tracks[0]["ids"],
+           "boxes": tracks[0]["boxes"] + np.asarray([8 * f, 0, 8 * f, 0]),
+           "scores": np.ones(len(tracks[0]["ids"]))}
+          for f in range(TRACK_DINO_FRAMES)]
+    write_mot_file(str(root / "dino" / "gt.txt"), gt)
+    write_mot_file(str(root / "dino" / "tracks.txt"), tracks)
+    scores = evaluate_mot_files(str(root / "dino" / "gt.txt"),
+                                str(root / "dino" / "tracks.txt"))
+    print(f"{what}: against frame 1's tracks moving with the image: HOTA "
+          f"{scores['HOTA']:.6f}, MOTA {scores['MOTA']:.6f}, IDF1 "
+          f"{scores['IDF1']:.6f}")
+    check(all(np.isfinite(v).all() for v in scores.values()),
+          f"{what}: metrics {scores}")
+    del det, clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": calls, "ms": float(np.median(det_ms)) + track_ms,
+            "hota": scores["HOTA"]}
+
+
+def track_eval_phase(cuda_attention, cuda_msda, motr_exact, dino, cfg, k1,
+                     k3, k5) -> None:
+    """Phase 42, the tracking evaluation path; its clips' launches go into
+    K1's, K3's and K5's entries of the kernels line."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        motr_run = track_eval_motr_phase(cuda_attention, cuda_msda,
+                                         motr_exact, Path(tmp))
+        dino_run = track_eval_dino_phase(cuda_attention, cuda_msda, dino,
+                                         cfg, Path(tmp))
+    secs = time.perf_counter() - t0
+    where = (f"the tracking evaluation path: a {TRACK_EVAL_FRAMES}-frame "
+             f"DanceTrack-layout clip through the checkpoint-exact MOTRv2 "
+             f"detector bf16 {MOTR_CANVAS[0]}x{MOTR_CANVAS[1]} and a "
+             f"{TRACK_DINO_FRAMES}-frame clip through DINO-4scale bf16 b1 "
+             f"{DINO_CANVAS[0]}x{DINO_CANVAS[1]} as a tracker, both scored")
+    total = tuple(a + b for a, b in zip(motr_run["launches"],
+                                        dino_run["launches"]))
+    for entry, i in ((k1, 0), (k3, 1), (k5, 2)):
+        entry["launches_track_eval"] = total[i]
+        entry["launches_track_eval_in"] = where
+    print(f"the tracking evaluation path (phase 42): {secs:.1f} s; the "
+          f"evaluator CLI {motr_run['eval_s']:.1f} s; in-process ms a frame "
+          f"MOTRv2 {motr_run['ms']:.3f}, DINO + runtime tracker "
+          f"{dino_run['ms']:.3f}; K1, K3, K5 launches MOTRv2 "
+          f"{motr_run['launches']}, DINO {dino_run['launches']} [{card()}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -6162,6 +6474,11 @@ def main() -> None:
     #     the training CLI
     motr_train_phases(cuda_attention, cuda_msda, attention, msda, motr, k4,
                       k5, k7)
+
+    # 42. the tracking evaluation path: MOTRv2 tracks scored by the
+    #     evaluator CLI, DINO-4scale as a tracker scored by evaluate_mot_files
+    track_eval_phase(cuda_attention, cuda_msda, motr_exact, dino, cfg, k1,
+                     k3, k5)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers, k7]}))

@@ -16,8 +16,11 @@ of the MSDA gather probes' kernels (probes/hat_turns, msda_probe_turns,
 imported), the tracking modules (fastervit_tpu_torch.tracking.*: one
 tiny frame of the exact MOTRv2 loop, the submit CLI's arguments; the
 training CLI and the DanceTrack and joint readers imported, one tiny clip
-step through motr_clip_train_epoch) and chip_smoke.py load no jax,
-jaxlib, flax or fastervit_tpu module."""
+step through motr_clip_train_epoch; the tracking evaluation suite: every
+benchmark adapter run through the Evaluator over the fixture trees under
+tests/data, the runtime tracker, MOT-file evaluation and the tracking
+tools) and chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu
+module; no module of the port names the JAX package in an import."""
 import os
 import subprocess
 import sys
@@ -168,6 +171,53 @@ clip = next(motr_cli._synthetic_clips(1, 2, 64, 96, 1))
 assert np.isfinite(motr.motr_clip_train_epoch(mstate, [clip])["loss"])
 assert mstate.step == 1 and motr_cli.parse_args([]).device == "cuda"
 assert dance_data.ID_OFFSET_PER_VIDEO == 100000 and joint_data.JointClips
+from fastervit_tpu_torch.tracking import (benchmarks, davis, evaluator,
+                                          metrics as track_metrics, mots,
+                                          robmots, tao, tools, tracker, vis)
+from fastervit_tpu_torch.utils import rle
+D = "tests/data/"
+specs = [("mot", "mot_mini/gt/mot_challenge",
+          "mot_mini/trackers/mot_challenge",
+          {"benchmark": "MINI", "split": "train"}),
+         ("dancetrack", "mot_mini/gt/mot_challenge",
+          "mot_mini/trackers/mot_challenge",
+          {"benchmark": "MINI", "split": "train",
+           "seq_info": {"seq01": None}}),
+         ("head", "ht_mini/gt/mot_challenge", "ht_mini/trackers/mot_challenge",
+          {"split": "train"}),
+         ("kitti", "kitti_mini/gt", "kitti_mini/trackers", {}),
+         ("bdd", "bdd_mini/gt", "bdd_mini/trackers", {}),
+         ("mots", "mots_mini/gt/mot_challenge",
+          "mots_mini/trackers/mot_challenge", {"split": "train"}),
+         ("kitti_mots", "kitti_mots_mini/gt", "kitti_mots_mini/trackers", {}),
+         ("davis", "davis_mini/gt", "davis_mini/trackers", {}),
+         ("robmots", "robmots_mini/gt", "robmots_mini/trackers",
+          {"sub_benchmark": "mots_challenge"}),
+         ("robmots", "robmots_mini/gt", "robmots_mini/trackers",
+          {"sub_benchmark": "tao"}),
+         ("tao", "tao_mini/gt", "tao_mini/trackers", {}),
+         ("ytvis", "ytvis_mini/gt", "ytvis_mini/trackers", {})]
+sets = [(f"{k}{i}", evaluator.make_dataset(k, gt_folder=D + g,
+                                           trackers_folder=D + t, **kw))
+        for i, (k, g, t, kw) in enumerate(specs)]
+with tempfile.TemporaryDirectory() as d:
+    res, msgs = evaluator.Evaluator(evaluator.EvalConfig(
+        print_results=False, time_progress=False,
+        output_folder=d)).evaluate(sets)
+assert all(m == "Success" for per in msgs.values() for m in per.values())
+assert 0 < res["mot0"]["minitracker"]["COMBINED_SEQ"]["HOTA"] < 1
+assert 0 <= res["davis7"]["minitracker"]["COMBINED_SEQ"]["J&F"] <= 1
+frames = [{"boxes": np.asarray([[t, 0, t + 10, 10.]]),
+           "scores": np.asarray([0.9]), "labels": np.zeros(1, int)}
+          for t in range(3)]
+out = tracker.track_sequence(frames)
+assert [o["ids"].tolist() for o in out] == [[0], [0], [0]]
+with tempfile.TemporaryDirectory() as d:
+    mot_data.write_mot_file(d + "/t.txt", out)
+    assert mot_data.evaluate_mot_files(d + "/t.txt", d + "/t.txt")[
+        "HOTA"] > 0.99
+    assert len(tools.merge_tracklets(open(d + "/t.txt").readlines())) == 3
+    assert tools.build_det_db([d]) and rle.rle_encode(np.eye(3))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
@@ -180,6 +230,21 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """An import of the JAX package hidden in a function body loads jax
+    only when that function runs; no source of the port, nor
+    chip_smoke.py, has one."""
+    import re
+    pattern = re.compile(r"^\s*(from|import)\s+(fastervit_tpu|jax|jaxlib|"
+                         r"flax)(\.|\s|$)", re.M)
+    sources = sorted((REPO / "fastervit_tpu_torch").rglob("*.py"))
+    assert len(sources) > 50
+    for path in sources + [REPO / "chip_smoke.py"]:
+        hits = [m.group(0).strip() for m in pattern.finditer(
+            path.read_text())]
+        assert not hits, (path, hits)
 
 
 def test_fused_hat_block_off_the_cpu_never_takes_the_plain_version(
