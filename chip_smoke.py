@@ -299,6 +299,32 @@ Phases, each of which raises on failure:
      evaluate_mot_files against a ground truth the phase writes (frame
      1's tracks moving with the image), every metric finite; 17 K1, 12 K3
      and 12 K5 launches a frame; each path's in-process ms a frame.
+ 43. the int8 layers (ops/quant.py): quantize_kernel of fv0's 82 int8
+     weights on the card against the CPU (the same bits and scales); every
+     int8 product shape of a fv0 int8 bf16 b256 forward and of a
+     faster_vit_4_224 int8 fp32 b2 forward (width 196: k 1764 and n 196
+     padded to 1768 and 200), at its first call, its int32 accumulation
+     through torch._int_mm against the plain int32 product of the same
+     int8 operands and its output against their dequantisation (both
+     torch.equal), the rows, k and n after padding printed;
+ 44. int8 serving (create_model(quantized=True)): (a) fv0 int8 fp32 b4,
+     card against CPU on the same int8 weights within TOL_INT8_LOGITS of
+     the largest logit, 17 K1 launches on scalar FMA; (b) fv0 int8 bf16
+     b256: 17 K1 launches on the tensor cores, its logits against the
+     unquantised bf16 model on the same weights (cosine and top-1
+     agreement to floors), int8 and bf16 forwards timed in turns, each
+     profiled (launches, device busy share; chiprun_out/
+     int8_serve_profile.json, bf16_serve_profile.json), then with
+     99.9-percentile activation scales (quantiles of up to 2.1e8
+     elements); (c) faster_vit_4_224 int8 fp32 b2 card against CPU;
+ 45. the evaluation path, in a temporary directory: an ImageFolder of 600
+     JPEGs in 10 classes at mixed sizes (the last batch of 256 padded);
+     the validate CLI (python -m fastervit_tpu_torch.validate) in a
+     subprocess, bf16 b256, float and --int8 (exit 0, count 600, top-1
+     and top-5 in [0, 100], img/s printed), and --synthetic --int8; the
+     train CLI from --data-dir (train/ of 256 of the images): 2 bf16 b128
+     steps and eval of the model and its EMA, K1 and K2 counted by route;
+     whether the native decoder built, printed.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -629,6 +655,31 @@ TRACK_DINO_FRAMES, TRACK_DINO_K = 4, 8
 # files: the same numpy metrics over the same boxes (xywh against xyxy
 # IoU, so only the rounding of x + w - x differs), relative to max(1, |v|)
 TOL_TRACK_EVAL = 1e-12
+# int8 serving (phases 43-44): the card against the CPU on the same int8
+# weights, the logits relative to the largest. Not the fp32 bound: a
+# quantiser's input differs between the two by an ulp or so (the float
+# layers between the int8 ones sum in another order), and where x / scale
+# lies within that of a half-integer, round() takes the other integer: one
+# quantisation step, ~1/127 of the token's range, which the layers after it
+# carry to the logits (tests/test_torch_quant.py holds the port to JAX by
+# the same bound, and every layer alone to 1e-6)
+TOL_INT8_LOGITS = 2e-2
+# int8 against the unquantised bf16 model on the same weights at b256: each
+# row's cosine (mean and least) and the share of rows whose top-1 agrees;
+# on the CPU, fv0 fp32 at b16 read a least cosine of 0.9998 and 100% (max
+# scales) and 94% (99.9-percentile scales) agreement
+INT8_COS_MEAN_FLOOR = 0.99
+INT8_COS_MIN_FLOOR = 0.95
+INT8_TOP1_FLOOR = 0.75
+INT8_CLIP_PERCENTILE = 99.9
+FV4_INT8_BATCH = 2
+# the evaluation path (phase 45): an ImageFolder of JPEGs at mixed sizes,
+# 10 classes, 600 images (two full batches of 256 and one padded), and a
+# train/ tree of 256 of them (2 steps at batch 128)
+EVAL_CLASSES = 10
+EVAL_IMAGES = 600
+EVAL_TRAIN_IMAGES = 256
+EVAL_TRAIN_BATCH = 128
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chiprun_out"
 
@@ -6205,6 +6256,345 @@ def track_eval_phase(cuda_attention, cuda_msda, motr_exact, dino, cfg, k1,
           f"{motr_run['launches']}, DINO {dino_run['launches']} [{card()}]")
 
 
+def int8_checked_shapes(quant, model, seen: dict) -> list:
+    """Forward hooks on every int8 layer of `model`: at the first call of
+    each (kind, rows, k, n), the layer's int32 accumulation through int_mm
+    (torch._int_mm, padded) against int_mm_reference on the same int8
+    operands (torch.equal), and its output against the dequantisation of
+    that reference (torch.equal). Results go into `seen`; returns the
+    hooks' handles."""
+    def hook(mod, inp, out):
+        x = inp[0]
+        o = mod.weight_q.shape[0]
+        if isinstance(mod, quant.Int8Linear):
+            acc, xs, op = quant.int8_dense_acc(x, mod.weight_q,
+                                               mod.act_clip_percentile)
+            w, ws, bias = mod.weight_q.t(), mod.weight_scale, mod.bias
+            kind, flat = "linear", acc.reshape(-1, o)
+        else:
+            acc, xs, op = quant.int8_conv_acc(x, mod.weight_q, mod.stride,
+                                              mod.padding,
+                                              mod.act_clip_percentile)
+            w = mod.weight_q.reshape(o, -1).t()
+            ws = mod.weight_scale.view(-1, 1, 1)
+            bias = None if mod.bias is None else mod.bias.view(-1, 1, 1)
+            kind, flat = "conv", acc.permute(0, 2, 3, 1).reshape(-1, o)
+        key = (kind, op.shape[0], op.shape[1], o)
+        if key in seen:
+            return
+        ref = quant.int_mm_reference(op, w)
+        ref_acc = (ref.reshape(acc.shape) if kind == "linear" else
+                   ref.reshape(acc.shape[0], acc.shape[2], acc.shape[3],
+                               o).permute(0, 3, 1, 2))
+        y = quant._dequant(ref_acc, xs, ws, bias, x.dtype)
+        seen[key] = (torch.equal(flat, ref), torch.equal(out, y),
+                     quant.int_mm_padding(*key[1:]))
+
+    return [m.register_forward_hook(hook) for _, m in quant.int8_layers(model)]
+
+
+def print_int8_shapes(seen: dict, what: str) -> None:
+    print(f"{what}: {len(seen)} int8 product shapes, each accumulation "
+          "through torch._int_mm against the plain int32 product on the "
+          "same int8 operands, and the layer's output against its "
+          "dequantisation (kind, rows, k, n -> the padded rows, k, n; "
+          "equal, equal):")
+    for (kind, m, k, n), (acc_ok, out_ok, pad) in sorted(seen.items()):
+        print(f"  {kind:6s} ({m}, {k}, {n}) -> {pad}: {acc_ok}, {out_ok}")
+    bad = [key for key, (a, b, _) in seen.items() if not (a and b)]
+    check(not bad, f"{what}: int8 products off the plain int32 ones at {bad}")
+
+
+def int8_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float().cpu() - want.float().cpu()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def int8_agreement(q: torch.Tensor, ref: torch.Tensor):
+    """(mean cosine, least cosine, top-1 agreement) of each row's logits."""
+    cos = torch.nn.functional.cosine_similarity(q.float(), ref.float(), -1)
+    top1 = (q.float().argmax(-1) == ref.float().argmax(-1)).float().mean()
+    return cos.mean().item(), cos.min().item(), top1.item()
+
+
+def int8_phases(fvt, cuda_attention, quant) -> dict:
+    """Phases 43 and 44: the int8 layers on the card, then fv0 int8
+    serving (fp32 b4 card vs CPU; bf16 b256 against the unquantised bf16
+    model, timed in turns, profiled; with 99.9-percentile scales) and fv4
+    int8 fp32 b2 card vs CPU."""
+    out = {}
+    model = fvt.create_model("faster_vit_0_224", device="cpu",
+                             generator=torch.Generator().manual_seed(47))
+    model.eval()
+    # 43 (a): quantize_kernel on the card against the CPU
+    t0 = time.perf_counter()
+    layers = [(n, m) for n, m in model.named_modules()
+              if type(m) in (torch.nn.Linear, torch.nn.Conv2d)
+              and quant.eligible(n, m)]
+    same = 0
+    for n, m in layers:
+        qc, sc = quant.quantize_kernel(m.weight)
+        qg, sg = quant.quantize_kernel(m.weight.cuda())
+        same += torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    print(f"int8 layers (phase 43): quantize_kernel of fv0's {len(layers)} "
+          f"eligible weights on the card: {same} give the CPU's int8 bits "
+          "and scales")
+    check(same == len(layers) == 82, f"quantize_kernel: {same} of "
+                                     f"{len(layers)} weights equal")
+    # 44 (a): fp32 b4, card against CPU on the same int8 weights
+    qcpu = quant.quantize_model(copy.deepcopy(model))
+    qgpu = copy.deepcopy(qcpu).to("cuda")
+    x = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(48))
+    with torch.no_grad(), RouteLog(cuda_attention) as routes:
+        want = qcpu(x)
+        reset_launches(cuda_attention)
+        got = qgpu(x.cuda())
+        torch.cuda.synchronize()
+        calls = launches(cuda_attention)
+    routes.check(17, 0, "scalar", "fv0 int8 fp32 b4 forward")
+    err = int8_rel_err(got, want)
+    print(f"fv0 int8 fp32 b4 (phase 44a): card vs CPU max|dlogits| / "
+          f"max|logits| {err:.3e} (tol {TOL_INT8_LOGITS}); K1, K2, K3, K4 "
+          f"launches {calls}")
+    check(got.shape == (4, 1000) and bool(torch.isfinite(got).all()),
+          "int8 fp32 logits finite, (4, 1000)")
+    check(err <= TOL_INT8_LOGITS, f"int8 fp32 card vs CPU {err}")
+    check(calls == (17, 0, 0, 0), f"int8 fp32 launches {calls}")
+    del qcpu, want, got
+    # the bf16 models from the same f32 weights: int8 (its scales and
+    # biases stay f32) and unquantised
+    q16 = qgpu.to(torch.bfloat16)
+    f16 = model.to("cuda", torch.bfloat16)
+    del qgpu, model
+    check(all(m.weight_scale.dtype == torch.float32
+              for _, m in quant.int8_layers(q16)), "scales f32 in bf16")
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    xb = torch.randn(BATCH, 3, 224, 224, device="cuda",
+                     generator=gen).bfloat16()
+    # 43 (b): every quantised shape of fv0 b256
+    seen = {}
+    handles = int8_checked_shapes(quant, q16, seen)
+    with torch.no_grad():
+        q16(xb)
+    for h in handles:
+        h.remove()
+    print_int8_shapes(seen, f"fv0 int8 bf16 b{BATCH} (phase 43)")
+    # 44 (b): the serving path
+    with torch.no_grad():
+        ref = f16(xb)
+        reset_launches(cuda_attention)
+        with RouteLog(cuda_attention) as routes:
+            logits = q16(xb)
+            torch.cuda.synchronize()
+        calls = launches(cuda_attention)
+        routes.check(17, 0, "wgmma", f"fv0 int8 bf16 b{BATCH} forward")
+        check(calls == (17, 0, 0, 0), f"int8 bf16 launches {calls}")
+        check(logits.shape == (BATCH, 1000)
+              and bool(torch.isfinite(logits.float()).all()),
+              f"int8 bf16 logits finite, ({BATCH}, 1000)")
+        cos_mean, cos_min, top1 = int8_agreement(logits, ref)
+        print(f"fv0 int8 bf16 b{BATCH} (phase 44b): K1, K2, K3, K4 launches "
+              f"{calls}; against the unquantised bf16 model on the same "
+              f"weights: cosine mean {cos_mean:.5f}, least {cos_min:.5f}, "
+              f"top-1 agreement {100 * top1:.1f}% (floors "
+              f"{INT8_COS_MEAN_FLOOR}, {INT8_COS_MIN_FLOOR}, "
+              f"{100 * INT8_TOP1_FLOOR:.0f}%)")
+        check(cos_mean >= INT8_COS_MEAN_FLOOR and cos_min >= INT8_COS_MIN_FLOOR
+              and top1 >= INT8_TOP1_FLOOR,
+              f"int8 vs bf16: cosine {cos_mean}, {cos_min}, top-1 {top1}")
+        runs = {"int8": lambda: q16(xb), "bf16": lambda: f16(xb)}
+        times, peaks = {"int8": [], "bf16": []}, {}
+        for name in ("int8", "bf16", "bf16", "int8"):
+            torch.cuda.reset_peak_memory_stats()
+            times[name].append(time_ms(runs[name], iters=20, warmup=5))
+            peaks[name] = torch.cuda.max_memory_allocated()
+        ms = {k: sum(v) / 2 for k, v in times.items()}
+        smi = card()
+        print(f"fv0 b{BATCH} eager, in turns (int8, bf16, bf16, int8), 20 "
+              f"forwards each: int8 {ms['int8']:.3f} ms "
+              f"({times['int8'][0]:.3f}, {times['int8'][1]:.3f}), "
+              f"{BATCH * 1000 / ms['int8']:.1f} img/s, peak "
+              f"{peaks['int8'] / 2**20:.1f} MiB; bf16 {ms['bf16']:.3f} ms "
+              f"({times['bf16'][0]:.3f}, {times['bf16'][1]:.3f}), "
+              f"{BATCH * 1000 / ms['bf16']:.1f} img/s, peak "
+              f"{peaks['bf16'] / 2**20:.1f} MiB [{smi}]")
+        prof = {name: profile_device(runs[name], 1,
+                                     f"fv0 {name} b{BATCH} forward",
+                                     ms[name], smi,
+                                     f"{name}_serve_profile.json")
+                for name in ("int8", "bf16")}
+        if prof["int8"] and prof["bf16"]:
+            print(f"kernel launches a forward (torch.profiler): int8 "
+                  f"{prof['int8']['launches']:.0f}, bf16 "
+                  f"{prof['bf16']['launches']:.0f}; device busy "
+                  f"{100 * prof['int8']['busy']:.1f}% int8, "
+                  f"{100 * prof['bf16']['busy']:.1f}% bf16")
+        # act_clip_percentile at this size: per-tensor quantiles of up to
+        # 2.1e8 elements, past torch.quantile's 2^24
+        quant.set_act_clip_percentile(q16, INT8_CLIP_PERCENTILE)
+        clipped = q16(xb)
+        torch.cuda.synchronize()
+        clip_ms = time_ms(lambda: q16(xb), iters=3, warmup=1)
+        quant.set_act_clip_percentile(q16, None)
+        check(bool(torch.isfinite(clipped.float()).all()),
+              "percentile-scaled logits finite")
+        c_mean, c_min, c_top1 = int8_agreement(clipped, ref)
+        print(f"fv0 int8 bf16 b{BATCH}, {INT8_CLIP_PERCENTILE}-percentile "
+              f"scales: {clip_ms:.3f} ms a forward; against bf16: cosine "
+              f"mean {c_mean:.5f}, least {c_min:.5f}, top-1 agreement "
+              f"{100 * c_top1:.1f}% [{smi}]")
+        check(c_mean >= INT8_COS_MEAN_FLOOR and c_min >= INT8_COS_MIN_FLOOR
+              and c_top1 >= INT8_TOP1_FLOOR,
+              f"percentile int8 vs bf16: {c_mean}, {c_min}, {c_top1}")
+    out.update(launches=calls[0], ms=ms, profile=prof, cos=cos_mean,
+               top1=top1, clip_ms=clip_ms)
+    del q16, f16, xb, ref, logits, clipped
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 43 (c) and 44 (c): faster_vit_4_224 (width 196: k 1764, n 196 pad)
+    cpu4 = fvt.create_model("faster_vit_4_224", device="cpu", quantized=True,
+                            generator=torch.Generator().manual_seed(50))
+    cpu4.eval()
+    gpu4 = copy.deepcopy(cpu4).to("cuda")
+    x4 = torch.randn(FV4_INT8_BATCH, 3, 224, 224,
+                     generator=torch.Generator().manual_seed(51))
+    seen = {}
+    handles = int8_checked_shapes(quant, gpu4, seen)
+    with torch.no_grad():
+        gpu4(x4.cuda())
+    for h in handles:
+        h.remove()
+    print_int8_shapes(seen, f"fv4 int8 fp32 b{FV4_INT8_BATCH} (phase 43)")
+    check(any(pad[1:] != key[2:] for key, (_, _, pad) in seen.items()),
+          "fv4: no product was padded")
+    with torch.no_grad():
+        want = cpu4(x4)
+        reset_launches(cuda_attention)
+        got = gpu4(x4.cuda())
+        torch.cuda.synchronize()
+        calls = launches(cuda_attention)
+    err = int8_rel_err(got, want)
+    print(f"fv4 int8 fp32 b{FV4_INT8_BATCH} (phase 44c): card vs CPU "
+          f"max|dlogits| / max|logits| {err:.3e} (tol {TOL_INT8_LOGITS}); "
+          f"K1, K2, K3, K4 launches {calls}")
+    check(bool(torch.isfinite(got).all()) and err <= TOL_INT8_LOGITS,
+          f"fv4 int8 card vs CPU {err}")
+    del cpu4, gpu4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_eval_folder(root: Path, seed: int) -> list:
+    """An ImageFolder of JPEGs at mixed sizes: EVAL_CLASSES classes,
+    EVAL_IMAGES images in all; returns their paths by class."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    per = [EVAL_IMAGES // EVAL_CLASSES] * EVAL_CLASSES
+    paths = []
+    for c in range(EVAL_CLASSES):
+        d = root / f"n{c:08d}"
+        d.mkdir(parents=True)
+        cls = []
+        for i in range(per[c]):
+            w, h = rng.randint(160, 400), rng.randint(160, 400)
+            base = rng.randint(0, 256, (8, 8, 3)).astype(np.uint8)
+            img = Image.fromarray(base).resize((w, h), Image.BILINEAR)
+            cls.append(d / f"{c}_{i}.jpg")
+            img.save(cls[-1], quality=90)
+        paths.append(cls)
+    return paths
+
+
+def eval_phase(cuda_attention, train_cli) -> dict:
+    """Phase 45, the evaluation path, in a temporary directory: the
+    validate CLI in a subprocess on a folder (float and --int8) and on
+    --synthetic, then the train CLI from --data-dir, 2 steps."""
+    from fastervit_tpu_torch.data import native
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths = write_eval_folder(root / "val", 52)
+        # train/: the first EVAL_TRAIN_IMAGES of them, linked
+        n = 0
+        for c, cls in enumerate(paths):
+            d = root / "train" / cls[0].parent.name
+            d.mkdir(parents=True)
+            take = EVAL_TRAIN_IMAGES // EVAL_CLASSES + (
+                c < EVAL_TRAIN_IMAGES % EVAL_CLASSES)
+            for p in cls[:take]:
+                (d / p.name).symlink_to(p)
+                n += 1
+        check(n == EVAL_TRAIN_IMAGES, f"train/ holds {n} images")
+        print(f"the evaluation path (phase 45): {EVAL_IMAGES} JPEGs in "
+              f"{EVAL_CLASSES} classes at 160-400 px written in "
+              f"{time.perf_counter() - t0:.1f} s; the native decoder "
+              f"{'built' if native.available() else 'did not build'} "
+              f"({native.library_path().name})")
+        # --synthetic at batch 64: its 8 batches of N(0, 1) images are
+        # drawn on the host, 38.5 M numbers a batch at 256
+        runs = (("float", BATCH, ["--data-dir", str(root / "val")]),
+                ("int8", BATCH, ["--data-dir", str(root / "val"), "--int8"]),
+                ("synthetic", 64, ["--synthetic", "--int8"]))
+        for name, batch, flags in runs:
+            t1 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "fastervit_tpu_torch.validate",
+                 "--model", "faster_vit_0_224", "--dtype", "bfloat16",
+                 "--batch-size", str(batch)] + flags,
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t1
+            lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+            check(res.returncode == 0 and lines,
+                  f"validate CLI ({name}) rc {res.returncode}: "
+                  f"{res.stderr[-2000:]}")
+            r = json.loads(lines[-1])
+            want = EVAL_IMAGES if name != "synthetic" else 8 * batch
+            print(f"validate CLI ({name}, bf16 b{batch}): {secs:.1f} s in "
+                  f"its process; count {r['count']}, top-1 {r['top1']:.2f}, "
+                  f"top-5 {r['top5']:.2f}, loss {r['loss']:.4f}, "
+                  f"{r['img_s']:.1f} img/s (batches after the first, "
+                  f"decoding included) [{card()}]")
+            check(r["count"] == want and 0 <= r["top1"] <= 100
+                  and 0 <= r["top5"] <= 100 and math.isfinite(r["loss"]),
+                  f"validate CLI ({name}): {r}")
+            out[name] = r
+        # the train CLI from --data-dir: 2 steps at batch 128, then eval of
+        # the model and its EMA over val/ (5 batches each)
+        with RouteLog(cuda_attention) as routes:
+            reset_launches(cuda_attention)
+            t1 = time.perf_counter()
+            train_cli.main([
+                "--config", str(REPO / "configs" / "faster_vit_0_224_1k.yaml"),
+                "--data-dir", str(root), "--epochs", "1", "--warmup-epochs",
+                "0", "--cooldown-epochs", "0", "--data-len",
+                str(EVAL_TRAIN_IMAGES), "-b", str(EVAL_TRAIN_BATCH),
+                "--output", str(root / "out")])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            calls = launches(cuda_attention)
+        rows = list(csv.DictReader(open(root / "out" / "summary.csv")))
+        steps = EVAL_TRAIN_IMAGES // EVAL_TRAIN_BATCH
+        evals = 2 * -(-EVAL_IMAGES // EVAL_TRAIN_BATCH)
+        check(calls == (17 * (steps + evals), 17 * steps, 0, 0),
+              f"train CLI --data-dir launches {calls}")
+        routes.check(17 * (steps + evals), 17 * steps, "wgmma",
+                     "train CLI --data-dir")
+        check(len(rows) == 1 and all(
+            math.isfinite(float(rows[0][k]))
+            for k in ("train_loss", "eval_loss", "eval_top1")),
+            f"train CLI --data-dir summary.csv {rows}")
+        print(f"train CLI --data-dir (fv0 recipe, bf16, {steps} steps "
+              f"b{EVAL_TRAIN_BATCH} + eval of model and EMA over "
+              f"{EVAL_IMAGES} images): {secs:.1f} s; K1, K2, K3, K4 launches "
+              f"{calls}; summary.csv {dict(rows[0])}")
+        out["train_launches"] = calls
+    out["secs"] = time.perf_counter() - t0
+    print(f"the evaluation path (phase 45): {out['secs']:.1f} s [{card()}]")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -6216,7 +6606,7 @@ def main() -> None:
     from fastervit_tpu_torch.detection import transforms
     from fastervit_tpu_torch.ops import attention, cuda_attention, cuda_msda
     from fastervit_tpu_torch.ops import attention_probes, cuda_hat_block
-    from fastervit_tpu_torch.ops import hat_block, msda, msda_probes
+    from fastervit_tpu_torch.ops import hat_block, msda, msda_probes, quant
     from fastervit_tpu_torch.probes import attn_online_probe, attn_vpu_probe
     from fastervit_tpu_torch.probes import msda_packed_probe, msda_pallas_probe
     from fastervit_tpu_torch.probes import msda_packed_probe2
@@ -6479,6 +6869,28 @@ def main() -> None:
     #     evaluator CLI, DINO-4scale as a tracker scored by evaluate_mot_files
     track_eval_phase(cuda_attention, cuda_msda, motr_exact, dino, cfg, k1,
                      k3, k5)
+
+    # 43, 44. int8 serving: the int8 layers against their plain int32
+    #     products, fv0 int8 fp32 card vs CPU, the bf16 b256 serving path
+    #     against bf16, timed in turns, and fv4 int8 card vs CPU
+    t0 = time.perf_counter()
+    served_int8 = int8_phases(fvt, cuda_attention, quant)
+    print(f"int8 serving (phases 43-44): {time.perf_counter() - t0:.1f} s")
+    k1["launches_int8_serving"] = served_int8["launches"]
+    k1["launches_int8_serving_in"] = (
+        f"one faster_vit_0_224 int8 bf16 b{BATCH} forward of the int8 "
+        "serving path (create_model(quantized=True))")
+
+    # 45. the evaluation path: the validate CLI (float, --int8,
+    #     --synthetic) and the train CLI from --data-dir
+    evaluated = eval_phase(cuda_attention, train_cli)
+    k1["launches_data_dir_training"], k2["launches_data_dir_training"] = \
+        evaluated["train_launches"][:2]
+    k1["launches_data_dir_training_in"] = \
+        k2["launches_data_dir_training_in"] = (
+            f"the train CLI from --data-dir: 2 fv0 bf16 b{EVAL_TRAIN_BATCH} "
+            f"steps and eval of the model and its EMA over {EVAL_IMAGES} "
+            "images")
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers, k7]}))

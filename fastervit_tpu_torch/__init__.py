@@ -6,6 +6,8 @@
     fvt.bake_posemb(model)          # optional deploy mode: biases stored
     fvt.set_fused_hat(True)         # optional: each HAT sub-block in one
                                     # launch of the fused kernel (K6)
+    int8 = fvt.create_model("faster_vit_0_224", quantized=True,
+                            dtype=torch.bfloat16).eval()   # int8 serving
     logits = model(images)          # images: (B, 3, 224, 224) on the card
 
 On the card the window attention and the detectors' multi-scale
@@ -16,9 +18,13 @@ detection` (`dino.build_dino_from_config`). The package imports no jax.
 """
 from fastervit_tpu_torch.models.config import (VARIANTS, DataConfig,
                                                FasterViTConfig)
+from fastervit_tpu_torch.models.fastervit import freeze_stages
 from fastervit_tpu_torch.models.layers import set_fused_hat
 from fastervit_tpu_torch.models.registry import (bake_posemb, create_model,
                                                  get_config, list_models)
+from fastervit_tpu_torch.ops.quant import (quantize_model,
+                                           set_act_clip_percentile)
 
 __all__ = ["VARIANTS", "DataConfig", "FasterViTConfig", "bake_posemb",
-           "create_model", "get_config", "list_models", "set_fused_hat"]
+           "create_model", "freeze_stages", "get_config", "list_models",
+           "quantize_model", "set_act_clip_percentile", "set_fused_hat"]

@@ -232,3 +232,19 @@ class FasterViTPyramid(nn.Module):
             if i in self.out_indices:
                 feats[f"res{i + 2}"] = getattr(self, f"norm{i}")(pre)
         return feats
+
+
+def freeze_stages(model: nn.Module, frozen_stages: int = -1) -> nn.Module:
+    """Stop the gradients of a backbone's first stages, as the DINO
+    backbone's _freeze_stages does (reference fastervit.py:801-812; the
+    JAX package's `frozen_param_labels`, fastervit.py:202-218):
+    `patch_embed` when frozen_stages >= 0, and `levels.0` to
+    `levels.{frozen_stages - 2}` when frozen_stages >= 2, get
+    requires_grad False; every other parameter keeps its flag. Returns the
+    model."""
+    if frozen_stages >= 0:
+        model.patch_embed.requires_grad_(False)
+    if frozen_stages >= 2:
+        for level in model.levels[:frozen_stages - 1]:
+            level.requires_grad_(False)
+    return model

@@ -505,6 +505,10 @@ class HAT(nn.Module):
     grid by the token count (`norm_by_seq`), and the carriers get theirs
     on rectangular grids too."""
 
+    # set by ops.quant.quantize_model: int8 layers route every sub-block
+    # through the composed path, as JAX's `quantized` flag does
+    quantized = False
+
     def __init__(self, dim: int, num_heads: int, sr_ratio: Tuple[int, int],
                  window_size: int, ct_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
@@ -554,10 +558,11 @@ class HAT(nn.Module):
                    drop_path):
         """One pre-LN attention + MLP residual pair: through the fused HAT
         block (K6 on the card) when `set_fused_hat` is on, the module is in
-        eval mode and K6 takes the shape (JAX layers.py:619-631); else
-        composed."""
+        eval mode, not quantised and K6 takes the shape (JAX
+        layers.py:586-631); else composed."""
         hidden = mlp.fc1.out_features
-        if (_FUSED_HAT and not self.training and attn.qkv.bias is not None
+        if (_FUSED_HAT and not self.training and not self.quantized
+                and attn.qkv.bias is not None
                 and fused_block_supported(x.shape, x.shape[-1], hidden,
                                           attn.num_heads)):
             params = hat_block_params(norm1, attn, norm2, mlp, g_attn, g_mlp,

@@ -91,7 +91,8 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
                  device: Any = "cuda",
                  generator: Optional[torch.Generator] = None,
                  pretrained: bool = False, checkpoint_path: str = "",
-                 pyramid: bool = False, **overrides) -> nn.Module:
+                 pyramid: bool = False, quantized: bool = False,
+                 **overrides) -> nn.Module:
     """Build a FasterViT by name (fastervit_tpu/models/registry.py::
     create_model; reference registry.py:195-205).
 
@@ -102,7 +103,11 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
     over them by `utils.convert.load_checkpoint`: keys it lacks or holds at
     another shape (a 21841-class head, say) keep their random values, with
     a warning. `pretrained=True` needs that path, since nothing is
-    downloaded. The model is then cast to `dtype`. Overrides are config
+    downloaded. With `quantized`, the int8 serving model: its eligible
+    layers are then quantised from their f32 weights
+    (`ops.quant.quantize_model`; a classifier only, as in the JAX package:
+    a pyramid raises ValueError). The model is then cast to `dtype` (the
+    int8 layers' scales and biases stay f32). Overrides are config
     fields, as in `get_config`. Returns the module in training mode, as
     upstream does; call `.eval()` for inference. (The JAX package returns a
     (model, variables) pair when given a checkpoint; a PyTorch module holds
@@ -110,6 +115,9 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
     if pretrained and not checkpoint_path:
         raise ValueError("pretrained=True needs checkpoint_path (nothing is "
                          "downloaded): fetch the reference .pth.tar first")
+    if quantized and pyramid:
+        raise ValueError("int8 serving covers the classifier path; "
+                         "pyramid backbones run in float")
     cfg = get_config(name, **overrides)
     device = torch.device(device)
     with device:
@@ -120,6 +128,9 @@ def create_model(name: str, dtype: torch.dtype = torch.float32,
         _init_weights(model, generator)
     if checkpoint_path:
         load_checkpoint(model, checkpoint_path)
+    if quantized:
+        from fastervit_tpu_torch.ops.quant import quantize_model
+        quantize_model(model)
     return model.to(dtype)
 
 

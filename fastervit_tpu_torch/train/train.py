@@ -16,7 +16,10 @@ kept at init with a warning when --num-classes differs):
         --loadcheckpoint fv4_21k_224.pth.tar --synthetic -b 32 \
         --dtype bfloat16 --output out/
 
-What runs: synthetic loaders (`--synthetic`, or no --data-dir), the train
+What runs: an ImageNet-layout folder (`--data-dir` with train/ and val/
+class-per-subdir trees: data.train_loader.TrainLoader's crop, flip,
+RandAugment and erasing, data.imagenet.EvalLoader's timm eval transform)
+or synthetic loaders (`--synthetic`, or no --data-dir), the train
 step of `fastervit_tpu_torch.train.steps` (mixup, bf16 autocast, MESA, clip,
 adamw/lamb, EMA, --grad-checkpointing), the mixup-off final epochs, eval of
 the model and of its EMA, the NaN guard, summary.csv and a snapshot of the
@@ -29,8 +32,9 @@ checkpoint or, with --auto-resume (the default), of the output directory's.
 As in the JAX package, a resumed run restores the step, so the schedule and
 the random draws go on where they stopped, but starts its epoch loop at 0
 again (ROADMAP.md). Flags whose machinery is not ported raise
-NotImplementedError naming their ROADMAP item: --data-dir without
---synthetic, --lmdb-dataset, --tensorboard and --log-wandb.
+NotImplementedError naming their ROADMAP item: --tensorboard and
+--log-wandb (queue 1, "The rest of training": logging), and --lmdb-dataset
+(the lmdb package is on neither machine).
 """
 from __future__ import annotations
 
@@ -63,10 +67,12 @@ from fastervit_tpu_torch.utils.preemption import (PreemptionHandler,
 log = logging.getLogger("fastervit_tpu_torch.train")
 
 _NOT_PORTED = {
-    "lmdb_dataset": "--lmdb-dataset (ROADMAP.md queue 1 item 9: the "
-                    "ImageNet/LMDB loaders)",
-    "tensorboard": "--tensorboard (ROADMAP.md queue 1 item 9: logging)",
-    "log_wandb": "--log-wandb (ROADMAP.md queue 1 item 9: logging)",
+    "lmdb_dataset": "--lmdb-dataset (the lmdb package is on neither "
+                    "machine: ROADMAP.md, 'Out of reach')",
+    "tensorboard": "--tensorboard (ROADMAP.md queue 1, 'The rest of "
+                   "training': logging)",
+    "log_wandb": "--log-wandb (ROADMAP.md queue 1, 'The rest of "
+                 "training': logging)",
 }
 
 
@@ -184,10 +190,25 @@ def _check_ported(args: argparse.Namespace) -> None:
     for dest, what in _NOT_PORTED.items():
         if getattr(args, dest):
             raise NotImplementedError(f"{what} is not ported yet")
-    if args.data_dir and not args.synthetic:
-        raise NotImplementedError(
-            "only synthetic data is ported; the ImageNet loaders behind "
-            "--data-dir are not (ROADMAP.md queue 1 item 9)")
+
+
+def make_loaders(args: argparse.Namespace, data_cfg, steps_per_epoch: int):
+    """(train, eval) loaders: synthetic with --synthetic or without
+    --data-dir (at most 32 train batches an epoch, 4 eval batches), else
+    TrainLoader over <data-dir>/train and EvalLoader over <data-dir>/val
+    (JAX train.py:113-128)."""
+    if args.synthetic or not args.data_dir:
+        return (SyntheticLoader(data_cfg, args.batch_size,
+                                num_batches=min(steps_per_epoch, 32),
+                                num_classes=args.num_classes),
+                SyntheticLoader(data_cfg, args.batch_size, num_batches=4,
+                                num_classes=args.num_classes, seed=1))
+    from fastervit_tpu_torch.data.imagenet import EvalLoader
+    from fastervit_tpu_torch.data.train_loader import TrainLoader
+    return (TrainLoader(os.path.join(args.data_dir, "train"), data_cfg,
+                        args.batch_size, seed=args.seed),
+            EvalLoader(os.path.join(args.data_dir, "val"), data_cfg,
+                       args.batch_size))
 
 
 def _device(name: str) -> torch.device:
@@ -275,12 +296,8 @@ def train(args: argparse.Namespace) -> dict:
             args.seed)
     eval_step = make_eval_step(dtype)
 
-    train_loader = SyntheticLoader(model.cfg.data, args.batch_size,
-                                   num_batches=min(steps_per_epoch, 32),
-                                   num_classes=args.num_classes)
-    eval_loader = SyntheticLoader(model.cfg.data, args.batch_size,
-                                  num_batches=4, num_classes=args.num_classes,
-                                  seed=1)
+    train_loader, eval_loader = make_loaders(args, model.cfg.data,
+                                             steps_per_epoch)
 
     def run_eval(m: torch.nn.Module) -> dict:
         totals = {"loss_sum": 0.0, "top1": 0, "top5": 0, "count": 0}
@@ -301,6 +318,8 @@ def train(args: argparse.Namespace) -> dict:
             if (train_step_nomix is not None
                     and epoch >= num_epochs - args.mixup_off_epoch):
                 step_fn = train_step_nomix
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
             loss_m, rate_m = AverageMeter(), AverageMeter()
             t_last, i_last = time.perf_counter(), -1
             for i, batch in enumerate(train_loader):

@@ -39,7 +39,8 @@ _CPB_PARENTS = {"pos_embed", "hat_pos_embed", "pos_emb_funct"}
 # patch_embed child -> index in the torch conv_down Sequential
 _PATCH_EMBED_IDX = {"conv1": "0", "norm1": "1", "conv2": "3", "norm2": "4"}
 _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias",
-              "mean": "running_mean", "var": "running_var"}
+              "mean": "running_mean", "var": "running_var",
+              "kernel_q": "weight_q", "kernel_scale": "weight_scale"}
 # the two names upstream registers the carrier-token tokenizer's conv under
 _TOKENIZER_NAMES = ("to_global_feature.pos", "pos_embed")
 # buffers rebuilt from the config, never read from a checkpoint
@@ -108,7 +109,9 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         if path[0] == "baked":  # deploy-mode tensors: see baked_from_jax
             continue
         key = torch_key_for_path(path[1:])  # drop the collection name
-        arr = np.array(val, dtype=np.float32)  # a writable copy
+        # a writable copy; int8 weights (quantize_variables) stay int8
+        arr = np.array(val, dtype=np.int8 if path[-1] == "kernel_q"
+                       else np.float32)
         if arr.ndim == 2:
             arr = arr.T
         elif arr.ndim == 4:
@@ -121,6 +124,21 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def quantized_state_dict_from_jax(variables: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The variables of JAX `quantize_variables` (numpy) -> the state_dict
+    of the port's int8 model (`create_model(..., quantized=True)`), which
+    it loads with `strict=True`: each `kernel_q` (int8, (I, O) or HWIO) to
+    `weight_q` in the port's layout ((O, I); (O, I, kh, kw)), each
+    `kernel_scale` to `weight_scale` (f32), the rest as
+    `state_dict_from_jax` maps it. Raises ValueError on variables that
+    hold no int8 kernel."""
+    if not any(path[-1] == "kernel_q" for path, _ in _leaves(variables)):
+        raise ValueError("no kernel_q in the variables: quantise them with "
+                         "the JAX package's quantize_variables first")
+    return state_dict_from_jax(variables)
 
 
 _HAT_MATRICES = ("qkv_w", "proj_w", "fc1_w", "fc2_w")

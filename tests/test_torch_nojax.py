@@ -19,8 +19,13 @@ training CLI and the DanceTrack and joint readers imported, one tiny clip
 step through motr_clip_train_epoch; the tracking evaluation suite: every
 benchmark adapter run through the Evaluator over the fixture trees under
 tests/data, the runtime tracker, MOT-file evaluation and the tracking
-tools) and chip_smoke.py load no jax, jaxlib, flax or fastervit_tpu
-module; no module of the port names the JAX package in an import."""
+tools), int8 serving (ops.quant, a quantised model run), the input
+pipeline (data.imagenet, train_loader, cifar, randaugment, real_labels,
+native), the validate CLI on --synthetic --device cpu with --int8, the
+panoptic post-processing, the visualizer and the examples (detect
+imported, track run) and chip_smoke.py load no jax, jaxlib, flax or
+fastervit_tpu module; no module of the port names the JAX package in an
+import."""
 import os
 import subprocess
 import sys
@@ -29,7 +34,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 PROBE = """
-import sys, tempfile, numpy as np, torch
+import os, sys, tempfile, numpy as np, torch
 import fastervit_tpu_torch as fvt
 from fastervit_tpu_torch.utils.checkpoint import CheckpointManager
 from fastervit_tpu_torch.utils.preemption import PreemptionHandler
@@ -218,6 +223,40 @@ with tempfile.TemporaryDirectory() as d:
         "HOTA"] > 0.99
     assert len(tools.merge_tracklets(open(d + "/t.txt").readlines())) == 3
     assert tools.build_det_db([d]) and rle.rle_encode(np.eye(3))
+from fastervit_tpu_torch import validate
+from fastervit_tpu_torch.ops import quant
+from fastervit_tpu_torch.data import (cifar, imagenet, native, randaugment,
+                                      real_labels, train_loader)
+from fastervit_tpu_torch.detection import panoptic, visualizer
+from fastervit_tpu_torch.examples import detect as detect_example
+from fastervit_tpu_torch.examples import track as track_example
+qm = fvt.create_model("faster_vit_0_224", device="cpu", depths=[1, 1, 1, 1],
+                      dim=36, in_dim=20, num_heads=[2, 2, 4, 4],
+                      resolution=64, num_classes=10, quantized=True).eval()
+assert len(quant.int8_layers(qm)) > 10
+with torch.no_grad():
+    assert qm(torch.zeros(1, 3, 64, 64)).shape == (1, 10)
+assert float(quant.quantile(torch.arange(5.0), 0.5)) == 2.0
+assert fvt.freeze_stages(qm, 2) is qm
+from PIL import Image
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(d + "/a")
+    Image.fromarray(np.zeros((40, 50, 3), np.uint8)).save(d + "/a/0.jpg")
+    cfg64 = fvt.get_config("faster_vit_0_224", resolution=64).data
+    assert next(iter(imagenet.EvalLoader(d, cfg64, 2)))["valid"].sum() == 1
+    assert next(iter(train_loader.TrainLoader(d, cfg64, 1)))[
+        "image"].shape == (1, 64, 64, 3)
+    res = validate.main(["--synthetic", "--device", "cpu", "--batch-size",
+                         "2", "--int8", "--dtype", "float32"])
+    assert res[0]["count"] == 16
+    pan = panoptic.postprocess_panoptic(np.zeros((2, 3)), np.zeros((2, 4, 4)),
+                                        {}, (4, 4))
+    assert pan["png_string"].startswith(b"\\x89PNG")
+    assert visualizer.COCOVisualizer().visualize(
+        np.zeros((8, 8, 3), np.float32),
+        {"boxes": np.asarray([[0.5, 0.5, 0.2, 0.2]]), "size": (8, 8)},
+        savedir=d).endswith(".png")
+    assert track_example.main(["--output", d])["frames"] == 10
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)

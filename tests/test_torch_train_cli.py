@@ -56,7 +56,8 @@ def test_flat_yaml_reader_refuses_nested_yaml(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--data-dir", "/nonexistent"], ["--synthetic", "--lmdb-dataset"],
+    ["--data-dir", "/nonexistent", "--lmdb-dataset"],
+    ["--synthetic", "--lmdb-dataset"],
     ["--synthetic", "--tensorboard"], ["--synthetic", "--log-wandb"]])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
