@@ -324,7 +324,28 @@ Phases, each of which raises on failure:
      and top-5 in [0, 100], img/s printed), and --synthetic --int8; the
      train CLI from --data-dir (train/ of 256 of the images): 2 bf16 b128
      steps and eval of the model and its EMA, K1 and K2 counted by route;
-     whether the native decoder built, printed.
+     whether the native decoder built, printed;
+ 46. export (utils/export.py): faster_vit_0_224 bf16 and
+     faster_vit_4_21k_384 bf16 exported with a symbolic batch (K1's and
+     K3's fastervit:: operators in the graphs: 17 each) and the fv0 int8
+     model at b256, saved, then loaded and run in a fresh process that
+     imports only the port (`chip_smoke.py --serve-programs DIR`): fv0 at
+     b256 and b7, 21k-384 at b2, int8 at b256, each forward's logits
+     bit-equal to the eager model's (torch.equal) and its K1 and K3
+     launches counted there (17 K1, 17 K3, 17 K1); the fv0 program and
+     the eager forward at b256 timed in turns; the fv0 ONNX graph (the
+     plain version, traced on the CPU, folded and not) run by
+     utils/onnx_eval.py at b3 against the port's CPU logits
+     (TOL_ONNX), its node count, no Mod node, check_constant_folded;
+ 47. data parallel: the train CLI in a subprocess under torchrun's
+     variables for one process (a one-process NCCL group,
+     DistributedDataParallel, SyncBatchNorm2d), fv0 bf16 b128, 2 steps on
+     synthetic data and the eval, then the same without the variables:
+     each step's loss equal between the two, K1 and K2 launches counted;
+ 48. dropout: the fv0 bf16 b128 step with drop_rate and attn_drop_rate
+     0.1 twice from one seed (equal losses), every attention on the route
+     "plain: attention dropout" (17 calls, no K1 or K2 launch), then K1's
+     17 launches at eval.
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -338,6 +359,7 @@ import gc
 import json
 import logging
 import math
+import os
 import re
 import subprocess
 import sys
@@ -6595,11 +6617,376 @@ def eval_phase(cuda_attention, train_cli) -> dict:
     return out
 
 
+EXPORT_SMALL_BATCH = 7     # a batch the program's trace did not see
+EXPORT_LONG = "faster_vit_4_21k_384"
+EXPORT_LONG_BATCH = 2
+EXPORT_TIMED = 20          # forwards a turn, after 5
+ONNX_BATCH = 3             # an ONNX batch the trace (at 1) did not see
+TOL_ONNX = 1e-4            # numpy's f32 sums against torch's, fp32 logits
+DDP_STEPS = 2
+DROPOUT = 0.1
+
+
+def serve_programs(directory: Path) -> None:
+    """Phase 46's serving process (`chip_smoke.py --serve-programs DIR`):
+    imports only the port, loads each program that phase 46 saved in DIR
+    (`utils.export.load_program`), runs it on its inputs on the card with
+    every launch count set to 0 just before, and prints one JSON line:
+    each run's K1 and K3 launches and whether its logits equal the eager
+    model's (torch.equal), and the modules of the JAX package loaded."""
+    from fastervit_tpu_torch.ops import cuda_attention
+    from fastervit_tpu_torch.utils.export import load_program
+    # main's settings, under which the eager logits were taken
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = torch.load(directory / "cases.pt")
+    runs = []
+    for case in cases:
+        t0 = time.perf_counter()
+        program = load_program(str(directory / case["file"])).module()
+        load_s = time.perf_counter() - t0
+        for x, want in zip(case["inputs"], case["wants"]):
+            with torch.no_grad():
+                reset_launches(cuda_attention)
+                got = program(x.cuda())
+                torch.cuda.synchronize()
+                calls = launches(cuda_attention)
+            got = got.cpu()
+            runs.append({"name": case["name"], "batch": x.shape[0],
+                         "load_s": load_s, "k1": calls[0], "k3": calls[2],
+                         "k2_k4": calls[1] + calls[3],
+                         "equal": bool(torch.equal(got, want)),
+                         "max_abs": float((got.float() - want.float())
+                                          .abs().max())})
+    bad = sorted(k for k in sys.modules if k.split(".")[0] in
+                 ("jax", "jaxlib", "flax", "fastervit_tpu"))
+    print(json.dumps({"served": runs, "jax_modules": bad}))
+
+
+def export_phase(fvt, cuda_attention) -> dict:
+    """Phase 46: (a) faster_vit_0_224 bf16 exported with a symbolic batch,
+    (b) faster_vit_4_21k_384 bf16 likewise, (c) the fv0 int8 model at
+    b256; each saved, then loaded and run in a fresh process that imports
+    only the port (`serve_programs`), its logits bit-equal to the eager
+    forward's at each batch (fv0 b256 and b7, fv4 b2, int8 b256) and its
+    K1 and K3 launches counted there; (d) the fv0 program and the eager
+    forward at b256 timed in turns; (e) the fv0 ONNX graph (the plain
+    version, on the CPU) run by utils/onnx_eval.py at b3 against the
+    port's CPU logits."""
+    from fastervit_tpu_torch.utils import export
+    from fastervit_tpu_torch.utils.onnx_eval import run_onnx
+    from fastervit_tpu_torch.utils.onnx_inspect import (check_constant_folded,
+                                                        inspect_onnx)
+    t0 = time.perf_counter()
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cases = []
+
+        def add_case(name, model, program, batches, res):
+            inputs, wants = [], []
+            for b in batches:
+                x = torch.randn(b, 3, res, res, device="cuda",
+                                generator=gen).bfloat16()
+                with torch.no_grad():
+                    wants.append(model(x).cpu())
+                inputs.append(x.cpu())
+            t1 = time.perf_counter()
+            export.save_program(program, str(tmp / f"{name}.pt2"))
+            size = (tmp / f"{name}.pt2").stat().st_size
+            print(f"export (phase 46): {name} saved, {size / 2**20:.1f} MiB "
+                  f"in {time.perf_counter() - t1:.1f} s")
+            cases.append({"name": name, "file": f"{name}.pt2",
+                          "inputs": inputs, "wants": wants})
+
+        # (a) fv0 bf16, a symbolic batch
+        model = fvt.create_model("faster_vit_0_224", dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(46)
+                                 ).eval()
+        t1 = time.perf_counter()
+        program = export.export_program(model, None, torch.bfloat16)
+        ops = [str(n.target) for n in program.graph.nodes
+               if "fastervit" in str(n.target)]
+        print(f"export (phase 46): faster_vit_0_224 bf16, batch symbolic "
+              f"({program.range_constraints}), exported in "
+              f"{time.perf_counter() - t1:.1f} s; fastervit:: operators in "
+              f"the graph: {collections.Counter(ops)}")
+        check(ops == ["fastervit.window_mhsa_short.default"] * 17,
+              f"fv0 program's operators {ops}")
+        add_case("fv0", model, program, (BATCH, EXPORT_SMALL_BATCH), 224)
+        # (d) program and eager forward at b256, in turns
+        served = program.module()
+        x = torch.randn(BATCH, 3, 224, 224, device="cuda",
+                        generator=gen).bfloat16()
+        with torch.no_grad():
+            check(torch.equal(served(x), model(x)),
+                  "fv0 program in this process != eager")
+            times = probes.in_turns({"eager": lambda: model(x),
+                                     "program": lambda: served(x)},
+                                    EXPORT_TIMED)
+        out["eager_ms"], out["program_ms"] = times["eager"], times["program"]
+        print(f"export (phase 46): fv0 bf16 b{BATCH} in turns (eager, "
+              f"program, program, eager; {EXPORT_TIMED} forwards each): "
+              f"eager {times['eager']:.3f} ms, exported program "
+              f"{times['program']:.3f} ms [{card()}]")
+        # (e) the ONNX graph: the plain version, traced on the CPU
+        cpu = copy.deepcopy(model).to("cpu", torch.float32)
+        del served, program, model, x
+        t1 = time.perf_counter()
+        paths = {fold: export.export_onnx(cpu, str(tmp / f"fv0_{fold}.onnx"),
+                                          optimize=fold)
+                 for fold in (True, False)}
+        folded, raw = (inspect_onnx(paths[f]) for f in (True, False))
+        check_constant_folded(paths[True], max_constant_nodes=raw[
+            "op_types"].get("Constant", 0))
+        xo = np.random.RandomState(46).randn(ONNX_BATCH, 3, 224, 224).astype(
+            np.float32)
+        got = run_onnx(paths[True], {"input": xo})["output"]
+        with torch.no_grad():
+            want = cpu(torch.from_numpy(xo)).numpy()
+        err = float(np.abs(got - want).max())
+        print(f"export (phase 46): fv0 ONNX on the CPU (the plain version; "
+              f"exported with and without folding and evaluated at b"
+              f"{ONNX_BATCH} in {time.perf_counter() - t1:.1f} s): "
+              f"{folded['num_nodes']} nodes folded ({raw['num_nodes']} "
+              f"unfolded), Constant {folded['op_types'].get('Constant', 0)} "
+              f"({raw['op_types'].get('Constant', 0)}), Mod "
+              f"{folded['op_types'].get('Mod', 0)}; max|onnx - port CPU| "
+              f"{err:.3e} (tol {TOL_ONNX}, largest logit "
+              f"{np.abs(want).max():.3f})")
+        check(got.shape == (ONNX_BATCH, 1000) and err <= TOL_ONNX
+              and "Mod" not in folded["op_types"]
+              and folded["num_nodes"] <= raw["num_nodes"],
+              f"ONNX graph off the port's CPU logits by {err}")
+        out["onnx_err"], out["onnx_nodes"] = err, folded["num_nodes"]
+        del cpu
+        # (b) 21k-384 bf16, a symbolic batch: K3
+        model = fvt.create_model(EXPORT_LONG, dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(47)
+                                 ).eval()
+        t1 = time.perf_counter()
+        program = export.export_program(model, None, torch.bfloat16)
+        ops = collections.Counter(str(n.target) for n in program.graph.nodes
+                                  if "fastervit" in str(n.target))
+        print(f"export (phase 46): {EXPORT_LONG} bf16 exported in "
+              f"{time.perf_counter() - t1:.1f} s; operators {dict(ops)}")
+        check(ops["fastervit.window_mhsa_long.default"] > 0,
+              f"{EXPORT_LONG} program has no K3 operator: {dict(ops)}")
+        add_case("fv4_21k_384", model, program, (EXPORT_LONG_BATCH,), 384)
+        k3_per_forward = ops["fastervit.window_mhsa_long.default"]
+        del model, program
+        # (c) fv0 int8 at b256
+        model = fvt.create_model("faster_vit_0_224", quantized=True,
+                                 dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(48)
+                                 ).eval()
+        add_case("fv0_int8", model,
+                 export.export_program(model, BATCH, torch.bfloat16),
+                 (BATCH,), 224)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.save(cases, tmp / "cases.pt")
+        del cases
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                              "--serve-programs", str(tmp)], cwd=tmp,
+                             capture_output=True, text=True, timeout=600)
+        lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+        check(res.returncode == 0 and lines, f"serving process rc "
+                                             f"{res.returncode}: "
+                                             f"{res.stderr[-3000:]}")
+        served = json.loads(lines[-1])
+    print(f"export (phase 46): the serving process ({time.perf_counter() - t1:.1f}"
+          f" s) loaded the JAX package's modules {served['jax_modules']}")
+    check(not served["jax_modules"], "the serving process loaded jax")
+    want_k = {"fv0": (17, 0), "fv4_21k_384": (None, k3_per_forward),
+              "fv0_int8": (17, 0)}
+    for r in served["served"]:
+        k1, k3 = want_k[r["name"]]
+        print(f"export (phase 46): loaded {r['name']} b{r['batch']} "
+              f"(load {r['load_s']:.1f} s): logits equal to eager "
+              f"{r['equal']} (max|diff| {r['max_abs']:.3e}); K1 {r['k1']}, "
+              f"K3 {r['k3']}, K2 + K4 {r['k2_k4']} launches a forward")
+        check(r["equal"], f"loaded {r['name']} b{r['batch']} != eager")
+        check((k1 is None or r["k1"] == k1) and r["k3"] == k3
+              and r["k2_k4"] == 0 and (r["name"] != "fv4_21k_384"
+                                       or r["k3"] > 0),
+              f"loaded {r['name']} launches {r}")
+    out["served"] = served["served"]
+    out["k1_per_forward"] = next(r["k1"] for r in served["served"]
+                                 if r["name"] == "fv0")
+    out["k3_per_forward"] = next(r["k3"] for r in served["served"]
+                                 if r["name"] == "fv4_21k_384")
+    out["secs"] = time.perf_counter() - t0
+    print(f"export (phase 46): {out['secs']:.1f} s [{card()}]")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+DDP_CHILD = """
+import json, sys, torch
+sys.path.insert(0, {repo!r})
+from fastervit_tpu_torch.ops import cuda_attention
+from fastervit_tpu_torch.parallel import data_parallel
+from fastervit_tpu_torch.train import train
+import torch.distributed as dist
+seen = {{"sync_bn": 0, "ddp": 0}}
+wrap = data_parallel.wrap_model
+def counted(model, device, **kw):
+    ddp = wrap(model, device, **kw)
+    seen["ddp"] += ddp is not None
+    seen["sync_bn"] = sum(type(m) is data_parallel.SyncBatchNorm2d
+                          for m in model.modules())
+    seen["backend"] = dist.get_backend() if dist.is_initialized() else None
+    seen["world"] = dist.get_world_size() if dist.is_initialized() else 1
+    return ddp
+data_parallel.wrap_model = counted
+res = train.main({args!r})
+torch.cuda.synchronize()
+print(json.dumps({{"losses": res["train_losses"], **seen,
+    "k1": cuda_attention.window_mhsa_cuda.launches,
+    "k2": cuda_attention.window_mhsa_backward_cuda.launches}}))
+"""
+
+
+def ddp_phase() -> dict:
+    """Phase 47: the train CLI in a subprocess under torchrun's variables
+    for one process (RANK 0, WORLD_SIZE 1, LOCAL_RANK 0, MASTER_ADDR and a
+    free MASTER_PORT: NCCL, DistributedDataParallel and SyncBatchNorm on
+    the path), fv0 bf16 b128, DDP_STEPS steps on synthetic data and the
+    eval; then the same without the variables. Each step's loss is equal
+    between the two (DDP over one process divides by 1, SyncBatchNorm over
+    one takes the local statistics), K1 and K2 launches counted in each."""
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("ddp", "plain"):
+            args = ["--model", "faster_vit_0_224", "--synthetic", "-b",
+                    str(TRAIN_BATCH), "--dtype", "bfloat16", "--epochs", "1",
+                    "--warmup-epochs", "0", "--cooldown-epochs", "0",
+                    "--data-len", str(DDP_STEPS * TRAIN_BATCH),
+                    "--log-interval", "1", "--no-model-ema",
+                    "--no-auto-resume",
+                    "--output", str(Path(tmp) / name)]
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                "MASTER_ADDR", "MASTER_PORT")}
+            if name == "ddp":
+                env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                           MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=str(_free_port()))
+            t1 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c",
+                 DDP_CHILD.format(repo=str(REPO), args=args)],
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=600)
+            lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+            check(res.returncode == 0 and lines,
+                  f"train CLI ({name}) rc {res.returncode}: "
+                  f"{res.stderr[-3000:]}")
+            runs[name] = json.loads(lines[-1])
+            r = runs[name]
+            print(f"data parallel (phase 47): train CLI {name} "
+                  f"({time.perf_counter() - t1:.1f} s): group "
+                  f"{r.get('backend')} world {r.get('world')}, DDP "
+                  f"{r['ddp']}, SyncBatchNorm2d {r['sync_bn']}; losses "
+                  f"{r['losses']}; K1 {r['k1']}, K2 {r['k2']} launches")
+    ddp, plain = runs["ddp"], runs["plain"]
+    evals = 4
+    check(ddp["backend"] == "nccl" and ddp["world"] == 1 and ddp["ddp"] == 1
+          and ddp["sync_bn"] > 0, f"the DDP run's group {ddp}")
+    check(plain["ddp"] == 0 and plain["sync_bn"] == 0,
+          f"the plain run took a group {plain}")
+    check(len(ddp["losses"]) == DDP_STEPS
+          and all(math.isfinite(v) for v in ddp["losses"]),
+          f"DDP losses {ddp['losses']}")
+    check(ddp["losses"] == plain["losses"],
+          f"DDP losses {ddp['losses']} != plain {plain['losses']}")
+    want = (17 * (DDP_STEPS + evals), 17 * DDP_STEPS)
+    check((ddp["k1"], ddp["k2"]) == (plain["k1"], plain["k2"]) == want,
+          f"K1, K2 launches {ddp['k1'], ddp['k2']} and "
+          f"{plain['k1'], plain['k2']}, expected {want}")
+    secs = time.perf_counter() - t0
+    print(f"data parallel (phase 47): {secs:.1f} s [{card()}]")
+    return {"losses": ddp["losses"], "launches": (ddp["k1"], ddp["k2"]),
+            "secs": secs}
+
+
+def routes_taken(plain_route: str, plain: int, launches: tuple) -> dict:
+    """The attention routes a run took, each with its count: the plain
+    dropout route's calls and K1-K4's launches, those above 0."""
+    counts = {plain_route: plain, **dict(zip(("K1", "K2", "K3", "K4"),
+                                             launches))}
+    return {route: n for route, n in counts.items() if n}
+
+
+def dropout_phase(fvt, cuda_attention, steps, mixup) -> dict:
+    """Phase 48: the fv0 bf16 b128 train step with drop_rate and
+    attn_drop_rate DROPOUT: every attention on the route "plain: attention
+    dropout" in training (K1 and K2 launched 0 times), K1 at eval; two
+    models from one seed, stepped with one generator seed, give equal
+    losses."""
+    from fastervit_tpu_torch.ops import attention
+    t0 = time.perf_counter()
+    batch = synthetic_batch(TRAIN_BATCH, 48)
+    cfg = steps.TrainConfig(mixup=mixup.MixupConfig(), use_ema=False)
+    losses = []
+    for _ in range(2):
+        model = fvt.create_model(
+            "faster_vit_0_224", drop_rate=DROPOUT, attn_drop_rate=DROPOUT,
+            generator=torch.Generator().manual_seed(48))
+        state = steps.create_train_state(model, cfg)
+        step = steps.make_train_step(cfg, lambda s: 1e-3, torch.bfloat16,
+                                     seed=48)
+        reset_launches(cuda_attention)
+        attention.dropout_window_mhsa.calls = 0
+        loss = step(state, batch)["loss"].item()
+        torch.cuda.synchronize()
+        taken = routes_taken(attention.PLAIN_DROPOUT,
+                             attention.dropout_window_mhsa.calls,
+                             launches(cuda_attention))
+        losses.append(loss)
+        print(f"dropout (phase 48): fv0 bf16 b{TRAIN_BATCH} step, drop and "
+              f"attention drop {DROPOUT}: loss {loss!r}; routes taken "
+              f"{taken}")
+        check(taken == {attention.PLAIN_DROPOUT: 17} and math.isfinite(loss),
+              f"dropout step: routes taken {taken}")
+    check(losses[0] == losses[1], f"dropout losses {losses} differ")
+    with torch.no_grad():
+        reset_launches(cuda_attention)
+        attention.dropout_window_mhsa.calls = 0
+        x = torch.from_numpy(batch["image"]).cuda().permute(0, 3, 1, 2)
+        with torch.autocast("cuda", torch.bfloat16):
+            logits = model.eval()(x)
+        torch.cuda.synchronize()
+    taken = routes_taken(attention.PLAIN_DROPOUT,
+                         attention.dropout_window_mhsa.calls,
+                         launches(cuda_attention))
+    print(f"dropout (phase 48): eval forward: routes taken {taken}")
+    check(taken == {"K1": 17} and bool(torch.isfinite(logits).all()),
+          f"dropout model's eval: routes taken {taken}")
+    secs = time.perf_counter() - t0
+    print(f"dropout (phase 48): {secs:.1f} s [{card()}]")
+    return {"losses": losses, "secs": secs}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         sys.exit(1)
+    if sys.argv[1:2] == ["--serve-programs"]:
+        serve_programs(Path(sys.argv[2]))
+        return
     import fastervit_tpu_torch as fvt
     from fastervit_tpu_torch.detection import dino, engine, matcher_device
     from fastervit_tpu_torch.detection import main as detection_cli
@@ -6891,6 +7278,31 @@ def main() -> None:
             f"the train CLI from --data-dir: 2 fv0 bf16 b{EVAL_TRAIN_BATCH} "
             f"steps and eval of the model and its EMA over {EVAL_IMAGES} "
             "images")
+
+    # 46. export on the card: fv0, 21k-384 and fv0 int8 programs loaded in
+    #     a fresh process, bit-equal to eager; program against eager in
+    #     turns; the ONNX graph on the CPU
+    exported = export_phase(fvt, cuda_attention)
+    k1["launches_exported_program"] = exported["k1_per_forward"]
+    k3["launches_exported_program"] = exported["k3_per_forward"]
+    k1["launches_exported_program_in"] = (
+        f"one forward of the exported faster_vit_0_224 bf16 b{BATCH} program "
+        "loaded in a fresh process")
+    k3["launches_exported_program_in"] = (
+        f"one forward of the exported {EXPORT_LONG} bf16 "
+        f"b{EXPORT_LONG_BATCH} program loaded in a fresh process")
+
+    # 47. data parallel on the card: the train CLI over a one-process NCCL
+    #     group (DDP, SyncBatchNorm) against the plain run
+    ddp = ddp_phase()
+    k1["launches_ddp_training"], k2["launches_ddp_training"] = \
+        ddp["launches"]
+    k1["launches_ddp_training_in"] = k2["launches_ddp_training_in"] = (
+        f"the train CLI under a one-process NCCL group: {DDP_STEPS} fv0 "
+        f"bf16 b{TRAIN_BATCH} steps and the eval, in its process")
+
+    # 48. dropout: the plain attention route in training, K1 at eval
+    dropout_phase(fvt, cuda_attention, steps, mixup)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers, k7]}))

@@ -9,6 +9,7 @@
     int8 = fvt.create_model("faster_vit_0_224", quantized=True,
                             dtype=torch.bfloat16).eval()   # int8 serving
     logits = model(images)          # images: (B, 3, 224, 224) on the card
+    deploy = fvt.export_for_deploy(model, 256, torch.bfloat16)  # torch.export
 
 On the card the window attention and the detectors' multi-scale
 deformable attention run through hand-written CUDA kernels (csrc/*.cu,
@@ -21,10 +22,13 @@ from fastervit_tpu_torch.models.config import (VARIANTS, DataConfig,
 from fastervit_tpu_torch.models.fastervit import freeze_stages
 from fastervit_tpu_torch.models.layers import set_fused_hat
 from fastervit_tpu_torch.models.registry import (bake_posemb, create_model,
-                                                 get_config, list_models)
+                                                 export_for_deploy,
+                                                 get_config, is_model,
+                                                 list_models)
 from fastervit_tpu_torch.ops.quant import (quantize_model,
                                            set_act_clip_percentile)
 
 __all__ = ["VARIANTS", "DataConfig", "FasterViTConfig", "bake_posemb",
-           "create_model", "freeze_stages", "get_config", "list_models",
+           "create_model", "export_for_deploy", "freeze_stages",
+           "get_config", "is_model", "list_models",
            "quantize_model", "set_act_clip_percentile", "set_fused_hat"]

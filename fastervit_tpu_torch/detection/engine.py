@@ -40,6 +40,7 @@ from fastervit_tpu_torch.ops.boxes import (aligned_generalized_box_iou,
                                            box_cxcywh_to_xyxy,
                                            hungarian_cost_matrix,
                                            hungarian_match)
+from fastervit_tpu_torch.parallel import data_parallel
 from fastervit_tpu_torch.train.ema import create_ema_model, ema_update
 from fastervit_tpu_torch.train.steps import _autocast, optimizer_step
 
@@ -126,9 +127,10 @@ def detection_loss(outputs: Dict, tgt: Dict[str, torch.Tensor],
     (`loss_layers`): the focal class loss over every query against the
     one-hot labels of its targets, the L1 and GIoU losses of the matched
     boxes, each over max(1, number of targets). Returns (loss, {'loss_ce',
-    'loss_bbox', 'loss_giou'})."""
+    'loss_bbox', 'loss_giou'}). Under data parallelism the number of
+    targets is the group's (`data_parallel.global_num_boxes`)."""
     logits_l, boxes_l = loss_layers(outputs)
-    num_boxes = tgt["mask"].sum().clamp(min=1)
+    num_boxes = data_parallel.global_num_boxes(tgt["mask"])
     total_ce = total_bbox = total_giou = 0.0
     for li, (logits, boxes) in enumerate(zip(logits_l, boxes_l)):
         b, q, k = logits.shape
@@ -233,11 +235,16 @@ def create_detection_optimizer(model: nn.Module, lr: float = 1e-4,
 @dataclasses.dataclass
 class DetectionTrainState:
     """What a train step updates: the detector (f32 parameters), its
-    optimizer, the EMA copy (or None) and the count of updates."""
+    optimizer, the EMA copy (or None) and the count of updates. Under data
+    parallelism `ddp` is the DistributedDataParallel wrapper that the
+    gradient pass calls (`parallel.data_parallel.wrap_model`; for the MOTR
+    clip step, of `tracking.motr.ClipForward`); the model keeps the
+    weights."""
     model: nn.Module
     optimizer: DetectionOptimizer
     ema_model: Optional[nn.Module] = None
     step: int = 0
+    ddp: Optional[nn.Module] = None
 
 
 def _f32(outputs: Dict) -> Dict:
@@ -259,7 +266,7 @@ def _make_step(assign: Callable, dtype: torch.dtype, ema_decay: float):
             state.ema_model = create_ema_model(model)
         state.optimizer.zero_grad()
         with _autocast(device, dtype):
-            out = model(images)
+            out = (model if state.ddp is None else state.ddp)(images)
         out = _f32(out)
         assignment = assign(out, tgt, *args)
         loss, parts = detection_loss(out, tgt, assignment,
@@ -269,8 +276,8 @@ def _make_step(assign: Callable, dtype: torch.dtype, ema_decay: float):
         if ema_decay > 0.0:
             ema_update(state.ema_model, model, ema_decay)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "assignment": assignment,
+        return {"loss": data_parallel.mean_over_processes(loss.detach()),
+                "grad_norm": grad_norm, "assignment": assignment,
                 **{k: v.detach() for k, v in parts.items()}}
     return train_step
 

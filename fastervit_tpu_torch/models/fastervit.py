@@ -35,7 +35,9 @@ class FasterViTLayer(nn.Module):
     grad_checkpointing = False
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 padded_resolution: Tuple[int, int], ct_size: int = 1,
+                 padded_resolution: Tuple[int, int],
+                 resolution: Optional[Tuple[int, int]] = None,
+                 ct_size: int = 1,
                  conv: bool = False, downsample: bool = True,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None,
@@ -43,7 +45,8 @@ class FasterViTLayer(nn.Module):
                  layer_scale: Optional[float] = None,
                  layer_scale_conv: Optional[float] = None,
                  only_local: bool = False, do_propagation: bool = False,
-                 dynamic_mode: bool = False):
+                 dynamic_mode: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.conv = conv
         self.window_size = window_size
@@ -51,6 +54,13 @@ class FasterViTLayer(nn.Module):
         hp, wp = padded_resolution
         self.sr_ratio = ((1, 1) if only_local
                          else (hp // window_size, wp // window_size))
+        # the input size the model is built for, and its window padding, as
+        # constants: a tracer then records no arithmetic on the input's
+        # shape (the ONNX graph would carry Mod nodes)
+        self.resolution = resolution
+        self.pads = (None if resolution is None else
+                     tuple((window_size - r % window_size) % window_size
+                           for r in resolution))
         if conv:
             self.blocks = nn.ModuleList(
                 ConvBlock(dim, drop_path=drop_path[i],
@@ -62,7 +72,8 @@ class FasterViTLayer(nn.Module):
                     mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
                     drop_path=drop_path[i], layer_scale=layer_scale,
                     last=(i == depth - 1), do_propagation=do_propagation,
-                    dynamic_mode=dynamic_mode)
+                    dynamic_mode=dynamic_mode, drop=drop,
+                    attn_drop=attn_drop)
                 for i in range(depth))
         self.global_tokenizer = (
             TokenInitializer(dim, (hp, wp), window_size, ct_size,
@@ -86,7 +97,10 @@ class FasterViTLayer(nn.Module):
         else:
             _, _, h, w = x.shape
             ws = self.window_size
-            pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
+            if (h, w) == self.resolution:
+                (h, w), (pad_b, pad_r) = self.resolution, self.pads
+            else:
+                pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
             hp, wp = h + pad_b, w + pad_r
             if not self.only_local and (hp // ws, wp // ws) != self.sr_ratio:
                 raise ValueError(
@@ -118,6 +132,7 @@ def _build_levels(cfg: FasterViTConfig, dynamic_mode: bool = False,
     """The four levels; `padded` gives each level's padded resolution
     (default: the config's)."""
     dpr = cfg.drop_path_schedule()
+    shapes = level_shapes(*cfg.resolution, cfg.num_levels)
     levels = []
     for i in range(cfg.num_levels):
         start = sum(cfg.depths[:i])
@@ -126,12 +141,14 @@ def _build_levels(cfg: FasterViTConfig, dynamic_mode: bool = False,
             num_heads=cfg.num_heads[i], window_size=cfg.window_size[i],
             padded_resolution=(padded[i] if padded is not None
                                else cfg.level_padded_resolution(i)),
-            ct_size=cfg.ct_size, conv=(i < 2), downsample=(i < 3),
+            resolution=shapes[i], ct_size=cfg.ct_size, conv=(i < 2),
+            downsample=(i < 3),
             mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
             qk_scale=cfg.qk_scale, drop_path=dpr[start:start + cfg.depths[i]],
             layer_scale=cfg.layer_scale,
             layer_scale_conv=cfg.layer_scale_conv, only_local=not cfg.hat[i],
-            do_propagation=cfg.do_propagation, dynamic_mode=dynamic_mode))
+            do_propagation=cfg.do_propagation, dynamic_mode=dynamic_mode,
+            drop=cfg.drop_rate, attn_drop=cfg.attn_drop_rate))
     return nn.ModuleList(levels)
 
 
@@ -141,9 +158,6 @@ class FasterViT(nn.Module):
 
     def __init__(self, cfg: FasterViTConfig):
         super().__init__()
-        if cfg.drop_rate or cfg.attn_drop_rate:
-            raise NotImplementedError("dropout (drop_rate, attn_drop_rate) "
-                                      "is not ported")
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg.in_chans, cfg.in_dim, cfg.dim)
         self.levels = _build_levels(cfg)
@@ -204,9 +218,6 @@ class FasterViTPyramid(nn.Module):
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  stage_norm: str = "batchnorm"):
         super().__init__()
-        if cfg.drop_rate or cfg.attn_drop_rate:
-            raise NotImplementedError("dropout (drop_rate, attn_drop_rate) "
-                                      "is not ported")
         if stage_norm not in ("batchnorm", "layernorm"):
             raise ValueError(f"stage_norm {stage_norm!r}: 'batchnorm' or "
                              "'layernorm'")

@@ -81,12 +81,40 @@ class DropPath(nn.Module):
         return x * mask / keep
 
 
+class Dropout(nn.Module):
+    """Element dropout, the function of flax's nn.Dropout (JAX layers.py:
+    64-69, 423-424): in training, where(keep, x / (1 - rate), 0) with keep
+    drawn with probability 1 - rate; the identity in eval mode or at rate
+    0. Its bits come from `generator` where one is set
+    (`set_drop_path_generator`), else from torch's default generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.rate,
+                                              generator=self.generator)
+        return torch.where(keep.bool(), x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _draws(model: nn.Module):
+    """The modules of `model` that draw random bits in training: DropPath,
+    Dropout and attention with dropout (WindowAttention)."""
+    return [m for m in model.modules()
+            if isinstance(m, (DropPath, Dropout, WindowAttention))]
+
+
 def set_drop_path_generator(model: nn.Module,
                             generator: Optional[torch.Generator]) -> None:
-    """Hand `generator` to every DropPath of `model`."""
-    for m in model.modules():
-        if isinstance(m, DropPath):
-            m.generator = generator
+    """Hand `generator` to every module of `model` that draws random bits
+    in training: DropPath, Dropout and the attention dropout."""
+    for m in _draws(model):
+        m.generator = generator
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -119,15 +147,15 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def _replay_context(block: nn.Module):
     """torch.utils.checkpoint's context_fn for `block`: the recompute in
-    the backward must draw the DropPath masks of the forward and must not
+    the backward must draw the DropPath and dropout masks of the forward
+    and must not
     update the BatchNorm statistics a second time. The checkpoint restores
     the default generators only, and DropPath draws from its own, so the
     forward's context records that generator's state and the recompute's
     sets it (and puts back the state it found after), with update_stats
     off on the block's BatchNorms."""
-    gens = list({id(m.generator): m.generator for m in block.modules()
-                 if isinstance(m, DropPath)
-                 and m.generator is not None}.values())
+    gens = list({id(m.generator): m.generator for m in _draws(block)
+                 if m.generator is not None}.values())
     norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
     states = []
 
@@ -164,16 +192,20 @@ def checkpointed(block: nn.Module, *args):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU (exact erf) -> fc2."""
+    """fc1 -> GELU (exact erf) -> dropout -> fc2 -> dropout (JAX
+    layers.py:55-69; the dropouts are identities at drop 0)."""
 
-    def __init__(self, in_features: int, hidden_features: int):
+    def __init__(self, in_features: int, hidden_features: int,
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.act = nn.GELU()
+        self.drop1 = Dropout(drop)
         self.fc2 = nn.Linear(hidden_features, in_features)
+        self.drop2 = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        return self.drop2(self.fc2(self.drop1(self.act(self.fc1(x)))))
 
 
 def _rank2_coords(seq_length: int) -> np.ndarray:
@@ -368,22 +400,34 @@ def is_bakeable(module: nn.Module) -> bool:
 
 class WindowAttention(nn.Module):
     """MHSA over a window (plus the carrier tokens in front of it) with the
-    CPB bias: qkv -> bias -> window attention kernel -> proj."""
+    CPB bias: qkv -> bias -> window attention kernel -> proj -> dropout.
+
+    With attention dropout (attn_drop > 0) in training, `window_mhsa`
+    routes it to `ops.attention.dropout_window_mhsa`, the plain version
+    with the dropout, its mask drawn from `generator`
+    (`set_drop_path_generator`; torch's default generator if None): the
+    JAX package's route for it (ops/attention.py:64-70), since the kernels
+    compute no dropout. In eval mode the kernels run as without dropout."""
 
     def __init__(self, dim: int, num_heads: int, resolution: int,
                  seq_length: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.attn_drop = attn_drop
+        self.generator: Optional[torch.Generator] = None
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.proj_drop = Dropout(proj_drop)
         self.pos_emb_funct = PosEmbMLPSwinv2D(resolution, num_heads, seq_length)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ctx = window_mhsa(self.qkv(x), self.pos_emb_funct(), self.num_heads,
-                          self.scale)
-        return self.proj(ctx)
+                          self.scale, self.attn_drop if self.training else 0.0,
+                          self.generator)
+        return self.proj_drop(self.proj(ctx))
 
 
 class PatchEmbed(nn.Module):
@@ -514,9 +558,12 @@ class HAT(nn.Module):
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  drop_path: float = 0.0, layer_scale: Optional[float] = None,
                  last: bool = False, do_propagation: bool = False,
-                 dynamic_mode: bool = False):
+                 dynamic_mode: bool = False, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         ws, cs = window_size, ct_size
+        # the fused block computes no dropout (JAX layers.py:588-589)
+        self.dropout = drop > 0.0 or attn_drop > 0.0
         self.window_size, self.ct_size = ws, cs
         self.do_sr_hat = sr_ratio[0] > 1 or sr_ratio[1] > 1
         self.propagate = last and do_propagation and self.do_sr_hat
@@ -534,20 +581,22 @@ class HAT(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, resolution=ws,
                                     seq_length=ws * ws + self.cr_per_window,
-                                    qkv_bias=qkv_bias, qk_scale=qk_scale)
+                                    qkv_bias=qkv_bias, qk_scale=qk_scale,
+                                    attn_drop=attn_drop, proj_drop=drop)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, hidden)
+        self.mlp = Mlp(dim, hidden, drop)
         self.gamma3, self.gamma4 = gamma(), gamma()
         if self.do_sr_hat:
             cr_total = self.grid[0] * self.grid[1]
             self.hat_norm1 = nn.LayerNorm(dim, eps=1e-5)
             self.hat_attn = WindowAttention(
                 dim, num_heads, resolution=int(cr_total ** 0.5),
-                seq_length=cr_total, qkv_bias=qkv_bias, qk_scale=qk_scale)
+                seq_length=cr_total, qkv_bias=qkv_bias, qk_scale=qk_scale,
+                attn_drop=attn_drop, proj_drop=drop)
             self.hat_drop_path = DropPath(drop_path)
             self.hat_norm2 = nn.LayerNorm(dim, eps=1e-5)
-            self.hat_mlp = Mlp(dim, hidden)
+            self.hat_mlp = Mlp(dim, hidden, drop)
             self.hat_pos_embed = (
                 PosEmbMLPSwinv1D(dim, seq_length=cr_total, grid=self.grid,
                                  norm_by_seq=dynamic_mode)
@@ -558,10 +607,11 @@ class HAT(nn.Module):
                    drop_path):
         """One pre-LN attention + MLP residual pair: through the fused HAT
         block (K6 on the card) when `set_fused_hat` is on, the module is in
-        eval mode, not quantised and K6 takes the shape (JAX
+        eval mode, not quantised, has no dropout and K6 takes the shape (JAX
         layers.py:586-631); else composed."""
         hidden = mlp.fc1.out_features
         if (_FUSED_HAT and not self.training and not self.quantized
+                and not self.dropout
                 and attn.qkv.bias is not None
                 and fused_block_supported(x.shape, x.shape[-1], hidden,
                                           attn.num_heads)):

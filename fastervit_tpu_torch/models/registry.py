@@ -37,6 +37,11 @@ def list_models(filter: str = "") -> list:
     return sorted(names, key=_natural_key)
 
 
+def is_model(name: str) -> bool:
+    """Whether `name` is a registered variant."""
+    return name in VARIANTS
+
+
 def get_config(name: str, **overrides) -> FasterViTConfig:
     """The variant's config with overrides of any FasterViTConfig or
     DataConfig field; `resolution` also sets the data input size."""
@@ -156,3 +161,19 @@ def bake_posemb(model: nn.Module) -> nn.Module:
     for m in modules:
         m.relative_bias = m.compute()
     return model
+
+
+def export_for_deploy(model: nn.Module, batch_size: int,
+                      dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Deploy mode, the counterpart of the JAX package's `Model.aot_compile`
+    (fastervit_tpu/models/registry.py:127-137): the position biases baked
+    (`bake_posemb`), then the forward exported at a fixed batch of
+    `batch_size` inputs of `dtype` (`utils.export.export_program`), whose
+    `.module()` is returned: a graph of the forward's operators, the
+    hand-written kernels among them, with the weights and baked biases as
+    its constants. Save it with `utils.export.save_program` on the program
+    (`torch.export.export` of the returned module is that program again),
+    or call it in this process."""
+    from fastervit_tpu_torch.utils.export import export_program
+    bake_posemb(model.eval())
+    return export_program(model, batch_size, dtype).module()

@@ -7,23 +7,37 @@ Both attention sites in the model (the joint window+carrier MHSA and the
 carrier-token global MHSA) are softmax(q kᵀ·scale + bias) v with a dense
 per-head bias, read straight from the qkv projection output.
 
-`window_mhsa` is the single dispatch point, through the autograd function
-`WindowMHSA`; `bias_attention` is the same function on separate
-(B, H, S, D) q, k and v. `attention_route` picks the forward by shape on
-both devices, K1 for short windows and narrow heads and K3 for the rest;
-`backward_route` picks the backward, K2 for S <= 64 and hd <= 64 and K4 for
-the rest. A tensor on the CPU takes the route's plain PyTorch version; a
-CUDA tensor takes the route's hand-written kernel in `cuda_attention` (K1
-or K3 forward, K2 or K4 backward) or raises. There is no fallback from one
-to the other.
+`window_mhsa` is the single dispatch point; `bias_attention` is the same
+function on separate (B, H, S, D) q, k and v. `attention_route` picks the
+forward, K1 for short windows and narrow heads and K3 for the rest, on
+both devices; `backward_route` picks the backward, K2 for S <= 64 and
+hd <= 64 and K4 for the rest. The forward and backward go through the
+autograd function `WindowMHSA`, whose forward calls the operators
+`fastervit::window_mhsa_short` (K1) and `fastervit::window_mhsa_long` (K3)
+of `ops.library`, which torch.export records. A tensor on the CPU takes
+the route's plain PyTorch version; a CUDA tensor takes the route's
+hand-written kernel in `cuda_attention` (K1 or K3 forward, K2 or K4
+backward) or raises. There is no fallback from one to the other. Under the
+TorchScript tracer (the ONNX export, a CPU artifact) a CPU forward is the
+plain version itself, which the tracer records op by op; a CUDA one
+raises.
+
+Attention dropout is a function the kernels do not compute. With
+attn_drop > 0 (a module in training) `attention_route` gives the route
+PLAIN_DROPOUT, `dropout_window_mhsa`: the plain version with the dropout,
+on either device, as the JAX package routes it
+(fastervit_tpu/ops/attention.py:64-70, its `_resolve_impl(can_fuse=False)`).
+In eval mode the same module takes K1 or K3.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from fastervit_tpu_torch.ops import cuda_attention
+from fastervit_tpu_torch.ops import cuda_attention, library
+
+PLAIN_DROPOUT = "plain: attention dropout"
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -68,10 +82,14 @@ def window_mhsa_long_reference(qkv: torch.Tensor, bias: torch.Tensor,
     return ctx.transpose(1, 2).reshape(b, s, c3 // 3).to(qkv.dtype)
 
 
-def attention_route(s: int, hd: int) -> str:
+def attention_route(s: int, hd: int, attn_drop: float = 0.0) -> str:
     """The forward kernel for windows of S tokens and head dim hd: "K1"
     (window_mhsa_cuda) within its limits, S <= 128 and hd <= 64, else "K3"
-    (window_mhsa_long_cuda). The CPU takes the route's plain version."""
+    (window_mhsa_long_cuda). The CPU takes the route's plain version. With
+    attention dropout (attn_drop > 0, a module in training), PLAIN_DROPOUT:
+    `dropout_window_mhsa` on either device."""
+    if attn_drop > 0.0:
+        return PLAIN_DROPOUT
     if s <= cuda_attention.MAX_SEQ and hd <= cuda_attention.MAX_HEAD_DIM:
         return "K1"
     return "K3"
@@ -137,18 +155,11 @@ class WindowMHSA(torch.autograd.Function):
                 scale: float) -> torch.Tensor:
         ctx.save_for_backward(qkv, bias)
         ctx.num_heads, ctx.scale = num_heads, scale
+        if qkv.device.type not in ("cpu", "cuda"):
+            raise NotImplementedError(f"window attention has no path for "
+                                      f"device {qkv.device}")
         route = attention_route(qkv.shape[1], qkv.shape[2] // 3 // num_heads)
-        if qkv.device.type == "cpu":
-            plain = (window_mhsa_reference if route == "K1"
-                     else window_mhsa_long_reference)
-            with torch.autocast("cpu", enabled=False):
-                return plain(qkv, bias, num_heads, scale)
-        if qkv.device.type == "cuda":
-            kernel = (cuda_attention.window_mhsa_cuda if route == "K1"
-                      else cuda_attention.window_mhsa_long_cuda)
-            return kernel(qkv, bias, num_heads, scale)
-        raise NotImplementedError(f"window attention has no path for device "
-                                  f"{qkv.device}")
+        return library.FORWARD_OPS[route](qkv, bias, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -169,30 +180,77 @@ class WindowMHSA(torch.autograd.Function):
 
 
 def window_mhsa(qkv: torch.Tensor, bias: torch.Tensor, num_heads: int,
-                scale: float) -> torch.Tensor:
+                scale: float, attn_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Multi-head attention over per-window sequences, straight from the qkv
     projection. qkv: (B, S, 3C) (channel layout (3, H, hd)); bias: (H, S, S).
     Returns (B, S, C). Differentiable in qkv and bias.
 
+    attn_drop > 0 (a module in training) is attention dropout, the route
+    PLAIN_DROPOUT (`dropout_window_mhsa`, its mask drawn from `generator`).
     Under a bf16 qkv the K3 route streams the bias in bf16 too, as the JAX
     dispatch does (fastervit_tpu/ops/attention.py:83-84): it is the largest
     operand, and the logits are f32 either way."""
-    if (qkv.dtype == torch.bfloat16
-            and attention_route(qkv.shape[1],
-                                qkv.shape[2] // 3 // num_heads) == "K3"):
+    route = attention_route(qkv.shape[1], qkv.shape[2] // 3 // num_heads,
+                            attn_drop)
+    if route == PLAIN_DROPOUT:
+        return dropout_window_mhsa(qkv, bias, num_heads, scale, attn_drop,
+                                   generator)
+    if qkv.dtype == torch.bfloat16 and route == "K3":
         bias = bias.to(torch.bfloat16)
+    if torch.jit.is_tracing():
+        if qkv.device.type != "cpu":
+            raise NotImplementedError(
+                "window attention under the TorchScript tracer on "
+                f"{qkv.device}: the ONNX graph is a CPU artifact of the plain "
+                "version (utils/export.py::export_onnx traces on the CPU); "
+                "export for the card with export_program")
+        plain = (window_mhsa_reference if route == "K1"
+                 else window_mhsa_long_reference)
+        return plain(qkv, bias, num_heads, scale)
     return WindowMHSA.apply(qkv, bias, num_heads, scale)
 
 
 def bias_attention_reference(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, bias: torch.Tensor,
-                             scale: float) -> torch.Tensor:
+                             scale: float,
+                             keep: Optional[torch.Tensor] = None,
+                             attn_drop: float = 0.0) -> torch.Tensor:
     """Plain softmax(q kᵀ·scale + bias) v on (B, H, S, D) q, k, v and an
     (H, S, S) bias, in the inputs' dtypes (fastervit_tpu/ops/attention.py::
-    bias_attention_reference without its attention dropout, which the port
-    does not take). Materialises the (B, H, S, S) logits."""
+    bias_attention_reference). Materialises the (B, H, S, S) logits. With a
+    boolean keep mask (B, H, S, S), attention dropout at rate attn_drop:
+    the probabilities become where(keep, p / (1 - attn_drop), 0), as JAX's
+    do."""
     attn = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[None]
-    return torch.matmul(torch.softmax(attn, dim=-1), v)
+    attn = torch.softmax(attn, dim=-1)
+    if keep is not None:
+        attn = torch.where(keep, attn / (1.0 - attn_drop),
+                           torch.zeros((), dtype=attn.dtype,
+                                       device=attn.device))
+    return torch.matmul(attn.to(v.dtype), v)
+
+
+def dropout_window_mhsa(qkv: torch.Tensor, bias: torch.Tensor,
+                        num_heads: int, scale: float, attn_drop: float,
+                        generator: Optional[torch.Generator] = None,
+                        keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`window_mhsa` with attention dropout, the route PLAIN_DROPOUT: the
+    plain version on qkv's device, its keep mask (B, H, S, S) drawn with
+    probability 1 - attn_drop from `generator` (torch's default one if
+    None), or `keep` where given. Differentiable through autograd. Counts
+    its calls in `dropout_window_mhsa.calls`."""
+    b, s, c3 = qkv.shape
+    q, k, v = _split_heads(qkv, num_heads)
+    if keep is None:
+        keep = torch.empty((b, num_heads, s, s), device=qkv.device)
+        keep = keep.bernoulli_(1.0 - attn_drop, generator=generator).bool()
+    ctx = bias_attention_reference(q, k, v, bias, scale, keep, attn_drop)
+    dropout_window_mhsa.calls += 1
+    return ctx.transpose(1, 2).reshape(b, s, c3 // 3)
+
+
+dropout_window_mhsa.calls = 0
 
 
 def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -55,6 +55,7 @@ from fastervit_tpu_torch.ops.boxes import (box_cxcywh_to_xyxy,
                                            generalized_box_iou,
                                            hungarian_cost_matrix,
                                            hungarian_match)
+from fastervit_tpu_torch.parallel import data_parallel
 from fastervit_tpu_torch.train.steps import _autocast
 
 
@@ -363,6 +364,21 @@ def motr_clip_forward(det: MOTRDetector, frames: torch.Tensor,
     return outputs
 
 
+class ClipForward(nn.Module):
+    """`motr_clip_forward` as a module, so that data parallelism wraps a
+    whole clip in one DistributedDataParallel call a step (DDP takes one
+    forward a backward; a frame a call would be F). forward(frames,
+    proposals=None) -> each frame's output dict."""
+
+    def __init__(self, det: nn.Module):
+        super().__init__()
+        self.det = det
+
+    def forward(self, frames: torch.Tensor,
+                proposals: Optional[torch.Tensor] = None) -> List[Dict]:
+        return motr_clip_forward(self.det, frames, proposals)
+
+
 def _match_new(assigned: Dict[int, int], ids: Sequence[int], labels,
                tgt_boxes, logits: torch.Tensor, boxes: torch.Tensor) -> None:
     """ClipMatcher's rule for one frame of one image (JAX motr.py:341-353,
@@ -467,7 +483,10 @@ def make_motr_clip_train_step(dtype: torch.dtype = torch.float32,
     (F, B, 3, H, W) and proposals (F, B, P, 5) on the model's device.
     metrics: 'loss' and 'grad_norm' (device scalars), the 'assignment'
     used, each frame's last-layer 'logits' of the gradient pass and, where
-    it ran, of the matching pass ('match_logits')."""
+    it ran, of the matching pass ('match_logits'). Under data parallelism
+    (`state.ddp`, a DDP wrapper of `ClipForward(state.model)`) the
+    gradient pass is that wrapper's one call, the loss's target counts the
+    group's, and 'loss' the mean over the processes."""
     def train_step(state: DetectionTrainState, frames: torch.Tensor,
                    targets_per_frame, proposals: Optional[torch.Tensor] = None,
                    assignment=None) -> Dict:
@@ -485,15 +504,16 @@ def make_motr_clip_train_step(dtype: torch.dtype = torch.float32,
                            device)
         state.optimizer.zero_grad()
         with _autocast(device, dtype):
-            outs = motr_clip_forward(model, frames, proposals)
+            outs = (motr_clip_forward(model, frames, proposals)
+                    if state.ddp is None else state.ddp(frames, proposals))
         loss = motr_clip_loss(outs, tgt,
                               torch.as_tensor(assignment).to(device),
                               model.num_classes)
         loss.backward()
         grad_norm = state.optimizer.step(state.step)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "assignment": assignment,
+        return {"loss": data_parallel.mean_over_processes(loss.detach()),
+                "grad_norm": grad_norm, "assignment": assignment,
                 "logits": [o["logits"].detach() for o in outs],
                 "match_logits": match_logits}
     return train_step

@@ -6,7 +6,9 @@ The step's five random scalars (apply, switch, λ_mix, λ_cut and the box
 centre) are drawn on the host from a numpy Generator seeded from
 (seed, step), as timm draws them on the host; `mixup_cutmix_with` then does
 the per-pixel work on the images' device. The mixing partner is the
-flipped batch (timm's x.flip(0)). Images are NCHW."""
+flipped batch (timm's x.flip(0)); under data parallelism, the flipped
+global batch, as JAX flips it (`parallel.data_parallel.mirrored_flip`).
+Images are NCHW."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +17,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fastervit_tpu_torch.parallel.data_parallel import mirrored_flip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +68,8 @@ def mixup_cutmix_with(draws: Dict[str, object], images: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mix a batch with given draws (see `mixup_draws`); returns the mixed
     images (B, C, H, W) and the soft targets (B, classes) in f32.
-    images: (B, C, H, W) float; labels: (B,) int."""
+    images: (B, C, H, W) float; labels: (B,) int. Each row's partner is
+    its row of the flipped global batch (`mirrored_flip`)."""
     _, _, h, w = images.shape
     apply = draws["apply"] < cfg.prob
     use_cutmix = cfg.cutmix_alpha > 0 and (
@@ -73,14 +78,14 @@ def mixup_cutmix_with(draws: Dict[str, object], images: torch.Tensor,
     if apply and use_cutmix:
         y1, y2, x1, x2, lam = _box(h, w, draws["lam_cut"], draws["box"])
         images = images.clone()
-        images[:, :, y1:y2, x1:x2] = images.flip(0)[:, :, y1:y2, x1:x2]
+        images[:, :, y1:y2, x1:x2] = mirrored_flip(images)[:, :, y1:y2, x1:x2]
     elif apply:
         lam = draws["lam_mix"]
-        images = images * lam + images.flip(0) * (1.0 - lam)
+        images = images * lam + mirrored_flip(images) * (1.0 - lam)
     off = cfg.label_smoothing / cfg.num_classes
     on = 1.0 - cfg.label_smoothing + off
     y1h = F.one_hot(labels.long(), cfg.num_classes).float() * (on - off) + off
-    y2h = y1h.flip(0)
+    y2h = mirrored_flip(y1h)
     return images, y1h * lam + y2h * (1.0 - lam)
 
 

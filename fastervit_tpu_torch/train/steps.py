@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from fastervit_tpu_torch.models.layers import set_drop_path_generator
+from fastervit_tpu_torch.parallel import data_parallel, distributed
 from fastervit_tpu_torch.train import losses as L
 from fastervit_tpu_torch.train.ema import create_ema_model, ema_update
 from fastervit_tpu_torch.train.mixup import MixupConfig, mixup_cutmix
@@ -122,11 +123,15 @@ def optimizer_step(optimizer: torch.optim.Optimizer,
 @dataclasses.dataclass
 class TrainState:
     """What a train step updates: the model (f32 parameters, BN running
-    statistics), its EMA copy, the optimizer and the step count."""
+    statistics), its EMA copy, the optimizer and the step count. Under data
+    parallelism `ddp` is the model's DistributedDataParallel wrapper
+    (`parallel.data_parallel.wrap_model`), which the step's forward calls;
+    the model itself keeps the weights."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     ema_model: Optional[nn.Module] = None
     step: int = 0
+    ddp: Optional[nn.Module] = None
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig = TrainConfig()
@@ -165,6 +170,12 @@ def make_train_step(cfg: TrainConfig = TrainConfig(),
     schedule at the step before the increment; 0 without a schedule).
     Gradients stay in the parameters' .grad until the next step.
 
+    Under data parallelism (`state.ddp`) the batch is this process's rows
+    of the global batch (`data_parallel.local_slice`): mixup's partners
+    are the flipped global batch's rows (`mirrored_flip`), the gradients
+    DDP's average and 'loss' the mean over the processes, so the step is
+    the one-process step on the global batch, up to the order of sums.
+
     With cfg.grad_checkpoint, each block of the model recomputes its
     activations in the backward (`FasterViT.set_grad_checkpointing`). The
     JAX package remats the whole forward; in eager PyTorch a whole-forward
@@ -200,12 +211,14 @@ def make_train_step(cfg: TrainConfig = TrainConfig(),
         model.train()
         if cfg.grad_checkpoint:
             model.set_grad_checkpointing(True)
+        # a process's own stream of DropPath and dropout draws
         gen = torch.Generator(device=device)
-        set_drop_path_generator(model,
-                                gen.manual_seed(seed * 1_000_003 + state.step))
+        set_drop_path_generator(model, gen.manual_seed(
+            (seed * 1_000_003 + state.step) * distributed.world_size()
+            + distributed.rank()))
         state.optimizer.zero_grad(set_to_none=True)
         with _autocast(device, dtype):
-            logits = model(images)
+            logits = (model if state.ddp is None else state.ddp)(images)
         loss = loss_from_logits(logits.float(), targets, soft)
         if (cfg.mesa > 0.0 and state.ema_model is not None
                 and state.step >= cfg.mesa_start_step):
@@ -219,7 +232,8 @@ def make_train_step(cfg: TrainConfig = TrainConfig(),
         if cfg.use_ema and state.ema_model is not None:
             ema_update(state.ema_model, model, cfg.ema_decay)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
+        return {"loss": data_parallel.mean_over_processes(loss.detach()),
+                "grad_norm": grad_norm, "lr": lr}
 
     return train_step
 

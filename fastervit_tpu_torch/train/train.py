@@ -1,5 +1,6 @@
 """ImageNet training CLI (port of fastervit_tpu/train/train.py; reference
-fastervit/train.py:379-951) on one device: the card unless `--device cpu`.
+fastervit/train.py:379-951): the card unless `--device cpu`, on one
+process or data-parallel over many.
 
 A config file sets the defaults and the command line overrides them
 (reference train.py:75-77, 363-377). The configs (configs/*.yaml) are flat
@@ -31,10 +32,24 @@ every --recovery-interval steps, a save and exit 75 on SIGTERM/SIGUSR1
 checkpoint or, with --auto-resume (the default), of the output directory's.
 As in the JAX package, a resumed run restores the step, so the schedule and
 the random draws go on where they stopped, but starts its epoch loop at 0
-again (ROADMAP.md). Flags whose machinery is not ported raise
-NotImplementedError naming their ROADMAP item: --tensorboard and
---log-wandb (queue 1, "The rest of training": logging), and --lmdb-dataset
-(the lmdb package is on neither machine).
+again (ROADMAP.md). --tensorboard writes scalars to <output>/tb[/
+<experiment>], --log-wandb to Weights & Biases under --experiment's name;
+each logs a warning and goes on where its package is missing.
+--lmdb-dataset raises NotImplementedError (the lmdb package is on neither
+machine).
+
+Data parallel (`parallel/`): launched by torchrun or SLURM, each process
+joins the group (`parallel.distributed.initialize`: NCCL on the card
+cuda:LOCAL_RANK, gloo with --device cpu), reads its share of the data
+(the loaders' process_index/process_count; --batch-size is a process's
+batch, as in the reference) and trains the model wrapped in
+DistributedDataParallel with synchronised BatchNorm
+(`parallel.data_parallel.wrap_model`); the schedule counts the global
+batch, eval sums are added up over the processes, and only rank 0 logs,
+writes checkpoints, the summary and the code snapshot.
+
+    torchrun --nproc_per_node 8 -m fastervit_tpu_torch.train.train \
+        --config configs/faster_vit_0_224_1k.yaml --data-dir ROOT
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ import torch
 
 from fastervit_tpu_torch.data.synthetic import SyntheticLoader
 from fastervit_tpu_torch.models.registry import create_model
+from fastervit_tpu_torch.parallel import data_parallel, distributed
 from fastervit_tpu_torch.train.mixup import MixupConfig
 from fastervit_tpu_torch.train.schedule import (ScheduleConfig,
                                                 create_scheduler)
@@ -60,8 +76,11 @@ from fastervit_tpu_torch.train.steps import (TrainConfig, create_train_state,
                                              make_eval_step, make_train_step)
 from fastervit_tpu_torch.utils.checkpoint import CheckpointManager
 from fastervit_tpu_torch.utils.convert import load_checkpoint
-from fastervit_tpu_torch.utils.metrics import AverageMeter, update_summary
-from fastervit_tpu_torch.utils.preemption import (PreemptionHandler,
+from fastervit_tpu_torch.utils.metrics import (AverageMeter,
+                                               TensorboardLogger, WandbLogger,
+                                               update_summary)
+from fastervit_tpu_torch.utils.preemption import (REQUEUE_EXIT_CODE,
+                                                  PreemptionHandler,
                                                   maybe_auto_resume)
 
 log = logging.getLogger("fastervit_tpu_torch.train")
@@ -69,10 +88,6 @@ log = logging.getLogger("fastervit_tpu_torch.train")
 _NOT_PORTED = {
     "lmdb_dataset": "--lmdb-dataset (the lmdb package is on neither "
                     "machine: ROADMAP.md, 'Out of reach')",
-    "tensorboard": "--tensorboard (ROADMAP.md queue 1, 'The rest of "
-                   "training': logging)",
-    "log_wandb": "--log-wandb (ROADMAP.md queue 1, 'The rest of "
-                 "training': logging)",
 }
 
 
@@ -134,8 +149,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-hist", type=int, default=1)
     p.add_argument("--eval-metric", default="top1")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--tensorboard", action="store_true")
-    p.add_argument("--log-wandb", action="store_true")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="write scalars to <output>/tb")
+    p.add_argument("--log-wandb", action="store_true",
+                   help="log metrics to Weights & Biases if installed "
+                        "(reference train.py:383-388)")
+    p.add_argument("--experiment", default="",
+                   help="the run's name: wandb's, and a tb subdirectory "
+                        "(reference train.py:306-308)")
     return p
 
 
@@ -192,23 +213,30 @@ def _check_ported(args: argparse.Namespace) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def make_loaders(args: argparse.Namespace, data_cfg, steps_per_epoch: int):
-    """(train, eval) loaders: synthetic with --synthetic or without
-    --data-dir (at most 32 train batches an epoch, 4 eval batches), else
-    TrainLoader over <data-dir>/train and EvalLoader over <data-dir>/val
-    (JAX train.py:113-128)."""
+def make_loaders(args: argparse.Namespace, data_cfg, steps_per_epoch: int,
+                 process_index: int = 0, process_count: int = 1):
+    """(train, eval) loaders of this process's share: synthetic with
+    --synthetic or without --data-dir (at most 32 train batches an epoch, 4
+    eval batches; seeds 2r and 2r + 1 on rank r), else TrainLoader over
+    <data-dir>/train and EvalLoader over <data-dir>/val, every
+    process_count-th image from process_index's (JAX train.py:113-128)."""
     if args.synthetic or not args.data_dir:
         return (SyntheticLoader(data_cfg, args.batch_size,
                                 num_batches=min(steps_per_epoch, 32),
-                                num_classes=args.num_classes),
+                                num_classes=args.num_classes,
+                                seed=2 * process_index),
                 SyntheticLoader(data_cfg, args.batch_size, num_batches=4,
-                                num_classes=args.num_classes, seed=1))
+                                num_classes=args.num_classes,
+                                seed=2 * process_index + 1))
     from fastervit_tpu_torch.data.imagenet import EvalLoader
     from fastervit_tpu_torch.data.train_loader import TrainLoader
     return (TrainLoader(os.path.join(args.data_dir, "train"), data_cfg,
-                        args.batch_size, seed=args.seed),
+                        args.batch_size, seed=args.seed,
+                        process_index=process_index,
+                        process_count=process_count),
             EvalLoader(os.path.join(args.data_dir, "val"), data_cfg,
-                       args.batch_size))
+                       args.batch_size, process_index=process_index,
+                       process_count=process_count))
 
 
 def _device(name: str) -> torch.device:
@@ -233,10 +261,18 @@ def _snapshot_code(output_dir: str) -> None:
 
 
 def train(args: argparse.Namespace) -> dict:
+    """Train as the arguments say. Returns {'best_<eval metric>': ...,
+    'train_losses': the logged steps' losses, in order}."""
     _check_ported(args)
-    device = _device(args.device)
+    _device(args.device)
+    joins = not torch.distributed.is_initialized()
+    dist_info = distributed.initialize(device=args.device)
+    device = _device(str(dist_info["device"]))
+    rank, world = dist_info["process_index"], dist_info["process_count"]
+    main_process = rank == 0
     os.makedirs(args.output, exist_ok=True)
-    _snapshot_code(args.output)
+    if main_process:
+        _snapshot_code(args.output)
     dtype = getattr(torch, args.dtype)
     overrides = {"num_classes": args.num_classes}
     if args.drop_path is not None:
@@ -255,9 +291,10 @@ def train(args: argparse.Namespace) -> dict:
         sched=args.sched, lr=args.lr, min_lr=args.min_lr,
         warmup_lr=args.warmup_lr, epochs=args.epochs,
         warmup_epochs=args.warmup_epochs, cooldown_epochs=args.cooldown_epochs,
-        data_len=args.data_len, batch_size=args.batch_size, world_size=1)
+        data_len=args.data_len, batch_size=args.batch_size,
+        world_size=world)
     schedule_fn, total_iters = create_scheduler(sched_cfg)
-    steps_per_epoch = max(args.data_len // args.batch_size, 1)
+    steps_per_epoch = max(args.data_len // (args.batch_size * world), 1)
     num_epochs = math.ceil(total_iters / steps_per_epoch)
 
     mixup = None
@@ -286,6 +323,7 @@ def train(args: argparse.Namespace) -> dict:
         # requeue relaunch: restore the newest checkpoint in output/
         # (reference run_with_submitit.py:13-50 + train.py:505-516)
         state, _ = maybe_auto_resume(ckpt, state, args.auto_resume)
+    state.ddp = data_parallel.wrap_model(state.model, device)
     train_step = make_train_step(tcfg, schedule_fn, dtype, args.seed)
     # mixup off for the final epochs (reference --mixup-off-epoch,
     # train.py:825-829)
@@ -297,13 +335,25 @@ def train(args: argparse.Namespace) -> dict:
     eval_step = make_eval_step(dtype)
 
     train_loader, eval_loader = make_loaders(args, model.cfg.data,
-                                             steps_per_epoch)
+                                             steps_per_epoch, rank, world)
+    tb = TensorboardLogger(os.path.join(args.output, "tb")
+                           if args.tensorboard and main_process else None,
+                           run_name=args.experiment or None)
+    wandb_log = WandbLogger(args.log_wandb and main_process,
+                            run_name=args.experiment or None,
+                            config=vars(args))
 
     def run_eval(m: torch.nn.Module) -> dict:
-        totals = {"loss_sum": 0.0, "top1": 0, "top5": 0, "count": 0}
+        # a process with no batch still takes part in the sums' reduction
+        sums = {"loss_sum": torch.zeros((), device=device),
+                "top1": torch.zeros((), dtype=torch.long, device=device),
+                "top5": torch.zeros((), dtype=torch.long, device=device),
+                "count": torch.zeros((), dtype=torch.long, device=device)}
         for batch in eval_loader:
             for k, v in eval_step(m, batch).items():
-                totals[k] += v.item()
+                sums[k] = sums[k] + v
+        totals = {k: data_parallel.sum_over_processes(v).item()
+                  for k, v in sums.items()}
         n = max(totals["count"], 1)
         return {"loss": totals["loss_sum"] / n,
                 "top1": 100.0 * totals["top1"] / n,
@@ -311,6 +361,7 @@ def train(args: argparse.Namespace) -> dict:
 
     summary_path = os.path.join(args.output, "summary.csv")
     best = -float("inf")
+    train_losses = []
     preempt = PreemptionHandler().install()
     try:
         for epoch in range(num_epochs):
@@ -326,8 +377,10 @@ def train(args: argparse.Namespace) -> dict:
                 batch = {k: v for k, v in batch.items() if k != "valid"}
                 metrics = step_fn(state, batch)
                 if preempt.preempted:
-                    # SIGTERM/SIGUSR1: save, exit 75 so that the launcher
-                    # requeues; the relaunch auto-resumes from here
+                    # SIGTERM/SIGUSR1: save (rank 0), exit 75 so that the
+                    # launcher requeues; the relaunch auto-resumes from here
+                    if not main_process:
+                        raise SystemExit(REQUEUE_EXIT_CODE)
                     preempt.checkpoint_and_exit(ckpt, state.step, state)
                 if i % args.log_interval == 0 or i == len(train_loader) - 1:
                     loss = metrics["loss"].item()
@@ -341,30 +394,50 @@ def train(args: argparse.Namespace) -> dict:
                     t_last, i_last = now, i
                     loss_m.update(loss)
                     rate_m.update(rate)
-                    log.info("epoch %d it %d/%d loss %.4f lr %.2e %.0f img/s",
-                             epoch, i, len(train_loader), loss, metrics["lr"],
-                             rate)
-                ckpt.maybe_save_recovery(state.step, state)
+                    train_losses.append(loss)
+                    if main_process:
+                        log.info("epoch %d it %d/%d loss %.4f lr %.2e "
+                                 "%.0f img/s", epoch, i, len(train_loader),
+                                 loss, metrics["lr"], rate)
+                        tb.log_scalar("train/loss", loss, state.step)
+                        wandb_log.log({"train/loss": loss,
+                                       "train/lr": metrics["lr"],
+                                       "train/img_s": rate}, step=state.step)
+                if main_process:
+                    ckpt.maybe_save_recovery(state.step, state)
 
             eval_m = run_eval(state.model)
-            log.info("epoch %d eval: %s", epoch, eval_m)
+            if main_process:
+                log.info("epoch %d eval: %s", epoch, eval_m)
             if state.ema_model is not None:
                 ema_m = run_eval(state.ema_model)
-                log.info("epoch %d EMA eval: %s", epoch, ema_m)
+                if main_process:
+                    log.info("epoch %d EMA eval: %s", epoch, ema_m)
                 if ema_m["top1"] >= eval_m["top1"]:
                     eval_m = {**ema_m, "ema": 1}
             if not np.isfinite(eval_m["loss"]):
                 log.error("eval loss non-finite; aborting (NaN guard)")
                 raise FloatingPointError("eval loss is non-finite")
             metric = eval_m[args.eval_metric]
-            ckpt.save(state.step, state, metric=metric)
             best = max(best, metric)
-            update_summary(epoch, {"loss": loss_m.avg, "img_s": rate_m.avg},
-                           eval_m, summary_path, write_header=(epoch == 0))
+            if main_process:
+                ckpt.save(state.step, state, metric=metric)
+                update_summary(epoch, {"loss": loss_m.avg,
+                                       "img_s": rate_m.avg},
+                               eval_m, summary_path,
+                               write_header=(epoch == 0))
+                tb.log_scalar("eval/top1", eval_m["top1"], state.step)
+                wandb_log.log({"eval/" + k: v for k, v in eval_m.items()},
+                              step=state.step)
+                tb.flush()
     finally:
         preempt.uninstall()
+        tb.close()
+        wandb_log.finish()
+        if joins and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     ckpt.wait()
-    return {"best_" + args.eval_metric: best}
+    return {"best_" + args.eval_metric: best, "train_losses": train_losses}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

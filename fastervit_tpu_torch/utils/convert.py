@@ -285,3 +285,43 @@ def load_checkpoint(model: torch.nn.Module, path: str,
         raise RuntimeError(f"no state_dict found in {path}")
     return load_state_dict_lenient(model,
                                    normalize_state_dict(ckpt, use_ema=use_ema))
+
+
+def main(argv=None) -> None:
+    """CLI: convert a reference .pth.tar into the port's weights file
+    (JAX convert.py's `main`, which writes an orbax tree; here
+    `utils.checkpoint.save_variables`, which `restore_variables` reads).
+
+        python -m fastervit_tpu_torch.utils.convert \\
+            --model faster_vit_0_224 --checkpoint fv0.pth.tar --out fv0.pt
+
+    The checkpoint is unwrapped and its prefixes stripped
+    (`normalize_state_dict`, `--use-ema` for its EMA weights), its constant
+    tables (which the model rebuilds from its config) left out, and the
+    rest loaded strictly: a key missing or to spare, or a shape that
+    differs, raises. The model is built on the CPU."""
+    import argparse
+
+    from fastervit_tpu_torch.models.registry import create_model
+    from fastervit_tpu_torch.utils.checkpoint import save_variables
+
+    p = argparse.ArgumentParser(description=main.__doc__)
+    p.add_argument("--model", required=True)
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--use-ema", action="store_true")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    model = create_model(args.model, device="cpu")
+    ckpt = torch.load(args.checkpoint, map_location="cpu", weights_only=False)
+    if not isinstance(ckpt, dict):
+        raise RuntimeError(f"no state_dict found in {args.checkpoint}")
+    sd = {k: v for k, v in normalize_state_dict(ckpt, args.use_ema).items()
+          if not k.endswith(_CONSTANT_TABLES)}
+    model.load_state_dict(sd, strict=True)
+    save_variables(args.out, model)
+    print(f"converted {args.checkpoint} -> {args.out}")
+
+
+if __name__ == "__main__":
+    main()

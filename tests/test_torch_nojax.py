@@ -23,9 +23,13 @@ tools), int8 serving (ops.quant, a quantised model run), the input
 pipeline (data.imagenet, train_loader, cifar, randaugment, real_labels,
 native), the validate CLI on --synthetic --device cpu with --int8, the
 panoptic post-processing, the visualizer and the examples (detect
-imported, track run) and chip_smoke.py load no jax, jaxlib, flax or
-fastervit_tpu module; no module of the port names the JAX package in an
-import."""
+imported, track run), export (ops.library's operators; utils.export: a
+program exported, saved and loaded, an ONNX graph run by
+utils.onnx_eval, the export CLI on --device cpu; classify imported), data
+parallelism (parallel.distributed, data_parallel, dryrun), a train step
+with dropout, utils.timing (torch_trace) and utils.plot and chip_smoke.py
+load no jax, jaxlib, flax or fastervit_tpu module; no module of the port
+names the JAX package in an import."""
 import os
 import subprocess
 import sys
@@ -257,6 +261,40 @@ with tempfile.TemporaryDirectory() as d:
         {"boxes": np.asarray([[0.5, 0.5, 0.2, 0.2]]), "size": (8, 8)},
         savedir=d).endswith(".png")
     assert track_example.main(["--output", d])["frames"] == 10
+from fastervit_tpu_torch.ops import library
+from fastervit_tpu_torch.utils import export, onnx_eval, plot, timing
+from fastervit_tpu_torch.parallel import data_parallel, distributed, dryrun
+from fastervit_tpu_torch.examples import classify
+from fastervit_tpu_torch.utils.metrics import update_summary
+tm = fvt.create_model("faster_vit_0_224", device="cpu", depths=[1, 1, 1, 1],
+                      dim=16, in_dim=8, num_heads=[1, 1, 2, 2], resolution=64,
+                      num_classes=10, drop_rate=0.1, attn_drop_rate=0.1)
+dcfg = TrainConfig(mixup=MixupConfig(num_classes=10))
+dstate = create_train_state(tm, dcfg)
+assert np.isfinite(make_train_step(dcfg, lambda t: 1e-3)(dstate, {
+    "image": np.zeros((2, 64, 64, 3), np.float32),
+    "label": np.array([1, 2], np.int32)})["loss"].item())
+tm.eval()
+x = torch.randn(3, 3, 64, 64)
+with tempfile.TemporaryDirectory() as d, torch.no_grad():
+    program = export.export_program(tm)
+    assert str(library.window_mhsa_short.default) in str(program.graph)
+    path = export.save_program(program, d + "/p.pt2")
+    assert torch.equal(export.load_program(path).module()(x), tm(x))
+    graph = export.export_onnx(tm, d + "/m.onnx")
+    got = onnx_eval.run_onnx(graph, {"input": x.numpy()})["output"]
+    assert np.abs(got - tm(x).numpy()).max() < 1e-4
+    export.main(["--model", "faster_vit_0_224", "--format", "program",
+                 "--batch", "1", "--device", "cpu", "--out", d + "/fv0.pt2"])
+    with timing.torch_trace(d + "/trace"):
+        tm(x)
+    assert os.path.exists(d + "/trace/trace.json")
+    update_summary(0, {"loss": 1.0}, {"top1": 2.0}, d + "/s.csv", True)
+    plot.plot_summaries([d + "/s.csv"], output=d + "/s.png")
+assert distributed.initialize(device="cpu")["process_count"] == 1
+assert data_parallel.local_slice({"a": np.arange(4)}, 1, 2)["a"].tolist() == \
+    [2, 3]
+assert dryrun.GLOBAL_BATCH and classify.main
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "fastervit_tpu"))
 print("LOADED", bad)
