@@ -345,7 +345,26 @@ Phases, each of which raises on failure:
  48. dropout: the fv0 bf16 b128 step with drop_rate and attn_drop_rate
      0.1 twice from one seed (equal losses), every attention on the route
      "plain: attention dropout" (17 calls, no K1 or K2 launch), then K1's
-     17 launches at eval.
+     17 launches at eval;
+ 49. the module options: WindowAttention(ct_correct=True), whose bias
+     gives the 4 carrier tokens window tokens' rows and columns (checked
+     non-zero), at fv0's level-2 joint call (dim 256, 8 heads, window 7,
+     b256: qkv (1024, 53, 768); K1 forward, K2 backward) and at
+     faster_vit_4_21k_384's level-2 window with 4 carriers in front (dim
+     784, 16 heads, hd 49, window 24, S 580, b32; K3 and K4), in bf16 and
+     fp32: output, input and parameter gradients under a random
+     cotangent against the same module through the plain versions
+     (TOL_BF16, TOL_K2_BF16 / TOL_K4_BF16; fp32 to TOL_FP32 and
+     TOL_CT_GRAD_FP32); in bf16 each gradient's largest entry and error
+     relative to it printed, the bias MLP's held to TOL_CT_CPB_BF16 and a
+     planted fault (the carrier-row dbias zeroed) checked to exceed it;
+     launches counted by route (RouteLog, check_plan,
+     check_bwd_plan); the bf16 kernels timed on the ct_correct bias, on
+     the zero-carrier bias, on the window alone (no carrier tokens) and
+     beside their plain versions, in turns; the
+     rank-1 PosEmbMLPSwinv1D and rectangular, pretrained-window and no-log
+     PosEmbMLPSwinv2D on the card against the CPU in fp32 (cuBLAS, no
+     kernel launch).
 It prints one JSON line on the kernels and, as its last line,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result. It imports no jax.
@@ -6625,6 +6644,25 @@ ONNX_BATCH = 3             # an ONNX batch the trace (at 1) did not see
 TOL_ONNX = 1e-4            # numpy's f32 sums against torch's, fp32 logits
 DDP_STEPS = 2
 DROPOUT = 0.1
+# phase 49: (what, dim, heads, window, S, windows a call, forward and
+# backward kernel, timing iterations)
+CT_CASES = [("fv0 level-2 joint", 256, 8, 7, 53, 1024, "K1", "K2", 30),
+            ("21k-384 level-2 window + 4 carriers", 784, 16, 24, 580, 32,
+             "K3", "K4", 10)]
+# fp32 gradients, card against the plain version, relative to each
+# tensor's largest entry (TOL_K2_FP32's bound: f32 throughout, TF32 off,
+# sums in another order)
+TOL_CT_GRAD_FP32 = 1e-4
+# bf16 gradients of the bias's MLP (pos_emb_funct.cpb_mlp), relative to
+# each tensor's largest entry. The ct_correct bias's window block is 0, so
+# only K2's and K4's dbias in the carrier rows and columns reach these
+# parameters. The limit lies between the sound run's readings and those of
+# a planted fault (the carrier-row dbias zeroed, `carrier_rows_dropped`),
+# which the phase prints and checks above it. On an H100 (700 W) the sound
+# runs read 0 at fv0's joint call and 4.6e-3 at 21k-384's window, the
+# fault 0.23 and 1.9e-2 (4 carrier rows of 580 there: the columns, kept,
+# carry most of the gradient).
+TOL_CT_CPB_BF16 = 1e-2
 
 
 def serve_programs(directory: Path) -> None:
@@ -6979,6 +7017,276 @@ def dropout_phase(fvt, cuda_attention, steps, mixup) -> dict:
     return {"losses": losses, "secs": secs}
 
 
+class PlainMHSA(torch.autograd.Function):
+    """Window attention through the plain versions of the kernels: the
+    forward K1's or K3's (`long`), the backward K2's and K4's."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, scale, long):
+        from fastervit_tpu_torch.ops import attention
+        ctx.save_for_backward(qkv, bias)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        plain = (attention.window_mhsa_long_reference if long
+                 else attention.window_mhsa_reference)
+        return plain(qkv, bias, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        from fastervit_tpu_torch.ops import attention
+        qkv, bias = ctx.saved_tensors
+        dqkv, dbias = attention.window_mhsa_backward_reference(
+            qkv, bias, g.contiguous(), ctx.num_heads, ctx.scale)
+        return dqkv, dbias, None, None, None
+
+
+def plain_window_mhsa(qkv, bias, num_heads, scale, attn_drop=0.0,
+                      generator=None):
+    """ops.attention.window_mhsa (no dropout) through the plain versions,
+    the bias cast to bf16 for the K3 route as window_mhsa casts it."""
+    from fastervit_tpu_torch.ops import attention
+    long = attention.attention_route(
+        qkv.shape[1], qkv.shape[2] // 3 // num_heads) == "K3"
+    if long and qkv.dtype == torch.bfloat16:
+        bias = bias.to(torch.bfloat16)
+    return PlainMHSA.apply(qkv, bias, num_heads, scale, long)
+
+
+def module_grads(module, x, g, window_mhsa=None):
+    """module(x)'s output and the gradients of <output, g> in x and in
+    each parameter, with `window_mhsa` in the layers' place where given."""
+    from fastervit_tpu_torch.models import layers
+    kept = layers.window_mhsa
+    if window_mhsa is not None:
+        layers.window_mhsa = window_mhsa
+    try:
+        module.zero_grad(set_to_none=True)
+        x = x.detach().requires_grad_()
+        y = module(x)
+        y.backward(g)
+    finally:
+        layers.window_mhsa = kept
+    torch.cuda.synchronize()
+    return y.detach(), {"x": x.grad, **{n: p.grad for n, p
+                                          in module.named_parameters()}}
+
+
+def carrier_rows_dropped(n_ct: int):
+    """layers.window_mhsa with the bias's gradient in its first n_ct rows
+    (the carrier rows) set to 0: a planted fault in K2's or K4's dbias."""
+    from fastervit_tpu_torch.models import layers
+    run = layers.window_mhsa
+
+    def faulty(qkv, bias, *args, **kw):
+        bias = bias.view_as(bias)
+        bias.register_hook(lambda d: torch.cat(
+            [torch.zeros_like(d[:, :n_ct]), d[:, n_ct:]], 1))
+        return run(qkv, bias, *args, **kw)
+    return faulty
+
+
+def cpb_grads_held(what, got_g, want_g, fault_g) -> None:
+    """Phase 49's bf16 gradients: each tensor's largest entry and its error
+    relative to it printed; the bias MLP's held to TOL_CT_CPB_BF16, and the
+    planted fault's readings checked above that limit."""
+    own = {k: rel_to_largest(got_g[k], want_g[k]) for k in want_g}
+    print(f"ct_correct (phase 49): {what} bf16 gradients, largest entry "
+          "and error relative to it: " + ", ".join(
+              f"{k} {float(want_g[k].float().abs().max()):.3e} {own[k]:.3e}"
+              for k in want_g))
+    cpb = [k for k in want_g if "cpb_mlp" in k]
+    sound = max(own[k] for k in cpb)
+    fault = max(rel_to_largest(fault_g[k], want_g[k]) for k in cpb)
+    print(f"ct_correct (phase 49): {what} bf16 bias-MLP gradients "
+          f"{sound:.3e} (tol {TOL_CT_CPB_BF16}); with the carrier-row dbias "
+          f"zeroed (a planted fault) {fault:.3e}")
+    check(cpb and sound <= TOL_CT_CPB_BF16,
+          f"{what} bf16: bias-MLP gradient error {sound}")
+    check(fault > TOL_CT_CPB_BF16,
+          f"{what} bf16: a zeroed carrier-row dbias reads {fault}, within "
+          f"the limit {TOL_CT_CPB_BF16}")
+
+
+def bound_by(nbytes: float, flops: float) -> str:
+    """Which of bound_ms's two limits binds."""
+    return ("operations" if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes")
+
+
+def ct_correct_case(cuda_attention, attention, layers, case) -> dict:
+    """One CT_CASES entry: the module's bias checked, then bf16 and fp32
+    card runs against the plain versions, launches by route, and the bf16
+    kernels timed."""
+    what, dim, heads, window, s, b, fk, bk, iters = case
+    n_ct = s - window * window
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(49)
+        module = layers.WindowAttention(dim, heads, window, s,
+                                        ct_correct=True).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    x = torch.randn(b, s, dim, device="cuda", generator=gen)
+    g = torch.randn(b, s, dim, device="cuda", generator=gen)
+    with torch.no_grad():
+        bias = module.pos_emb_funct()
+    carriers = float(bias[:, :n_ct].abs().amin())
+    check(carriers > 0 and float(bias[:, :, :n_ct].abs().amin()) > 0
+          and not bool(bias[:, n_ct:, n_ct:].any()),
+          f"{what}: the ct_correct bias's carrier rows and columns "
+          "non-zero, its window block zero")
+    out = {"launches": [0, 0, 0, 0]}
+    long = fk == "K3"
+    hd = dim // heads
+    for dtype in (torch.bfloat16, torch.float32):
+        m = copy.deepcopy(module).to(dtype)
+        bf16 = dtype == torch.bfloat16
+        reset_launches(cuda_attention)
+        with RouteLog(cuda_attention) as routes:
+            got, got_g = module_grads(m, x.to(dtype), g.to(dtype))
+        calls = launches(cuda_attention)
+        want_calls = (0, 0, 1, 1) if long else (1, 1, 0, 0)
+        check(calls == want_calls, f"{what} {dtype}: launches {calls}, "
+                                   f"expected {want_calls}")
+        out["launches"] = [a + c for a, c in zip(out["launches"], calls)]
+        route = "wgmma" if bf16 else "scalar"
+        if long:
+            check_plan(cuda_attention.window_mhsa_long_cuda, cuda_attention,
+                       bf16, hd, dtype, f"{what} {dtype} K3")
+            check_bwd_plan(cuda_attention, bf16, hd, dtype,
+                           f"{what} {dtype}")
+        else:
+            routes.check(1, 1, route, f"ct_correct (phase 49): {what} "
+                                      f"{dtype}")
+        reset_launches(cuda_attention)
+        want, want_g = module_grads(m, x.to(dtype), g.to(dtype),
+                                    plain_window_mhsa)
+        check(launches(cuda_attention) == (0, 0, 0, 0),
+              f"{what}: the plain run launched a kernel")
+        fwd = rel_err(got, want)
+        if bf16:
+            tol_g = TOL_K4_BF16 if long else TOL_K2_BF16
+            grad = max(rel_err(got_g[k], want_g[k]) for k in want_g)
+            _, fault_g = module_grads(m, x.to(dtype), g.to(dtype),
+                                      carrier_rows_dropped(n_ct))
+            cpb_grads_held(what, got_g, want_g, fault_g)
+            del fault_g
+        else:
+            tol_g = TOL_CT_GRAD_FP32
+            grad = max(rel_to_largest(got_g[k], want_g[k]) for k in want_g)
+        tol_f = TOL_BF16 if bf16 else TOL_FP32
+        print(f"ct_correct (phase 49): {what} {str(dtype)[6:]} x ({b}, {s}, "
+              f"{dim}), {heads} heads: output against the plain versions "
+              f"{fwd:.3e} (tol {tol_f}), gradients of x and the "
+              f"{len(want_g) - 1} parameters {grad:.3e} (tol {tol_g}); "
+              f"{fk} and {bk} on route {route}")
+        check(fwd <= tol_f, f"{what} {dtype}: output error {fwd}")
+        check(grad <= tol_g, f"{what} {dtype}: gradient error {grad}")
+        del m, got, got_g, want, want_g
+    # the bf16 kernels timed on the ct_correct bias, on the zero-carrier
+    # bias of the same window, on the window alone (its S window² tokens,
+    # no carrier in front) and beside their plain versions
+    module.pos_emb_funct.ct_correct = False
+    with torch.no_grad():
+        zero_ct = module.pos_emb_funct().to(torch.bfloat16)
+    module.pos_emb_funct.ct_correct = True
+    m = copy.deepcopy(module).to(torch.bfloat16)
+    with torch.no_grad():
+        qkv = m.qkv(x.bfloat16()).contiguous()
+        ct = m.pos_emb_funct().contiguous()
+    gc_ = torch.randn(b, s, dim, device="cuda", generator=gen,
+                      dtype=torch.bfloat16)
+    qkv_w = qkv[:, n_ct:].contiguous()
+    bias_w = zero_ct[:, n_ct:, n_ct:].contiguous()
+    g_w = gc_[:, n_ct:].contiguous()
+    fwd_k = (cuda_attention.window_mhsa_long_cuda if long
+             else cuda_attention.window_mhsa_cuda)
+    bwd_k = (cuda_attention.window_mhsa_long_backward_cuda if long
+             else cuda_attention.window_mhsa_backward_cuda)
+    fwd_plain = (attention.window_mhsa_long_reference if long
+                 else attention.window_mhsa_reference)
+    scale = m.scale
+    with torch.no_grad():
+        fwd_t = probes.in_turns({
+            "ct": lambda: fwd_k(qkv, ct, heads, scale),
+            "zero": lambda: fwd_k(qkv, zero_ct, heads, scale),
+            "window": lambda: fwd_k(qkv_w, bias_w, heads, scale),
+            "plain": lambda: fwd_plain(qkv, ct, heads, scale)}, iters)
+        bwd_t = probes.in_turns({
+            "ct": lambda: bwd_k(qkv, ct, gc_, heads, scale),
+            "zero": lambda: bwd_k(qkv, zero_ct, gc_, heads, scale),
+            "window": lambda: bwd_k(qkv_w, bias_w, g_w, heads, scale),
+            "plain": lambda: attention.window_mhsa_backward_reference(
+                qkv, ct, gc_, heads, scale)}, iters)
+    nbytes = 2 * (qkv.numel() + ct.numel() + b * s * dim)
+    flops = 4.0 * b * heads * s * s * hd
+    # the backward reads qkv, the bias and g, writes dqkv and dbias, and
+    # recomputes q kᵀ beside its four products (dP, dq, dk, dv)
+    work = ((nbytes, flops),
+            (2 * (2 * qkv.numel() + 2 * ct.numel() + b * s * dim),
+             2.5 * flops))
+    bounds = tuple(bound_ms(*w) for w in work)
+    smi = card()
+    for k, t, bound, w in ((fk, fwd_t, bounds[0], work[0]),
+                           (bk, bwd_t, bounds[1], work[1])):
+        print(f"ct_correct (phase 49): {k} at {what} bf16: {t['ct']:.4f} ms "
+              f"on the ct_correct bias, {t['zero']:.4f} ms on the "
+              f"zero-carrier bias, {t['window']:.4f} ms on the window alone "
+              f"(S {s - n_ct}), plain version {t['plain']:.4f} ms, "
+              f"bound {bound:.4f} ms by {bound_by(*w)} [{smi}]")
+    out["times"] = {fk: fwd_t, bk: bwd_t}
+    out["bounds"] = {fk: bounds[0], bk: bounds[1]}
+    return out
+
+
+def embeddings_card_vs_cpu(cuda_attention, layers) -> None:
+    """The rank-1 PosEmbMLPSwinv1D and the rectangular, pretrained-window
+    and no-log PosEmbMLPSwinv2D in fp32 on the card against the CPU: no
+    kernel launch (cuBLAS)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(49)
+        mods = {"rank-1 PosEmbMLPSwinv1D (256, 49)":
+                layers.PosEmbMLPSwinv1D(256, 49, rank=1),
+                "PosEmbMLPSwinv2D window (3, 5)":
+                layers.PosEmbMLPSwinv2D((3, 5), 8, 15),
+                "PosEmbMLPSwinv2D window 7, pretrained (12, 12)":
+                layers.PosEmbMLPSwinv2D(7, 8, 53,
+                                        pretrained_window_size=(12, 12)),
+                "PosEmbMLPSwinv2D window 7, no_log":
+                layers.PosEmbMLPSwinv2D(7, 8, 53, no_log=True)}
+    x = torch.randn(4, 49, 256, generator=torch.Generator().manual_seed(49))
+    reset_launches(cuda_attention)
+    for what, m in mods.items():
+        rank1 = isinstance(m, layers.PosEmbMLPSwinv1D)
+        with torch.no_grad():
+            want = m(x) if rank1 else m()
+            gpu = copy.deepcopy(m).cuda()
+            got = (gpu(x.cuda()) if rank1 else gpu()).cpu()
+        err = rel_err(got, want)
+        print(f"ct_correct (phase 49): {what} card vs CPU {err:.3e} (tol "
+              f"{TOL_FP32})")
+        check(got.shape == want.shape and err <= TOL_FP32,
+              f"{what}: card vs CPU {err}")
+    check(launches(cuda_attention) == (0, 0, 0, 0),
+          "the position embeddings launched a kernel")
+
+
+def ct_correct_phase(cuda_attention, attention) -> dict:
+    """Phase 49: WindowAttention(ct_correct=True) through K1-K4 against
+    the plain versions at CT_CASES, then the other embedding options card
+    against CPU. Returns each kernel's launches and times."""
+    from fastervit_tpu_torch.models import layers
+    t0 = time.perf_counter()
+    cases = [ct_correct_case(cuda_attention, attention, layers, c)
+             for c in CT_CASES]
+    embeddings_card_vs_cpu(cuda_attention, layers)
+    out = {"launches": [sum(c["launches"][i] for c in cases)
+                        for i in range(4)],
+           "times": {k: v for c in cases for k, v in c["times"].items()},
+           "bounds": {k: v for c in cases for k, v in c["bounds"].items()}}
+    out["secs"] = time.perf_counter() - t0
+    print(f"ct_correct (phase 49): K1, K2, K3, K4 launches {out['launches']}; "
+          f"{out['secs']:.1f} s [{card()}]")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke run needs an NVIDIA GPU",
@@ -7303,6 +7611,17 @@ def main() -> None:
 
     # 48. dropout: the plain attention route in training, K1 at eval
     dropout_phase(fvt, cuda_attention, steps, mixup)
+
+    # 49. the module options: WindowAttention(ct_correct=True) through
+    #     K1-K4 against the plain versions, timed; the rank-1,
+    #     rectangular, pretrained-window and no-log embeddings card vs CPU
+    ct = ct_correct_phase(cuda_attention, attention)
+    for k, n in zip((k1, k2, k3, k4), ct["launches"]):
+        k["launches_ct_correct"] = n
+        k["launches_ct_correct_in"] = (
+            "phase 49: WindowAttention(ct_correct=True) forward and "
+            "backward in bf16 and fp32 at " + ", ".join(
+                c[0] for c in CT_CASES))
 
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, p1, p2,
                                   *gathers, k7]}))

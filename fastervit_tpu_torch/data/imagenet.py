@@ -6,8 +6,8 @@ split across processes (`process_index`, `process_count`). Decode and
 resize run in a thread pool, or in the native (C++) runtime where it built;
 batches come out as numpy NHWC float32, which the caller moves to its
 device. `SyntheticLoader` (data/synthetic.py) covers runs without data.
-LMDB datasets are not ported: the `lmdb` package is on neither of the
-port's machines.
+With `use_lmdb` the images are read from the LMDB database beside the
+root (data/lmdb_dataset.py) instead of the folder.
 """
 from __future__ import annotations
 
@@ -22,16 +22,9 @@ from fastervit_tpu_torch.data.synthetic import SyntheticLoader
 from fastervit_tpu_torch.models.config import DataConfig
 
 __all__ = ["IMG_EXTENSIONS", "EvalLoader", "SyntheticLoader",
-           "index_image_folder", "refuse_lmdb"]
+           "index_image_folder"]
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
-
-
-def refuse_lmdb(use_lmdb: bool) -> None:
-    if use_lmdb:
-        raise NotImplementedError(
-            "LMDB datasets are not ported: the lmdb package is on neither "
-            "machine (ROADMAP.md, 'Out of reach')")
 
 
 def index_image_folder(root: str) -> Tuple[List[str], List[int], List[str]]:
@@ -55,15 +48,24 @@ class EvalLoader:
     `class_to_idx` remaps folder class names to label ids, for
     ImageNet-A/R/V2 style subsets whose folders map into the 1k label
     space (reference README robustness table, README.md:286-367). `tta` 2
-    yields each image and its horizontal flip, one after the other."""
+    yields each image and its horizontal flip, one after the other. With
+    `use_lmdb` the index and the images come from the LMDB database
+    beside `root` (`lmdb_dataset.LmdbImageReader`)."""
 
     def __init__(self, root: str, cfg: DataConfig, batch_size: int,
                  num_workers: int = 16, process_index: int = 0,
                  process_count: int = 1, class_to_idx: Optional[dict] = None,
                  tta: int = 0, use_lmdb: bool = False,
                  use_native: str = "auto"):
-        refuse_lmdb(use_lmdb)
-        paths, labels, self.classes = index_image_folder(root)
+        if use_lmdb:
+            # LMDB-backed ImageNet (reference utils/datasets.py:458-498)
+            from fastervit_tpu_torch.data.lmdb_dataset import (
+                LmdbImageReader, load_lmdb_index)
+            paths, labels, self.classes = load_lmdb_index(root)
+            self.reader = LmdbImageReader(root)
+        else:
+            paths, labels, self.classes = index_image_folder(root)
+            self.reader = None
         if class_to_idx is not None:
             remap = np.asarray([class_to_idx[c] for c in self.classes])
             labels = remap[np.asarray(labels)]
@@ -88,22 +90,31 @@ class EvalLoader:
         per_batch = self.batch_size // (self.tta if self.tta > 1 else 1)
         return (len(self.paths) + per_batch - 1) // per_batch
 
+    def _transform(self, path: str) -> np.ndarray:
+        """One image through the PIL path, opened from the folder or, with
+        LMDB, read and decoded from the database."""
+        src = self.reader.read(path) if self.reader is not None else path
+        return eval_transform(src, self.cfg)
+
     def _native_chunk(self, chunk) -> list:
         """Decode+resize+crop+normalize a chunk through the native (C++)
         batch runtime; per-image fallback to the PIL path for images the
         native decoder declines (non-JPEG, CMYK)."""
         from fastervit_tpu_torch.data import native
-        bufs = []
-        for p in chunk:
-            with open(p, "rb") as f:
-                bufs.append(f.read())
+        if self.reader is not None:
+            bufs = [self.reader.read_bytes(p) for p in chunk]
+        else:
+            bufs = []
+            for p in chunk:
+                with open(p, "rb") as f:
+                    bufs.append(f.read())
         h, w = self.cfg.input_size
         out, ok = native.eval_batch(
             bufs, (h, w), self.cfg.crop_pct, self.cfg.crop_mode == "squash",
             self.cfg.mean, self.cfg.std, num_threads=self.num_workers)
         imgs = list(out)
         for i in np.nonzero(~ok)[0]:
-            imgs[i] = eval_transform(chunk[i], self.cfg)
+            imgs[i] = self._transform(chunk[i])
         return imgs
 
     def __iter__(self) -> Iterator[dict]:
@@ -116,8 +127,7 @@ class EvalLoader:
                 if self.use_native:
                     imgs = self._native_chunk(chunk)
                 else:
-                    imgs = list(pool.map(
-                        lambda p: eval_transform(p, self.cfg), chunk))
+                    imgs = list(pool.map(self._transform, chunk))
                 if factor == 2:
                     imgs = [im for x in imgs for im in (x, x[:, ::-1])]
                 n = len(imgs)

@@ -3,7 +3,8 @@ random-resized-crop + hflip + RandAugment + normalize + RandomErasing
 (reference timm create_loader recipe,
 train.py:624-669: RRC scale (0.08, 1.0), hflip 0.5, rand-m9-mstd0.5-inc1,
 reprob 0.25 'pixel'). Mixup/CutMix runs in the train step
-(train/mixup.py). LMDB datasets are not ported (data/imagenet.py)."""
+(train/mixup.py). With `use_lmdb` the images are read from the LMDB
+database beside the root (data/lmdb_dataset.py)."""
 from __future__ import annotations
 
 import concurrent.futures as cf
@@ -14,7 +15,7 @@ from typing import Optional
 import numpy as np
 from PIL import Image
 
-from fastervit_tpu_torch.data.imagenet import index_image_folder, refuse_lmdb
+from fastervit_tpu_torch.data.imagenet import index_image_folder
 from fastervit_tpu_torch.data.preprocess import load_image, normalize
 from fastervit_tpu_torch.data.randaugment import create_randaugment
 from fastervit_tpu_torch.models.config import DataConfig
@@ -88,8 +89,15 @@ class TrainLoader:
                  num_workers: int = 16, seed: int = 42,
                  process_index: int = 0, process_count: int = 1,
                  use_lmdb: bool = False, use_native: str = "auto"):
-        refuse_lmdb(use_lmdb)
-        paths, labels, self.classes = index_image_folder(root)
+        if use_lmdb:
+            # LMDB-backed ImageNet (reference utils/datasets.py:458-498)
+            from fastervit_tpu_torch.data.lmdb_dataset import (
+                LmdbImageReader, load_lmdb_index)
+            paths, labels, self.classes = load_lmdb_index(root)
+            self.reader = LmdbImageReader(root)
+        else:
+            paths, labels, self.classes = index_image_folder(root)
+            self.reader = None
         self.paths = paths[process_index::process_count]
         self.labels = np.asarray(labels[process_index::process_count], np.int32)
         self.cfg = cfg
@@ -112,8 +120,9 @@ class TrainLoader:
     def __len__(self):
         return len(self.paths) // self.batch_size
 
-    @staticmethod
-    def _read_bytes(path: str) -> bytes:
+    def _read_bytes(self, path: str) -> bytes:
+        if self.reader is not None:
+            return self.reader.read_bytes(path)
         with open(path, "rb") as f:
             return f.read()
 
@@ -130,7 +139,7 @@ class TrainLoader:
 
     def _load_one(self, path: str, seed: int) -> np.ndarray:
         rng = random.Random(seed)
-        img = load_image(path)
+        img = load_image(self.reader.read(path) if self.reader else path)
         img = random_resized_crop(img, self.cfg.input_size, rng)
         if rng.random() < self.hflip:
             img = img.transpose(Image.FLIP_LEFT_RIGHT)

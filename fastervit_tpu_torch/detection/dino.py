@@ -466,7 +466,10 @@ def cdn_loss(outputs: Dict, tgt: Dict[str, torch.Tensor], meta: Dict,
     and padded slots are background; the focal class loss, L1 and GIoU,
     each over max(1, valid targets)·groups. tgt: padded targets as
     tensors. Returns loss_ce_dn, loss_bbox_dn, loss_giou_dn and loss_dn
-    (their sum at the box weights)."""
+    (their sum at the box weights). The targets counted are this
+    process's: a data-parallel caller divides by the group's count
+    instead (`parallel.data_parallel.global_num_boxes`), as
+    `engine.detection_loss` does; no training step calls this one."""
     labels, boxes, mask = tgt["labels"].long(), tgt["boxes"], tgt["mask"]
     b, t = labels.shape
     g, n_dn = meta["groups"], meta["n_dn"]

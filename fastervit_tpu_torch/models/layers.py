@@ -5,9 +5,10 @@ Convolutions run on NCHW feature maps; attention runs on token-major
 (B*nW, S, C) windows. Module and parameter names follow the upstream
 FasterViT state_dict, so an upstream checkpoint, or JAX variables through
 `fastervit_tpu_torch.utils.convert.state_dict_from_jax`, load as they are.
-The constant tables (CPB log coordinates, relative-position index, rank-2
-coordinate grid) are non-persistent buffers, made with torch.as_tensor on the
-default device, which `create_model` sets to the device it builds on.
+The constant tables (CPB log coordinates, relative-position index, the
+ct_correct index, rank-1 and rank-2 coordinate grids) are non-persistent
+buffers, made with torch.as_tensor on the default device, which
+`create_model` sets to the device it builds on.
 
 Deploy mode (upstream's switch_to_deploy, the JAX package's
 `Model.bake_posemb`): each position-embedding module has a non-persistent
@@ -219,6 +220,15 @@ def _rank2_coords(seq_length: int) -> np.ndarray:
     return table.reshape(2, -1).T  # (g*g, 2), raster order
 
 
+def _rank1_coords(seq_length: int) -> np.ndarray:
+    """Normalized 1-D grid for PosEmbMLPSwinv1D rank 1 (the reference's
+    integer-division normalization, seq_length // 2)."""
+    coords = np.arange(seq_length, dtype=np.float32)
+    coords -= seq_length // 2
+    coords /= seq_length // 2
+    return coords[:, None]  # (seq, 1)
+
+
 def _rank2_coords_dynamic(grid_h: int, grid_w: int) -> np.ndarray:
     """The detection backbones' runtime-dynamic variant (fastervit_tpu/
     models/layers.py::_rank2_coords_dynamic): a (grid_h, grid_w) grid
@@ -233,23 +243,30 @@ def _rank2_coords_dynamic(grid_h: int, grid_w: int) -> np.ndarray:
 
 
 class PosEmbMLPSwinv1D(nn.Module):
-    """Absolute position embedding: normalized rank-2 grid -> MLP(2 -> 512 ->
+    """Absolute position embedding: normalized grid -> MLP(rank -> 512 ->
     dim), added to the tokens. In deploy mode the (seq_length, dim)
     embedding is read from `relative_bias`.
 
-    With `norm_by_seq` (the detection backbones' dynamic mode) the grid is
-    `grid`'s (H, W), normalized by the token count; such a site is never
+    At `rank` 2 the grid is the square of seq_length's tokens; at rank 1
+    it is the line of them (`_rank1_coords`), and `grid` and `norm_by_seq`
+    do not apply to it, as in the JAX package (layers.py:126-127). With
+    `norm_by_seq` (the detection backbones' dynamic mode) the rank-2 grid
+    is `grid`'s (H, W), normalized by the token count; such a site is never
     baked, as in the JAX package (layers.py:124), so `bake_posemb` leaves
     it live."""
 
     def __init__(self, dim: int, seq_length: int,
                  grid: Optional[Tuple[int, int]] = None,
-                 norm_by_seq: bool = False):
+                 norm_by_seq: bool = False, rank: int = 2):
         super().__init__()
+        if rank not in (1, 2):
+            raise ValueError(f"PosEmbMLPSwinv1D rank {rank}: 1 or 2")
         self.norm_by_seq = norm_by_seq
-        self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
+        self.cpb_mlp = nn.Sequential(nn.Linear(rank, 512), nn.ReLU(),
                                      nn.Linear(512, dim, bias=False))
-        if norm_by_seq:
+        if rank == 1:
+            coords = _rank1_coords(seq_length)
+        elif norm_by_seq:
             gh, gw = grid or (int(seq_length ** 0.5),) * 2
             coords = _rank2_coords_dynamic(gh, gw)
         else:
@@ -268,28 +285,59 @@ class PosEmbMLPSwinv1D(nn.Module):
         return x + pos[None]
 
 
-def _log_cpb_table(window_size: int) -> np.ndarray:
-    """Log-spaced relative-coordinate table (SwinV2 CPB, with the pretrained
-    window equal to the window)."""
-    rel = np.arange(-(window_size - 1), window_size, dtype=np.float32)
-    table = np.stack(np.meshgrid(rel, rel, indexing="ij"), axis=-1)
-    table /= window_size - 1
-    table *= 8.0
-    table = np.sign(table) * np.log2(np.abs(table) + 1.0) / np.log2(8.0)
-    return table.reshape(-1, 2).astype(np.float32)  # ((2w-1)^2, 2)
+def _pair(size) -> Tuple[int, int]:
+    """An int or an (h, w) pair -> (h, w)."""
+    if isinstance(size, int):
+        return size, size
+    h, w = size
+    return int(h), int(w)
 
 
-def _relative_position_index(window_size: int) -> np.ndarray:
-    """(S, S) index into the CPB table, S = window_size^2."""
-    w = window_size
-    coords = np.stack(np.meshgrid(np.arange(w), np.arange(w), indexing="ij"))
+def _log_cpb_table(window_size: Tuple[int, int],
+                   pretrained_window_size: Tuple[int, int],
+                   no_log: bool) -> np.ndarray:
+    """Relative-coordinate table of a (wh, ww) window (SwinV2 CPB, JAX
+    layers.py:147-166): the offsets over the pretrained window's extent
+    less one (the window's where that is 0), then log-spaced unless
+    `no_log`. ((2wh-1)(2ww-1), 2), row offset first."""
+    wh, ww = window_size
+    rel_h = np.arange(-(wh - 1), wh, dtype=np.float32)
+    rel_w = np.arange(-(ww - 1), ww, dtype=np.float32)
+    table = np.stack(np.meshgrid(rel_h, rel_w, indexing="ij"), axis=-1)
+    pwh, pww = pretrained_window_size
+    if pwh > 0:
+        table[..., 0] /= (pwh - 1)
+        table[..., 1] /= (pww - 1)
+    else:
+        table[..., 0] /= (wh - 1)
+        table[..., 1] /= (ww - 1)
+    if not no_log:
+        table *= 8.0
+        table = np.sign(table) * np.log2(np.abs(table) + 1.0) / np.log2(8.0)
+    return table.reshape(-1, 2).astype(np.float32)
+
+
+def _relative_position_index(window_size: Tuple[int, int]) -> np.ndarray:
+    """(S, S) index into the CPB table, S = wh·ww."""
+    wh, ww = window_size
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
     flat = coords.reshape(2, -1)
     rel = flat[:, :, None] - flat[:, None, :]  # (2, S, S)
     rel = rel.transpose(1, 2, 0).copy()
-    rel[:, :, 0] += w - 1
-    rel[:, :, 1] += w - 1
-    rel[:, :, 0] *= 2 * w - 1
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
+
+
+def _ct_correct_indices(window_size: int, n_global: int) -> list:
+    """The window tokens whose bias rows and columns the carrier tokens
+    take in the ct_correct mode (reference faster_vit.py:283-295; JAX
+    layers.py:182-189)."""
+    step = window_size / (n_global ** 0.5 + 1)
+    g = int(n_global ** 0.5)
+    return [int((i + 1) * step * window_size + (j + 1) * step)
+            for i in range(g) for j in range(g)]
 
 
 # How PosEmbMLPSwinv2D expands its CPB table into the dense (H, S, S) bias,
@@ -324,29 +372,47 @@ class PosEmbMLPSwinv2D(nn.Module):
     """SwinV2-style continuous relative position bias, returned as a dense
     (num_heads, seq_length, seq_length) tensor for the attention kernel.
 
-    16·sigmoid is applied to the small table before the expansion (the two
-    commute). Carrier-token rows and columns, the seq_length - window² first
-    ones, are zero. The (S², ) gather index is kept only for windows that
-    'auto' expands by gather: at S = 2304 it would take 42.5 MB a module.
-    In deploy mode the bias is read from `relative_bias`."""
+    `window_size` is an int or (wh, ww); the table's coordinates are
+    spread over `pretrained_window_size` (default: the window) and
+    log-spaced unless `no_log`. 16·sigmoid is applied to the small table
+    before the expansion (the two commute). The carrier tokens are the
+    seq_length - wh·ww first ones: their rows and columns are zero, or,
+    with `ct_correct`, the bias rows and columns of the window tokens at
+    `_ct_correct_indices` (JAX layers.py:314-326), the window block then
+    zero. The (S², ) gather index is kept only for windows that 'auto'
+    expands by gather: at S = 2304 it would take 42.5 MB a module. In
+    deploy mode the bias is read from `relative_bias`."""
 
-    def __init__(self, window_size: int, num_heads: int, seq_length: int):
+    def __init__(self, window_size, num_heads: int, seq_length: int,
+                 pretrained_window_size=None, no_log: bool = False,
+                 ct_correct: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        self.window_size = window_size
-        self.window_tokens = window_size * window_size
+        self.window_size = _pair(window_size)
+        pretrained = _pair(window_size if pretrained_window_size is None
+                           else pretrained_window_size)
+        self.window_tokens = self.window_size[0] * self.window_size[1]
         self.seq_length = seq_length
         self.cpb_mlp = nn.Sequential(nn.Linear(2, 512), nn.ReLU(),
                                      nn.Linear(512, num_heads, bias=False))
-        self.register_buffer("relative_coords_table",
-                             torch.as_tensor(_log_cpb_table(window_size)),
-                             persistent=False)
+        self.register_buffer(
+            "relative_coords_table",
+            torch.as_tensor(_log_cpb_table(self.window_size, pretrained,
+                                           no_log)),
+            persistent=False)
         index = None
         if self.window_tokens < _SEPARABLE_MIN_S:
             index = torch.as_tensor(
-                _relative_position_index(window_size).reshape(-1))
+                _relative_position_index(self.window_size).reshape(-1))
         self.register_buffer("relative_position_index", index,
                              persistent=False)
+        n_global = seq_length - self.window_tokens
+        self.ct_correct = ct_correct and n_global > 0
+        self.register_buffer(
+            "ct_correct_index",
+            torch.as_tensor(_ct_correct_indices(self.window_size[0],
+                                                n_global))
+            if self.ct_correct else None, persistent=False)
         self.register_buffer("relative_bias", None, persistent=False)
 
     def _expand_gather(self, table: torch.Tensor) -> torch.Tensor:
@@ -359,15 +425,26 @@ class PosEmbMLPSwinv2D(nn.Module):
         return table[index].reshape(s, s, self.num_heads).permute(2, 0, 1)
 
     def _expand_separable(self, table: torch.Tensor) -> torch.Tensor:
-        # bias[h, (rp, cp), (rq, cq)] = T[rp - rq + w - 1, cp - cq + w - 1, h]
+        # bias[h, (rp, cp), (rq, cq)] = T[rp - rq + wh - 1, cp - cq + ww - 1, h]
         # is block-Toeplitz in the 2D offsets, so the S²-row gather factors
         # into two one-hot contractions that write the (H, S, S) layout
-        w, s = self.window_size, self.window_tokens
-        t3 = table.reshape(2 * w - 1, 2 * w - 1, self.num_heads)
-        onehot = _delta_onehot(w, table.dtype, table.device)
-        m1 = torch.einsum("pqa,abh->pqbh", onehot, t3)
-        bias = torch.einsum("xyb,pqbh->hpxqy", onehot, m1)
+        (wh, ww), s = self.window_size, self.window_tokens
+        t3 = table.reshape(2 * wh - 1, 2 * ww - 1, self.num_heads)
+        m1 = torch.einsum("pqa,abh->pqbh",
+                          _delta_onehot(wh, table.dtype, table.device), t3)
+        bias = torch.einsum("xyb,pqbh->hpxqy",
+                            _delta_onehot(ww, table.dtype, table.device), m1)
         return bias.reshape(self.num_heads, s, s)
+
+    def _ct_corrected(self, bias: torch.Tensor) -> torch.Tensor:
+        """The (H, S, S) bias of the ct_correct mode from the window's
+        (H, s, s): [[bias[idx, idx], bias[idx, :]], [bias[:, idx], 0]]."""
+        idx, s = self.ct_correct_index, self.window_tokens
+        rows = bias[:, idx]                                   # (H, n, s)
+        top = torch.cat([rows[:, :, idx], rows], 2)           # (H, n, S)
+        bottom = torch.cat([bias[:, :, idx], bias.new_zeros(
+            self.num_heads, s, s)], 2)                        # (H, s, S)
+        return torch.cat([top, bottom], 1)
 
     def compute(self) -> torch.Tensor:
         """The dense (num_heads, seq_length, seq_length) bias, from the
@@ -380,7 +457,9 @@ class PosEmbMLPSwinv2D(nn.Module):
         bias = (self._expand_separable(table) if mode == "separable"
                 else self._expand_gather(table))
         n_global = self.seq_length - self.window_tokens
-        if n_global > 0:
+        if self.ct_correct:
+            bias = self._ct_corrected(bias)
+        elif n_global > 0:
             bias = F.pad(bias, (n_global, 0, n_global, 0))
         return bias.contiguous()
 
@@ -407,12 +486,15 @@ class WindowAttention(nn.Module):
     with the dropout, its mask drawn from `generator`
     (`set_drop_path_generator`; torch's default generator if None): the
     JAX package's route for it (ops/attention.py:64-70), since the kernels
-    compute no dropout. In eval mode the kernels run as without dropout."""
+    compute no dropout. In eval mode the kernels run as without dropout.
+
+    `ct_correct` is the bias's carrier-token mode (`PosEmbMLPSwinv2D`);
+    the kernels read the dense bias either way."""
 
     def __init__(self, dim: int, num_heads: int, resolution: int,
                  seq_length: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, ct_correct: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
@@ -421,7 +503,9 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.proj_drop = Dropout(proj_drop)
-        self.pos_emb_funct = PosEmbMLPSwinv2D(resolution, num_heads, seq_length)
+        self.pos_emb_funct = PosEmbMLPSwinv2D(resolution, num_heads,
+                                              seq_length,
+                                              ct_correct=ct_correct)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ctx = window_mhsa(self.qkv(x), self.pos_emb_funct(), self.num_heads,

@@ -124,18 +124,20 @@ def mirrored_flip(x: torch.Tensor) -> torch.Tensor:
 
 
 def global_num_boxes(mask: torch.Tensor) -> torch.Tensor:
-    """The detection losses' divisor: max(1, targets in `mask`), counted
-    over the whole group and divided by its size (the reference criterion's
-    all-reduced num_boxes), so that DDP's gradient average gives the
-    gradient of the global-batch loss. Without a group, mask.sum()
-    clamped to 1."""
+    """The detection losses' divisor under data parallelism: max(1, N)
+    over the group's size, N the targets in `mask` counted over the whole
+    group. Each process's loss is its own sum over that, so DDP's gradient
+    average gives the gradient of the global-batch loss over max(1, N),
+    the JAX criterion's divisor (fastervit_tpu/detection/engine.py:106),
+    also where the group holds fewer targets than processes. Without a
+    group, mask.sum() clamped to 1."""
     n = mask.sum()
     world = world_size()
     if world == 1:
         return n.clamp(min=1)
     n = n.float()
     dist.all_reduce(n)
-    return (n / world).clamp(min=1)
+    return n.clamp(min=1) / world
 
 
 def mean_over_processes(value: torch.Tensor) -> torch.Tensor:

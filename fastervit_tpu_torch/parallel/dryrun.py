@@ -20,7 +20,15 @@ DropPath and dropout rates are 0 here: their masks are drawn a process at
 a time, so they differ from one process's draws over the global batch.
 
     python -m fastervit_tpu_torch.parallel.dryrun --world-size 2 \\
-        --device cpu [--out result.json]
+        --device cpu [--out result.json] [--det-targets 1 0]
+
+`--det-targets N ...` runs DINO's step again for each N on a global batch
+that holds N targets in all, one on each of its last N images, reported
+as 'detection_N_targets': with fewer targets than processes, some
+processes hold none, and the losses' divisor is the group's
+(`data_parallel.global_num_boxes`). `--grads DIR` saves each of those
+steps' gradients (after DDP's average and the clip) in
+DIR/detection_N_targets_rank<r>.pt, {parameter name: tensor}.
 
 `--world-size 1` runs in this process with no group. More than one
 process are spawned here, joined over gloo on the CPU or NCCL on the
@@ -33,7 +41,7 @@ import json
 import os
 import socket
 import tempfile
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -113,10 +121,14 @@ def classification_step(device: torch.device, rank: int, world: int
     return out
 
 
-def _det_targets(rng: np.random.RandomState) -> List[Dict]:
+def _det_targets(rng: np.random.RandomState,
+                 total: Optional[int] = None) -> List[Dict]:
+    """Each image's targets: 1 to DET_TARGETS drawn, or, given `total`,
+    one on each of the last `total` images and none on the others."""
     out = []
-    for _ in range(GLOBAL_BATCH):
-        n = rng.randint(1, DET_TARGETS + 1)
+    for i in range(GLOBAL_BATCH):
+        n = (rng.randint(1, DET_TARGETS + 1) if total is None
+             else int(i >= GLOBAL_BATCH - total))
         out.append({"boxes": np.stack([rng.uniform(0.2, 0.8, n),
                                        rng.uniform(0.2, 0.8, n),
                                        rng.uniform(0.05, 0.3, n),
@@ -127,9 +139,12 @@ def _det_targets(rng: np.random.RandomState) -> List[Dict]:
     return out
 
 
-def detection_step(device: torch.device, rank: int, world: int) -> Dict:
+def detection_step(device: torch.device, rank: int, world: int,
+                   targets: Optional[int] = None,
+                   grads_to: Optional[str] = None) -> Dict:
     """DINO's two-phase step: matching pass, host Hungarian, gradient
-    pass."""
+    pass; on `targets` targets in all where given (`_det_targets`). With
+    `grads_to`, the step's gradients are saved there."""
     from fastervit_tpu_torch.detection import engine
     from fastervit_tpu_torch.detection.dino import DINODetector, init_weights
     from fastervit_tpu_torch.models.registry import get_config
@@ -143,7 +158,7 @@ def detection_step(device: torch.device, rank: int, world: int) -> Dict:
     det.eval()
     rng = np.random.RandomState(SEED + 2)
     x = rng.randn(GLOBAL_BATCH, 3, *DET_CANVAS).astype(np.float32)
-    targets = _det_targets(rng)
+    targets = _det_targets(rng, targets)
     n = GLOBAL_BATCH // world
     images = torch.from_numpy(_rows(x, rank, world)).to(device)
     tgt = engine.targets_on(engine.pad_targets(
@@ -158,6 +173,9 @@ def detection_step(device: torch.device, rank: int, world: int) -> Dict:
     state.ddp = data_parallel.wrap_model(det, device, sync_bn=False,
                                          find_unused_parameters=True)
     got = engine.make_detection_train_step()(state, images, tgt, assignment)
+    if grads_to:
+        torch.save({name: p.grad.detach().cpu()
+                    for name, p in det.named_parameters()}, grads_to)
     return {"loss": float(got["loss"]), "grad_norm": float(got["grad_norm"])}
 
 
@@ -201,19 +219,28 @@ def tracking_step(device: torch.device, rank: int, world: int) -> Dict:
     return {"loss": float(got["loss"]), "grad_norm": float(got["grad_norm"])}
 
 
-def run_steps(device: torch.device, rank: int, world: int) -> Dict:
-    return {"classification": classification_step(device, rank, world),
-            "detection": detection_step(device, rank, world),
-            "tracking": tracking_step(device, rank, world)}
+def run_steps(device: torch.device, rank: int, world: int,
+              det_targets: Sequence[int] = (),
+              grads_dir: Optional[str] = None) -> Dict:
+    out = {"classification": classification_step(device, rank, world),
+           "detection": detection_step(device, rank, world),
+           "tracking": tracking_step(device, rank, world)}
+    for n in det_targets:
+        key = f"detection_{n}_targets"
+        out[key] = detection_step(
+            device, rank, world, n,
+            grads_dir and os.path.join(grads_dir, f"{key}_rank{rank}.pt"))
+    return out
 
 
 def _worker(rank: int, world: int, address: str, device: str,
-            out_dir: str) -> None:
+            out_dir: str, det_targets: Sequence[int],
+            grads_dir: Optional[str]) -> None:
     from fastervit_tpu_torch.parallel import distributed
     torch.set_num_threads(2)
     info = distributed.initialize(address, world, rank, device)
     try:
-        got = run_steps(info["device"], rank, world)
+        got = run_steps(info["device"], rank, world, det_targets, grads_dir)
     finally:
         torch.distributed.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -226,15 +253,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun(world_size: int, device: str = "cpu") -> List[Dict]:
+def dryrun(world_size: int, device: str = "cpu",
+           det_targets: Sequence[int] = (),
+           grads_dir: Optional[str] = None) -> List[Dict]:
     """Each process's results, by rank (one entry for a world of 1, run in
     this process with no group)."""
     if world_size == 1:
-        return [run_steps(torch.device(device), 0, 1)]
+        return [run_steps(torch.device(device), 0, 1, det_targets,
+                          grads_dir)]
     import torch.multiprocessing as mp
     address = f"localhost:{_free_port()}"
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_worker, args=(world_size, address, device, tmp),
+        mp.start_processes(_worker, args=(world_size, address, device, tmp,
+                                          tuple(det_targets), grads_dir),
                            nprocs=world_size, start_method="spawn")
         results = []
         for r in range(world_size):
@@ -250,10 +281,19 @@ def main(argv=None) -> List[Dict]:
     p.add_argument("--device", default="cuda",
                    help="'cpu' (gloo) or 'cuda' (NCCL, a card a process)")
     p.add_argument("--out", default="", help="write the results as JSON")
+    p.add_argument("--det-targets", nargs="*", type=int, default=[],
+                   help="run DINO's step again on a global batch of N "
+                        "targets in all, for each N given (0 to "
+                        f"{GLOBAL_BATCH})")
+    p.add_argument("--grads", default="",
+                   help="save the --det-targets steps' gradients here")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass --device cpu")
-    results = dryrun(args.world_size, args.device)
+    if any(not 0 <= n <= GLOBAL_BATCH for n in args.det_targets):
+        p.error(f"--det-targets: counts from 0 to {GLOBAL_BATCH}")
+    results = dryrun(args.world_size, args.device, args.det_targets,
+                     args.grads or None)
     for path, got in results[0].items():
         print(f"dryrun[{path}] world {args.world_size}: loss "
               f"{got['loss']}, grad norm {got['grad_norm']}")

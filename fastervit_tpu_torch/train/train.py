@@ -35,8 +35,8 @@ the random draws go on where they stopped, but starts its epoch loop at 0
 again (ROADMAP.md). --tensorboard writes scalars to <output>/tb[/
 <experiment>], --log-wandb to Weights & Biases under --experiment's name;
 each logs a warning and goes on where its package is missing.
---lmdb-dataset raises NotImplementedError (the lmdb package is on neither
-machine).
+--lmdb-dataset reads <data-dir>/train and <data-dir>/val from the LMDB
+databases beside them (data/lmdb_dataset.py; the lmdb package is needed).
 
 Data parallel (`parallel/`): launched by torchrun or SLURM, each process
 joins the group (`parallel.distributed.initialize`: NCCL on the card
@@ -85,12 +85,6 @@ from fastervit_tpu_torch.utils.preemption import (REQUEUE_EXIT_CODE,
 
 log = logging.getLogger("fastervit_tpu_torch.train")
 
-_NOT_PORTED = {
-    "lmdb_dataset": "--lmdb-dataset (the lmdb package is on neither "
-                    "machine: ROADMAP.md, 'Out of reach')",
-}
-
-
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-c", "--config", default="",
@@ -102,7 +96,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on ('cuda', 'cuda:1', 'cpu')")
     p.add_argument("--data-dir", default=None)
-    p.add_argument("--lmdb-dataset", action="store_true")
+    p.add_argument("--lmdb-dataset", action="store_true",
+                   help="LMDB-backed ImageNet (reference --lmdb_dataset, "
+                        "utils/datasets.py:458-498)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("-b", "--batch-size", type=int, default=128)
@@ -207,19 +203,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def _check_ported(args: argparse.Namespace) -> None:
-    for dest, what in _NOT_PORTED.items():
-        if getattr(args, dest):
-            raise NotImplementedError(f"{what} is not ported yet")
-
-
 def make_loaders(args: argparse.Namespace, data_cfg, steps_per_epoch: int,
                  process_index: int = 0, process_count: int = 1):
     """(train, eval) loaders of this process's share: synthetic with
     --synthetic or without --data-dir (at most 32 train batches an epoch, 4
     eval batches; seeds 2r and 2r + 1 on rank r), else TrainLoader over
-    <data-dir>/train and EvalLoader over <data-dir>/val, every
-    process_count-th image from process_index's (JAX train.py:113-128)."""
+    <data-dir>/train and EvalLoader over <data-dir>/val (their LMDB
+    databases with --lmdb-dataset), every process_count-th image from
+    process_index's (JAX train.py:113-128)."""
     if args.synthetic or not args.data_dir:
         return (SyntheticLoader(data_cfg, args.batch_size,
                                 num_batches=min(steps_per_epoch, 32),
@@ -233,10 +224,12 @@ def make_loaders(args: argparse.Namespace, data_cfg, steps_per_epoch: int,
     return (TrainLoader(os.path.join(args.data_dir, "train"), data_cfg,
                         args.batch_size, seed=args.seed,
                         process_index=process_index,
-                        process_count=process_count),
+                        process_count=process_count,
+                        use_lmdb=args.lmdb_dataset),
             EvalLoader(os.path.join(args.data_dir, "val"), data_cfg,
                        args.batch_size, process_index=process_index,
-                       process_count=process_count))
+                       process_count=process_count,
+                       use_lmdb=args.lmdb_dataset))
 
 
 def _device(name: str) -> torch.device:
@@ -263,7 +256,6 @@ def _snapshot_code(output_dir: str) -> None:
 def train(args: argparse.Namespace) -> dict:
     """Train as the arguments say. Returns {'best_<eval metric>': ...,
     'train_losses': the logged steps' losses, in order}."""
-    _check_ported(args)
     _device(args.device)
     joins = not torch.distributed.is_initialized()
     dist_info = distributed.initialize(device=args.device)

@@ -1,7 +1,7 @@
 """Model validation (port of fastervit_tpu/validate.py; reference
 fastervit/validate.py:152-447, rebuilt): top-1/5 and loss of one model, or
-of every model a name wildcard matches, over an image folder or synthetic
-data, on one device; optionally the int8 serving model; a batch that runs
+of every model a name wildcard matches, over an image folder (or its LMDB
+database, --lmdb-dataset) or synthetic data, on one device; optionally the int8 serving model; a batch that runs
 out of device memory is retried at half the batch size.
 
 Usage (on the card unless --device cpu):
@@ -197,7 +197,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="faster_vit_0_224",
                    help="name or fnmatch wildcard for bulk validation")
     p.add_argument("--data-dir", default=None)
-    p.add_argument("--lmdb-dataset", action="store_true")
+    p.add_argument("--lmdb-dataset", action="store_true",
+                   help="read data-dir's LMDB database (data/"
+                        "lmdb_dataset.py), not its folders")
     p.add_argument("--checkpoint", default="",
                    help="reference .pth.tar, or a file of save_variables")
     p.add_argument("--use-ema", action="store_true",
@@ -240,11 +242,12 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                                        num_classes=model.cfg.num_classes)
         else:
             from fastervit_tpu_torch.data.imagenet import (EvalLoader,
-                                                           index_image_folder,
-                                                           refuse_lmdb)
-            refuse_lmdb(args.lmdb_dataset)
+                                                           index_image_folder)
             class_to_idx = None
             if args.imagenet_v2:
+                if args.lmdb_dataset:
+                    p.error("--imagenet-v2 reads the folder layout and "
+                            "cannot combine with --lmdb-dataset")
                 class_to_idx = imagenet_v2_class_to_idx(
                     index_image_folder(args.data_dir)[2])
             elif args.class_index_file:
@@ -254,7 +257,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
 
             def make_loader(bs):
                 return EvalLoader(args.data_dir, model.cfg.data, bs,
-                                  class_to_idx=class_to_idx)
+                                  class_to_idx=class_to_idx,
+                                  use_lmdb=args.lmdb_dataset)
         res = validate_with_batch_decay(make_loader, model, args.batch_size,
                                         logit_mask=logit_mask)
         res["model"] = name

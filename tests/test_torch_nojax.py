@@ -21,7 +21,9 @@ benchmark adapter run through the Evaluator over the fixture trees under
 tests/data, the runtime tracker, MOT-file evaluation and the tracking
 tools), int8 serving (ops.quant, a quantised model run), the input
 pipeline (data.imagenet, train_loader, cifar, randaugment, real_labels,
-native), the validate CLI on --synthetic --device cpu with --int8, the
+native, lmdb_dataset over an in-process stand-in for lmdb), the module
+options (ct_correct, the rank-1 grid, a rectangular, pretrained,
+no-log CPB bias), the validate CLI on --synthetic --device cpu with --int8, the
 panoptic post-processing, the visualizer and the examples (detect
 imported, track run), export (ops.library's operators; utils.export: a
 program exported, saved and loaded, an ONNX graph run by
@@ -66,6 +68,16 @@ with torch.no_grad():
     assert bias_attention(q, q, q, torch.zeros(2, 144, 144), 0.1).shape == \
         q.shape
 assert baked_from_jax({"params": {}}) == {}
+from fastervit_tpu_torch.models.layers import (PosEmbMLPSwinv1D,
+                                               PosEmbMLPSwinv2D,
+                                               WindowAttention)
+with torch.no_grad():
+    assert WindowAttention(16, 2, 7, 53, ct_correct=True)(
+        torch.zeros(1, 53, 16)).shape == (1, 53, 16)
+    assert PosEmbMLPSwinv1D(8, 5, rank=1)(torch.zeros(1, 5, 8)).shape == \
+        (1, 5, 8)
+    assert PosEmbMLPSwinv2D((3, 5), 2, 15, (12, 12), no_log=True)().shape \
+        == (2, 15, 15)
 cfg = TrainConfig(mixup=MixupConfig(num_classes=10), grad_checkpoint=True)
 step = make_train_step(cfg, lambda t: 1e-3)
 batch = {"image": np.zeros((2, 64, 64, 3), np.float32),
@@ -253,6 +265,20 @@ with tempfile.TemporaryDirectory() as d:
     res = validate.main(["--synthetic", "--device", "cpu", "--batch-size",
                          "2", "--int8", "--dtype", "float32"])
     assert res[0]["count"] == 16
+    from fastervit_tpu_torch.data import lmdb_dataset
+    import types
+    class _Txn(dict):
+        __enter__ = lambda self: self
+        __exit__ = lambda self, *a: False
+        put = dict.__setitem__
+    store = _Txn()
+    env = types.SimpleNamespace(begin=lambda **kw: store, close=lambda: None)
+    sys.modules["lmdb"] = types.SimpleNamespace(
+        open=lambda path, **kw: os.makedirs(path, exist_ok=True) or env)
+    lmdb_dataset.build_imagenet_lmdb(d)
+    assert next(iter(imagenet.EvalLoader(d, cfg64, 2, use_lmdb=True)))[
+        "valid"].sum() == 1
+    del sys.modules["lmdb"]
     pan = panoptic.postprocess_panoptic(np.zeros((2, 3)), np.zeros((2, 4, 4)),
                                         {}, (4, 4))
     assert pan["png_string"].startswith(b"\\x89PNG")

@@ -10,6 +10,11 @@
   and eval sums within 1e-6 (relative; absolute for the statistics), the
   sums taken in another order; both ranks report the same, and hold the
   same parameters after the steps;
+- DINO's step again on global batches of one target and of none (fewer
+  targets than processes: a process holds none): loss, gradient norm and
+  every gradient of the 2-process step equal the one-process step's, the
+  losses' divisor max(1, N) over the group (`global_num_boxes`), as in
+  the JAX criterion;
 - `distributed.resolve` against the JAX package's `initialize`, which
   hands jax.distributed what it resolves, on SLURM's and torchrun's
   variables, and `initialize` with none of them (no group).
@@ -29,21 +34,33 @@ REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-6
 
 
-def _run(world, tmp_path):
+def _run(world, tmp_path, *flags):
     out = tmp_path / f"w{world}.json"
     res = subprocess.run(
         [sys.executable, "-m", "fastervit_tpu_torch.parallel.dryrun",
-         "--world-size", str(world), "--device", "cpu", "--out", str(out)],
+         "--world-size", str(world), "--device", "cpu", "--out", str(out),
+         *flags],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     import json
     return json.loads(out.read_text())["ranks"]
 
 
+FEW_TARGETS = (1, 0)
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    """The dry run in one process and in two, DINO's step run again on
+    FEW_TARGETS targets in all, its gradients saved in tmp/w<world>."""
     tmp = tmp_path_factory.mktemp("dryrun")
-    return {1: dryrun.dryrun(1, "cpu"), 2: _run(2, tmp)}
+    (tmp / "w1").mkdir()
+    (tmp / "w2").mkdir()
+    one = dryrun.dryrun(1, "cpu", det_targets=FEW_TARGETS,
+                        grads_dir=str(tmp / "w1"))
+    two = _run(2, tmp, "--det-targets", *map(str, FEW_TARGETS),
+               "--grads", str(tmp / "w2"))
+    return {1: one, 2: two, "grads": tmp}
 
 
 def _close(a, b, what):
@@ -57,6 +74,30 @@ def test_two_processes_equal_one_on_the_global_batch(worlds, path):
     for key in ("loss", "grad_norm"):
         _close(r0[path][key], one[key], f"{path} {key}")
         assert r0[path][key] == r1[path][key], (path, key)
+
+
+@pytest.mark.parametrize("targets", FEW_TARGETS)
+def test_fewer_targets_than_processes_divide_as_one_process(worlds,
+                                                            targets):
+    """A global batch of `targets` targets over 2 processes: the step's
+    loss, gradient norm and every gradient (within TOL of the largest
+    gradient entry) equal the one-process step's. A divisor of
+    max(1, N / world) would scale the 2-process loss by 1 / 2."""
+    key = f"detection_{targets}_targets"
+    one, two = worlds[1], worlds[2]
+    dir1, dir2 = worlds["grads"] / "w1", worlds["grads"] / "w2"
+    for k in ("loss", "grad_norm"):
+        _close(two[0][key][k], one[0][key][k], f"{key} {k}")
+        assert two[0][key][k] == two[1][key][k], (key, k)
+    want = torch.load(dir1 / f"{key}_rank0.pt")
+    largest = max(float(g.abs().max()) for g in want.values())
+    assert largest > 0
+    for rank in (0, 1):
+        got = torch.load(dir2 / f"{key}_rank{rank}.pt")
+        assert set(got) == set(want)
+        for name, g in want.items():
+            err = float((got[name] - g).abs().max())
+            assert err <= TOL * largest, (key, rank, name, err, largest)
 
 
 def test_batchnorm_statistics_and_eval_sums_are_global(worlds):

@@ -1,8 +1,8 @@
 """The port's training CLI on the CPU: a few steps of a tiny model with the
 fv0 recipe from configs/faster_vit_0_224_1k.yaml, the flat-YAML reader
-against PyYAML on every config, the logging flags, and the flag whose
-machinery is not ported, which raises. (Checkpoints, resume and warm
-start: tests/test_torch_checkpoint.py.)"""
+against PyYAML on every config, the logging flags, and --lmdb-dataset
+as JAX takes it (tests/test_torch_lmdb.py runs it on a database).
+(Checkpoints, resume and warm start: tests/test_torch_checkpoint.py.)"""
 import csv
 import math
 from pathlib import Path
@@ -11,7 +11,7 @@ import pytest
 import yaml
 
 from fastervit_tpu_torch.train import train
-from torch_parity import few_torch_threads  # noqa: F401
+from torch_parity import fake_lmdb, few_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIG = str(REPO / "configs" / "faster_vit_0_224_1k.yaml")
@@ -58,9 +58,22 @@ def test_flat_yaml_reader_refuses_nested_yaml(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--data-dir", "/nonexistent", "--lmdb-dataset"],
     ["--synthetic", "--lmdb-dataset"]])
-def test_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(flags + ["--device", "cpu", "--output", str(tmp_path)])
+def test_unported_flags_raise(flags, tmp_path, fake_lmdb):
+    """--lmdb-dataset as JAX takes it (train.py:113-128):
+    under the lmdb stand-in, a --data-dir with no database beside it
+    raises FileNotFoundError, and with --synthetic the flag is ignored,
+    the synthetic loaders taken (two steps of the tiny model)."""
+    argv = flags + ["--device", "cpu", "--output", str(tmp_path)]
+    if "--synthetic" not in flags:
+        with pytest.raises(FileNotFoundError, match="LMDB"):
+            train.main(argv)
+        return
+    result = train.main(argv + [
+        "--model-kwargs", TINY, "--num-classes", "10", "-b", "4",
+        "--epochs", "1", "--warmup-epochs", "0", "--cooldown-epochs", "0",
+        "--data-len", "8", "--log-interval", "1"])
+    assert len(result["train_losses"]) == 2
+    assert all(math.isfinite(v) for v in result["train_losses"])
 
 
 @pytest.mark.parametrize("flag", ["--tensorboard", "--log-wandb"])

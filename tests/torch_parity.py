@@ -2,6 +2,9 @@
 on the CPU: random variables made with numpy from a seed, and their
 conversion into the port's state_dict."""
 import json
+import os
+import sys
+import types
 from typing import Mapping, Optional
 
 import numpy as np
@@ -101,3 +104,61 @@ def write_coco(root, split: str, sizes, seed: int) -> None:
             "categories": [{"id": c, "name": f"c{c}"} for c in (7, 1, 3)]}
     (root / "annotations" / f"instances_{split}2017.json").write_text(
         json.dumps(coco))
+
+
+class _FakeTxn:
+    def __init__(self, store, write):
+        self.store, self.write = store, write
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+    def put(self, k, v):
+        self.store[bytes(k)] = bytes(v)
+
+    def get(self, k):
+        return self.store.get(bytes(k))
+
+
+class _FakeEnv:
+    """An LMDB environment kept as one JSON file in its directory: the
+    env/txn calls that the LMDB readers and writers make, no more."""
+
+    def __init__(self, path):
+        self.path = path
+        os.makedirs(path, exist_ok=True)
+        self._file = os.path.join(path, "data.json")
+        self.store = {}
+        if os.path.exists(self._file):
+            with open(self._file) as f:
+                self.store = {bytes.fromhex(k): bytes.fromhex(v)
+                              for k, v in json.load(f).items()}
+
+    def begin(self, write=False, buffers=False):
+        return _FakeTxn(self.store, write)
+
+    def close(self):
+        with open(self._file, "w") as f:
+            json.dump({k.hex(): v.hex() for k, v in self.store.items()}, f)
+
+
+@pytest.fixture()
+def fake_lmdb(monkeypatch):
+    """An in-process stand-in for the `lmdb` package (a copy of
+    tests/test_lmdb.py's stub), in sys.modules for the test's duration: a
+    write open makes a new environment from the path's file, a read-only
+    open reuses the path's last one."""
+    mod = types.ModuleType("lmdb")
+    envs = {}
+
+    def open_(path, **kw):
+        if path not in envs or not kw.get("readonly"):
+            envs[path] = _FakeEnv(path)
+        return envs[path]
+
+    mod.open = open_
+    monkeypatch.setitem(sys.modules, "lmdb", mod)
+    return mod
